@@ -5,13 +5,20 @@
 
 Run from the root of a checkout. It builds every hand-written kernel of
 the port from ``src/repro_torch/kernels/csrc`` (into ``build/``), holds
-each kernel bitwise against its plain PyTorch version, then runs
-``repro_torch.api`` on a 1M-point KITTI-like scene queried by its own
-points, in knn and in range mode, and checks the result against the
-brute-force oracle and the port's CPU planning. Phases print one JSON line
-each. The last three lines are the kernel table, the card's name and power
-limit as ``nvidia-smi`` reports them, and
-``{"ok": true, "device": {...}}``. Any failed check raises, so the run
+each kernel bitwise against its plain PyTorch version, then drives two
+paths and checks each against the brute-force oracle:
+
+- the static query path: ``repro_torch.api`` on a 1M-point KITTI-like
+  scene queried by its own points, in knn and in range mode, also checked
+  against the port's CPU planning;
+- the dynamic path: ``SimulationSession.step`` on 1M particles moving by
+  ``benchmarks/fig_dynamic.py``'s trajectory model (8 steps, then one
+  that forces a respec, then one more), with one blocking transfer per
+  step and both kernels launched on every step.
+
+Phases print one JSON line each. The last three lines are the kernel
+table, the card's name and power limit as ``nvidia-smi`` reports them,
+and ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
 exits non-zero; without a CUDA device it exits non-zero at once.
 """
 from __future__ import annotations
@@ -20,6 +27,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -28,6 +36,8 @@ ROOT = Path(__file__).resolve().parent
 KERNELS = {
     "knn_tile_anchored": ("src/repro_torch/kernels/csrc/knn_tile_anchored.cu",
                           "src/repro/kernels/knn_tile.py:293"),
+    "bin_disp_tile": ("src/repro_torch/kernels/csrc/bin_disp_tile.cu",
+                      "src/repro/kernels/update_tile.py:32"),
 }
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32 = 67e12
@@ -36,11 +46,24 @@ PEAK_BYTES = 3.35e12
 # cross product (3 mul + 2 add), qn + pn, 2*cross, the subtraction, the
 # clamp at 0 and the radius test
 OPS_PER_PAIR = 10
+# bin_disp_tile per point: bytes moved (position and anchor read, cell
+# written) and FP32 operations (3 sub, 3 mul, 3 floor, 6 compares, 6 for
+# the clamp; 3 sub, 3 mul, 2 add for the displacement; the max)
+BIN_BYTES_PER_POINT = 36
+BIN_OPS_PER_POINT = 30
 
 N_POINTS = 1_000_000
 RADIUS, K = 0.02, 8        # benchmarks/fig11_speedup.py's KITTI setting
 N_SAMPLE = 4096
 N_KERNEL_TILES = 64
+
+# the dynamic path: benchmarks/fig_dynamic.py's trajectory model at the
+# radius of the KITTI setting, with examples/sph_fluid.py's K_MAX and mode
+DYN_N, DYN_SEED, DYN_RADIUS, DYN_K = 1_000_000, 7, 0.02, 32
+DYN_STEPS = 8              # trajectory frames before the respec step
+DYN_ESCAPEES = 1000        # points moved 0.1 past the box: forces a respec
+N_TIMED_STEPS = 3          # fast steps and replan steps timed, each
+DYN_TILES_PER_LEVEL = 3    # tiles per ladder level held against the plain
 
 
 def emit(phase: str, **fields) -> None:
@@ -139,6 +162,56 @@ def phase_kernel_vs_plain(api, data) -> float:
     return worst
 
 
+def compare_level_tiles(args, kw, per_level: int, tag: str,
+                        limit: int | None = None):
+    """Kernel vs plain version on up to ``per_level`` tiles drawn at random
+    from each level the launch ``args`` uses (at most ``limit`` in all),
+    at the shapes that launch gives the kernel. Returns the max error and
+    the number of tiles checked per level."""
+    import torch
+    plevel = args[4]
+    picks = []
+    for lvl in sorted(set(plevel.tolist())):
+        ids = torch.nonzero(plevel == lvl).flatten()
+        gen = torch.Generator().manual_seed(lvl)
+        pick = torch.randperm(ids.numel(), generator=gen)[:per_level]
+        picks.append(ids[pick.to(ids.device)])
+    tiles = torch.cat(picks)[:limit]
+    tile = kw["tile"]
+    rows = (tiles[:, None] * tile + torch.arange(tile, device=tiles.device)
+            ).flatten()
+    sub = [args[0][rows].contiguous(), args[1], args[2],
+           args[3][tiles].contiguous(), args[4][tiles].contiguous(), args[5]]
+    err = compare_kernel(sub, kw, tag)
+    checked = plevel[tiles].tolist()
+    return err, {lvl: checked.count(lvl) for lvl in sorted(set(checked))}
+
+
+def knn_work(index, args, entries):
+    """What one ``knn_tile_anchored`` launch with ``args`` must do: the
+    valid (query, candidate) pairs its windows hold, every (query, slot)
+    pair it walks, the bytes it must move, the two bound times, and the
+    tiles per window entry."""
+    import torch
+    from repro_torch.core.grid import box_count
+    spec, plevel, tile = index.spec, args[4], index.opts.query_tile
+    ws = args[5][plevel.long(), :3]
+    hi = torch.minimum(args[3] + ws - 1,
+                       torch.tensor([d - 1 for d in spec.dims],
+                                    device=ws.device, dtype=torch.int32))
+    valid_cands = box_count(index.grid.sat, args[3], hi).to(torch.int64)
+    slots = ws.to(torch.int64).prod(-1) * spec.capacity
+    pairs = int(valid_cands.sum()) * tile
+    slot_pairs = int(slots.sum()) * tile
+    nbytes = (sum(a.numel() * 4 for a in args)
+              + args[0].shape[0] * index.params.k * 8)
+    ops_ms = pairs * OPS_PER_PAIR / PEAK_FP32 * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    tiles = {str(entries[lvl]): int((plevel == lvl).sum())
+             for lvl in sorted(set(plevel.tolist()))}
+    return pairs, slot_pairs, nbytes, ops_ms, bytes_ms, tiles
+
+
 def phase_main(api, ref, knn_mod, index, queries, mode: str):
     """One run of the main path, counted and under sync-debug "error",
     then its checks. Returns what the kernel table needs."""
@@ -206,41 +279,12 @@ def phase_main(api, ref, knn_mod, index, queries, mode: str):
 
     # kernel vs plain on tiles sampled across every level
     plevel = args[4]
-    levels_present = sorted(set(plevel.tolist()))
-    per = max(1, N_KERNEL_TILES // len(levels_present))
-    picks = []
-    for lvl in levels_present:
-        ids = torch.nonzero(plevel == lvl).flatten()
-        gen = torch.Generator().manual_seed(lvl)
-        pick = torch.randperm(ids.numel(), generator=gen)[:per]
-        picks.append(ids[pick.to(ids.device)])
-    tiles = torch.cat(picks)[:N_KERNEL_TILES]
-    tile = kw["tile"]
-    rows = (tiles[:, None] * tile + torch.arange(tile, device=tiles.device)
-            ).flatten()
-    sub = [args[0][rows].contiguous(), args[1], args[2],
-           args[3][tiles].contiguous(), args[4][tiles].contiguous(), args[5]]
-    kerr = compare_kernel(sub, kw, f"{mode} main-path tiles")
+    per = max(1, N_KERNEL_TILES // len(set(plevel.tolist())))
+    kerr, checked = compare_level_tiles(args, kw, per, f"{mode} main-path "
+                                        "tiles", limit=N_KERNEL_TILES)
 
-    # the bound: valid (query, candidate) pairs and the bytes moved
-    from repro_torch.core.grid import box_count
-    ws = args[5][plevel.long(), :3]
-    hi = torch.minimum(args[3] + ws - 1,
-                       torch.tensor([d - 1 for d in spec.dims],
-                                    device=ws.device, dtype=torch.int32))
-    valid_cands = box_count(index.grid.sat, args[3], hi).to(torch.int64)
-    slots = (ws.to(torch.int64).prod(-1) * spec.capacity)
-    pairs = int(valid_cands.sum()) * tile
-    slot_pairs = int(slots.sum()) * tile
-    n_rows = args[0].shape[0]
-    nbytes = (args[0].numel() * 4 + args[1].numel() * 4
-              + args[2].numel() * 4 + args[3].numel() * 4
-              + args[4].numel() * 4 + args[5].numel() * 4
-              + n_rows * params.k * 8)
-    ops_ms = pairs * OPS_PER_PAIR / PEAK_FP32 * 1e3
-    bytes_ms = nbytes / PEAK_BYTES * 1e3
-    level_tiles = {str(entries[lvl]): int((plevel == lvl).sum())
-                   for lvl in levels_present}
+    pairs, slot_pairs, nbytes, ops_ms, bytes_ms, level_tiles = knn_work(
+        index, args, entries)
     emit("main_path", mode=mode, n_points=int(index.points.shape[0]),
          n_queries=int(queries.shape[0]), dims=list(spec.dims),
          capacity=spec.capacity, w_full=index.statics.w_full,
@@ -250,12 +294,368 @@ def phase_main(api, ref, knn_mod, index, queries, mode: str):
          sampled=N_SAMPLE,
          brute_force_max_abs_d2_err=err if mode == "knn" else None,
          mean_count=float(res.counts.float().mean()),
-         kernel_tiles_checked=int(tiles.numel()), kernel_max_abs_err=kerr,
+         kernel_tiles_checked=sum(checked.values()),
+         kernel_max_abs_err=kerr,
          valid_pairs=pairs, slot_pairs=slot_pairs, bytes=nbytes,
          bound_ops_ms=ops_ms, bound_bytes_ms=bytes_ms)
     return dict(args=args, kw=kw, launches=launches, err=kerr,
                 bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def trajectory(n: int, steps: int, seed: int, sigma: float):
+    """``benchmarks/fig_dynamic.py``'s ``_trajectory`` written out in numpy
+    (that module imports the JAX package): a per-point velocity random
+    walk, clipped to the unit box. Returns the frames and the last
+    velocities."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pos = rng.random((n, 3)).astype(np.float32)
+    vel = rng.normal(0, sigma, (n, 3)).astype(np.float32)
+    frames = [pos]
+    for _ in range(steps - 1):
+        vel = 0.9 * vel + rng.normal(0, 0.3 * sigma,
+                                     (n, 3)).astype(np.float32)
+        pos = np.clip(pos + vel, 0.0, 1.0).astype(np.float32)
+        frames.append(pos)
+    return frames, vel
+
+
+def bin_vs_plain(upd, p, a, spec, tag: str, origin=None,
+                 mask_parked: bool = False) -> float:
+    """``bin_disp_tile`` kernel vs plain version on the same inputs; cells,
+    oob and the bits of max_disp2 must agree. Returns the largest
+    difference of any output (0 when equal)."""
+    import torch
+    got = upd.bin_disp_tile(p, a, spec, origin=origin,
+                            mask_parked=mask_parked)
+    ref = upd.bin_disp_tile_plain(p, a, spec, origin=origin,
+                                  mask_parked=mask_parked)
+    torch.cuda.synchronize()
+    cell_err = (int((got[0] - ref[0]).abs().max()) if got[0].numel()
+                else 0)
+    err = max(cell_err, abs(int(got[1]) - int(ref[1])),
+              abs(float(got[2]) - float(ref[2])))
+    check(torch.equal(got[0], ref[0]) and int(got[1]) == int(ref[1])
+          and int(got[2].view(torch.int32)) == int(ref[2].view(torch.int32)),
+          f"bin_disp_tile differs from its plain version ({tag}): "
+          f"max err {err}")
+    return err
+
+
+def phase_bin_edge_cases(upd) -> float:
+    """Bitwise kernel-vs-plain of ``bin_disp_tile`` on edge cases: N = 1 and
+    N = 257, rows out of range on each side of each axis, parked rows with
+    and without ``mask_parked``, and an ``origin`` override."""
+    import numpy as np
+    import torch
+    from repro_torch.core.grid import choose_grid_spec
+    from repro_torch.core.types import PARK_SENTINEL
+    rng = np.random.default_rng(3)
+    base = rng.random((600, 3)).astype(np.float32)
+    spec = choose_grid_spec(base, 0.1)
+    anchor = (base + rng.normal(0, 0.01, base.shape)).astype(np.float32)
+    oor = base.copy()
+    oor[[7, 8, 9]] = [[9.0, 0.5, 0.5], [0.5, 9.0, 0.5], [0.5, 0.5, 9.0]]
+    oor[[10, 11, 12]] = [[-4.0, 0.5, 0.5], [0.5, -4.0, 0.5],
+                         [0.5, 0.5, -4.0]]
+    parked = base.copy()
+    parked[[3, 50, 400]] = PARK_SENTINEL
+    parked[60] = [0.5, -PARK_SENTINEL, 0.5]
+    parked[61] = [9.0, 0.5, 0.5]
+    cases = {
+        "n1": (base[:1], anchor[:1], None, False),
+        "n257": (base[:257], anchor[:257], None, False),
+        "out_of_range": (oor, anchor, None, False),
+        "parked_masked": (parked, anchor, None, True),
+        "parked_unmasked": (parked, anchor, None, False),
+        "origin": (base, anchor, np.float32([-0.05, 0.02, -0.11]), False),
+    }
+    worst = 0.0
+    for name, (p, a, o, mask) in cases.items():
+        args = [torch.from_numpy(np.ascontiguousarray(x)).cuda()
+                for x in (p, a)]
+        origin = None if o is None else torch.from_numpy(o).cuda()
+        err = bin_vs_plain(upd, *args, spec, name, origin=origin,
+                           mask_parked=mask)
+        worst = max(worst, err)
+        emit("bin_vs_plain", case=name, n=int(p.shape[0]), bitwise=True)
+    return worst
+
+
+def device_us(prof, name: str):
+    """Mean device time (us) per launch of the kernels whose name contains
+    ``name`` in a finished ``torch.profiler`` run, and their launch count;
+    (None, 0) if the profiler recorded no device time for them."""
+    total, count = 0.0, 0
+    for evt in prof.key_averages():
+        if name in evt.key:
+            total += float(getattr(evt, "device_time_total", 0.0)
+                           or getattr(evt, "cuda_time_total", 0.0))
+            count += evt.count
+    return (total / count, count) if count and total else (None, 0)
+
+
+def profiled_kernel_us(fn, name: str, runs: int = 20):
+    """Mean device time (us) of the kernels whose name contains ``name``,
+    from ``torch.profiler`` over ``runs`` calls; None if the profiler
+    records no device time here."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return device_us(prof, name)[0]
+
+
+def step_counted(sess, upd, knn_mod, cur):
+    """One session step with the launch counts set to 0 just before and
+    read just after, every synchronising CUDA call recorded (sync debug
+    mode "warn"). Returns the result, the wall time in ms (ending in a
+    synchronise), the sync call sites and the two launch counts."""
+    import torch
+    torch.cuda.synchronize()
+    upd.bin_disp_tile.launches = 0
+    knn_mod.knn_tile_anchored.launches = 0
+    torch.cuda.set_sync_debug_mode("warn")
+    t0 = time.perf_counter()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = sess.step(cur)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    syncs = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+             if "synchronizing CUDA operation" in str(w.message)]
+    return (res, wall_ms, syncs, upd.bin_disp_tile.launches,
+            knn_mod.knn_tile_anchored.launches)
+
+
+def check_step_exact(ref, res, cur, rng, n_sample: int, tag: str):
+    """Brute force on sampled queries: counts exact, every returned index
+    within the radius, and its distance recomputes. Returns the largest
+    recomputation error."""
+    import numpy as np
+    import torch
+    n = cur.shape[0]
+    sample = torch.from_numpy(rng.choice(n, min(n_sample, n),
+                                         replace=False)).cuda()
+    q = cur[sample]
+    _oi, _od, oc = ref.brute_force_search(cur, q, DYN_RADIUS, DYN_K,
+                                          chunk=256)
+    check(torch.equal(oc, res.counts[sample]),
+          f"{tag}: counts differ from brute force")
+    idx, d2 = res.indices[sample], res.distances2[sample]
+    valid = idx >= 0
+    check(torch.equal(valid, torch.isfinite(d2)), f"{tag}: inf mask")
+    check(bool((d2[valid] <= np.float32(DYN_RADIUS) ** 2).all()),
+          f"{tag}: an index lies outside the radius")
+    pos = cur[idx.clamp_min(0).long()]
+    rec = ((q[:, None] - pos) ** 2).sum(-1)
+    err = float((rec[valid] - d2[valid]).abs().max()) if valid.any() else 0.0
+    check(err <= 1e-5, f"{tag}: an index does not reproduce its distance "
+          f"({err})")
+    return err
+
+
+def phase_dynamic(core, ref, knn_mod, upd, n: int = DYN_N,
+                  steps: int = DYN_STEPS, n_sample: int = N_SAMPLE):
+    """The dynamic path: ``SimulationSession.step`` over the trajectory,
+    then one step that forces a respec and one more drift step, each step
+    counted and checked; ``knn_tile_anchored`` against its plain version on
+    tiles of every ladder level the session's plan uses, before and after
+    the respec; then ``bin_disp_tile`` against its plain version on the
+    1M-point frame, and the timings. Returns what the kernel table
+    needs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.grid import _bin_and_stats
+    from repro_torch.core.types import device_table
+    frames, vel = trajectory(n, steps, DYN_SEED, 0.03 * DYN_RADIUS / 4.0)
+    escape = frames[-1].copy()
+    escape[:DYN_ESCAPEES, 0] = np.float32(1.1)
+    respec_at = steps
+    params = core.SearchParams(radius=DYN_RADIUS, k=DYN_K, mode="range")
+    opts = core.SearchOpts(use_pallas=True)
+    t0 = time.perf_counter()
+    sess = core.SimulationSession(frames[0], params, opts)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    spec = sess.spec
+    p0 = sess.index.points
+    kern_cells = upd.bin_disp_tile(p0, p0, spec)[0]
+    div_cells = _bin_and_stats(spec, p0, p0)[0]
+    n_differ = int((kern_cells != div_cells).any(-1).sum())
+    emit("dynamic_setup", n_points=n, dims=list(spec.dims),
+         cell_size=spec.cell_size, capacity=spec.capacity,
+         dense_mb=sess.index.grid.dense.numel() * 4 / 1e6, setup_s=setup_s,
+         frame0_cells_differ_from_bin_and_stats=n_differ)
+
+    rng = np.random.default_rng(DYN_SEED)
+    counts = {"bin": 0, "knn": 0}
+    kinds = []
+
+    def checked_step(i, frame):
+        cur = torch.from_numpy(frame).cuda()
+        res, wall_ms, syncs, nb, nk = step_counted(sess, upd, knn_mod, cur)
+        rep = sess.report
+        counts["bin"] += nb
+        counts["knn"] += nk
+        check(rep.respecced == (i == respec_at),
+              f"step {i}: respecced={rep.respecced}")
+        want = 2 if rep.respecced else 1
+        check(len(syncs) == want, f"step {i}: {len(syncs)} blocking "
+              f"transfers, expected {want}: {syncs}")
+        check(nb == 1 and nk == 1, f"step {i}: launches bin_disp_tile={nb} "
+              f"knn_tile_anchored={nk}, expected 1 each")
+        err = check_step_exact(ref, res, cur, rng, n_sample, f"step {i}")
+        kinds.append("respec" if rep.respecced else
+                     "fast" if rep.fast else "replan")
+        emit("dynamic_step", step=i, kind=kinds[-1], max_disp=rep.max_disp,
+             oob=rep.oob, overflow=rep.overflow, blocking_transfers=syncs,
+             bin_disp_tile_launches=nb, knn_tile_anchored_launches=nk,
+             wall_ms=wall_ms, t_update_ms=rep.t_update * 1e3,
+             t_plan_ms=rep.t_plan * 1e3, t_step_host_ms=rep.t_search * 1e3,
+             capacity=sess.spec.capacity,
+             mean_count=float(res.counts.float().mean()),
+             sampled=n_sample, d2_recompute_err=err)
+
+    for i, frame in enumerate(frames):
+        checked_step(i, frame)
+    check("fast" in kinds and "replan" in kinds[1:],
+          f"dynamic: expected fast and replan steps, got {kinds}")
+
+    def search_vs_plain(tag: str) -> float:
+        """The search's inputs on the session's current plan and index:
+        its work, and the kernel against its plain version on tiles of
+        every window the plan uses (the whole-grid tiles among them)."""
+        args, kw, entries = kernel_inputs(sess.index, sess._plan,
+                                          sess.index.points)
+        pairs, slot_pairs, knn_bytes, knn_ops_ms, knn_bytes_ms, tiles = \
+            knn_work(sess.index, args, entries)
+        t0 = time.perf_counter()
+        err, checked = compare_level_tiles(args, kw, DYN_TILES_PER_LEVEL,
+                                           f"dynamic search, {tag}")
+        emit("dynamic_search_work", at=tag, dims=list(sess.spec.dims),
+             capacity=sess.spec.capacity, k=kw["k"],
+             tiles_per_window=tiles, valid_pairs=pairs,
+             slot_pairs=slot_pairs, bytes=knn_bytes,
+             bound_ops_ms=knn_ops_ms, bound_bytes_ms=knn_bytes_ms,
+             kernel_vs_plain_tiles={str(entries[lvl]): c
+                                    for lvl, c in checked.items()},
+             kernel_max_abs_err=err, bitwise=True,
+             compare_s=time.perf_counter() - t0)
+        return err
+
+    search_err = search_vs_plain("frozen spec")
+
+    # step times on the frozen spec: a point moved by one cell and back
+    # makes every other step a replan, the steps between them replays;
+    # the profiler gives the device time of each kernel in these steps
+    a = torch.from_numpy(frames[-1]).cuda()
+    b = a.clone()
+    b[DYN_ESCAPEES, 0] += spec.cell_size
+    times = {"fast": [], "replan": []}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for target in [b, b, a, a] * ((N_TIMED_STEPS + 1) // 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess.step(target)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            times["fast" if sess.report.fast else "replan"].append(ms)
+    check(len(times["fast"]) >= N_TIMED_STEPS
+          and len(times["replan"]) >= N_TIMED_STEPS,
+          f"timed steps: {[(k, len(v)) for k, v in times.items()]}")
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    step_knn_us, step_knn_n = device_us(prof, "knn_tile_anchored")
+    step_bin_us, step_bin_n = device_us(prof, "bin_disp_tile")
+    del prof
+
+    # update_index as the session steps it: into the previous grid's
+    # storage (donate=True), on a copy of the session's index
+    held = [dataclasses.replace(sess.index, grid=dataclasses.replace(
+        sess.index.grid, dense=sess.index.grid.dense.clone()))]
+
+    def donated_update():
+        held[0] = core.update_index(held[0], a, donate=True)[0]
+
+    update_ms = cuda_time_ms(donated_update, 10)
+    del held
+
+    # the respec step, then one more drift step
+    checked_step(respec_at, escape)
+    checked_step(respec_at + 1, (escape + vel).astype(np.float32))
+    check(kinds.count("respec") == 1, f"dynamic: {kinds}")
+    search_err = max(search_err, search_vs_plain("after the respec"))
+    check(counts["bin"] >= 1 and counts["knn"] >= 1,
+          "dynamic: no kernel launched")
+    stats = sess.stats()
+
+    # bin_disp_tile against its plain version on the 1M-point frame
+    p1 = torch.from_numpy(frames[1]).cuda()
+    a0 = torch.from_numpy(frames[0]).cuda()
+    err = bin_vs_plain(upd, p1, a0, spec, "1M frame")
+
+    # kernel times: device time by the profiler with the 50 MB L2 flushed
+    # before each launch (as a step finds it: the search ran in between),
+    # and warm back-to-back, where the 36 MB it touches stays in L2; CUDA
+    # events over back-to-back raw launches besides. Then the plain version
+    # and the unfused _bin_and_stats as a yardstick.
+    origin = device_table(spec.origin, torch.float32, p1.device)
+    ccoord = torch.empty((n, 3), dtype=torch.int32, device=p1.device)
+    scratch = torch.zeros((2,), dtype=torch.int32, device=p1.device)
+    inv = upd._inv_cell(spec)
+    flush = torch.empty((64 << 20,), dtype=torch.int32, device=p1.device)
+
+    def raw(m):
+        for _ in range(m):
+            upd.launch(p1, a0, origin, inv, tuple(spec.dims), False, ccoord,
+                       scratch)
+
+    def cold():
+        flush.zero_()
+        raw(1)
+
+    events_ms = cuda_time_ms(lambda: raw(100), 5) / 100
+    cold_us = profiled_kernel_us(cold, "bin_disp_tile")
+    warm_us = profiled_kernel_us(lambda: raw(1), "bin_disp_tile")
+    kernel_ms = events_ms if cold_us is None else cold_us / 1e3
+    del flush
+    plain_ms = cuda_time_ms(
+        lambda: upd.bin_disp_tile_plain(p1, a0, spec), 20)
+    yard_ms = cuda_time_ms(lambda: _bin_and_stats(spec, p1, a0), 20)
+
+    nbytes = (p1.numel() + a0.numel() + ccoord.numel() + 3 + 2) * 4
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    ops_ms = n * BIN_OPS_PER_POINT / PEAK_FP32 * 1e3
+    emit("dynamic", n_points=n, steps=len(kinds), kinds=kinds,
+         counters={k: v for k, v in stats.items() if k != "last"},
+         bin_disp_tile_launches=counts["bin"],
+         knn_tile_anchored_launches=counts["knn"],
+         bin_disp_tile_ms=kernel_ms, bin_disp_tile_cold_us=cold_us,
+         bin_disp_tile_warm_us=warm_us, bin_disp_tile_events_ms=events_ms,
+         bin_disp_tile_plain_ms=plain_ms, bin_and_stats_ms=yard_ms,
+         update_index_ms=update_ms, step_knn_tile_anchored_us=step_knn_us,
+         step_knn_tile_anchored_profiled=step_knn_n,
+         step_bin_disp_tile_us=step_bin_us,
+         step_bin_disp_tile_profiled=step_bin_n,
+         search_kernel_max_abs_err=search_err, fast_step_ms=med["fast"],
+         replan_step_ms=med["replan"], fast_steps_ms=times["fast"],
+         replan_steps_ms=times["replan"], bytes=nbytes,
+         bound_bytes_ms=bytes_ms, bound_ops_ms=ops_ms, bitwise=err == 0.0)
+    return dict(search_err=search_err, launches=counts["bin"], err=err,
+                ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def main() -> int:
@@ -269,9 +669,11 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch.api as api
+    import repro_torch.core as core
     import repro_torch.data as data
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import knn_tile as knn_mod
+    from repro_torch.kernels import update_tile as upd
 
     smi = smi_line()
     t0 = time.perf_counter()
@@ -286,6 +688,8 @@ def main() -> int:
 
     worst = phase_kernel_vs_plain(api, data)
     emit("kernel_vs_plain_done", max_abs_err=worst, bitwise=True)
+    worst = phase_bin_edge_cases(upd)
+    emit("bin_vs_plain_done", max_abs_err=worst, bitwise=True)
 
     pts = data.kitti_like_cloud(N_POINTS, seed=1)
     opts = api.SearchOpts(use_pallas=True)
@@ -301,26 +705,39 @@ def main() -> int:
             query_ms = cuda_time_ms(lambda: api.query(index, queries), 5)
             knn_index, knn_queries = index, queries
 
-    # kernel and plain-version times at the main path's shapes
+    # kernel and plain-version times at the main path's shapes (the plain
+    # version takes about a minute a run, so it is timed once)
     m = out["knn"]
     kernel_ms = cuda_time_ms(
         lambda: knn_mod.knn_tile_anchored(*m["args"], **m["kw"]), 10)
     plain_ms = cuda_time_ms(
-        lambda: knn_mod.knn_tile_anchored_plain(*m["args"], **m["kw"]), 3,
+        lambda: knn_mod.knn_tile_anchored_plain(*m["args"], **m["kw"]), 1,
         warmup=0)
-    src, replaces = KERNELS["knn_tile_anchored"]
     emit("kernels", kernels=[{
-        "name": "knn_tile_anchored", "replaces": replaces,
-        "launches": m["launches"], "bitwise": m["err"] == 0.0,
-        "ms": kernel_ms}], query_ms=query_ms,
+        "name": "knn_tile_anchored", "replaces":
+        KERNELS["knn_tile_anchored"][1], "launches": m["launches"],
+        "bitwise": m["err"] == 0.0, "ms": kernel_ms}], query_ms=query_ms,
         queries_per_s=knn_queries.shape[0] / query_ms * 1e3,
         n_points=int(knn_index.points.shape[0]))
-    print(json.dumps({"kernels": [{
-        "name": "knn_tile_anchored", "route": "cuda", "source": src,
-        "replaces": replaces, "launches": m["launches"],
-        "max_abs_err": m["err"], "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-        "library_ms": None}]}), flush=True)
+    del knn_index, knn_queries, index, queries, out
+
+    d = phase_dynamic(core, ref, knn_mod, upd)
+
+    rows = [("knn_tile_anchored", dict(
+        launches=m["launches"], err=max(m["err"], d["search_err"]),
+        ms=kernel_ms, plain_ms=plain_ms, bound_ms=m["bound_ms"],
+        bound_by=m["bound_by"])),
+        ("bin_disp_tile", d)]
+    table = []
+    for name, r in rows:
+        src, replaces = KERNELS[name]
+        table.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": r["launches"],
+            "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
+    print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,12 @@
-"""Carry a built index and a captured plan into the port.
+"""Carry a built index, a captured plan or a dynamic session into the port.
 
-The state of this system is its built grid and its captured query plan.
-These functions take that state as numpy arrays and plain values (the
-static spec, params and options as dataclasses or as the ``dict`` that
+The state of this system is its built grid, its captured query plan and,
+for a dynamic session, the positions that plan was captured at. These
+functions take that state as numpy arrays and plain values (the static
+spec, params and options as dataclasses or as the ``dict`` that
 ``dataclasses.asdict`` makes of the reference's ones), so that
-``execute_plan`` can run under exactly the index and plan that another
-implementation built.
+``execute_plan`` or ``SimulationSession.step`` can run under exactly the
+state that another implementation built.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from .core.api import NeighborIndex, QueryPlan, resolve_device
+from .core.dynamic import SessionOpts, SimulationSession
 from .core.partition import megacell_statics
 from .core.types import CellGrid, GridSpec, SearchOpts, SearchParams
 
@@ -76,3 +78,27 @@ def plan_from_arrays(perm, tile_levels, *, nq: int, tile: int, ladder,
         ladder=tuple((int(w), bool(s)) for w, s in ladder),
         perm=_tensor(perm, torch.int32, dev),
         tile_levels=_tensor(tile_levels, torch.int32, dev))
+
+
+def session_from_arrays(points, dense, counts, sat, overflow, anchor_points,
+                        origin, *, spec, params, opts, plan=None,
+                        anchor_queries=None, sopts=None,
+                        device="cuda") -> SimulationSession:
+    """A :class:`SimulationSession` resumed at another implementation's
+    state: its index as :func:`index_from_arrays` takes it, its captured
+    plan as a ``dict`` of :func:`plan_from_arrays`' arguments (``perm``,
+    ``tile_levels``, ``nq``, ``tile``, ``ladder``; None: the next step
+    plans afresh), the queries that plan was captured at in external-query
+    mode (None in self-query mode), and the session options (a
+    ``SessionOpts`` or the ``dict`` of the reference's)."""
+    dev = resolve_device(device)
+    index = index_from_arrays(points, dense, counts, sat, overflow,
+                              anchor_points, origin, spec=spec,
+                              params=params, opts=opts, device=dev)
+    tplan = None if plan is None else plan_from_arrays(device=dev, **plan)
+    aq = (None if anchor_queries is None
+          else _tensor(anchor_queries, torch.float32, dev))
+    if not isinstance(sopts, SessionOpts):
+        sopts = SessionOpts(**(sopts or {}))
+    return SimulationSession.from_state(index, sopts, plan=tplan,
+                                        anchor_queries=aq)

@@ -11,8 +11,9 @@ fused ``execute_plan`` makes no host synchronisation.
 
 Every entry point runs on the card unless the caller asks otherwise: the
 ``device`` of :func:`build_index` defaults to ``"cuda"`` and every later
-tensor follows ``index.points.device``. ``cached_searcher`` and
-``update_index`` are not ported yet.
+tensor follows ``index.points.device``. ``update_index`` re-bins moved
+points into the index's frozen spec (the dynamic session's first stage).
+``cached_searcher`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ import torch
 from torch.profiler import record_function
 
 from ..reliability.errors import QueryError
-from .grid import build_cell_grid, choose_grid_spec, parked_mask
+from .grid import (build_cell_grid, choose_grid_spec, parked_mask,
+                   update_cell_grid)
 from .partition import (MegacellStatics, compute_megacells, launch_signatures,
                         megacell_statics, signature_levels)
 from .schedule import schedule_by_level
@@ -55,6 +57,9 @@ class NeighborIndex:
     @property
     def device(self) -> torch.device:
         return self.points.device
+
+    def with_anchor(self, anchor_points: Tensor) -> "NeighborIndex":
+        return dataclasses.replace(self, anchor_points=anchor_points)
 
 
 @dataclasses.dataclass
@@ -124,6 +129,28 @@ def build_index(points, params: SearchParams,
         return NeighborIndex(params=params, opts=opts, statics=statics,
                              points=points, grid=grid, anchor_points=points,
                              origin=origin)
+
+
+def update_index(index: NeighborIndex, new_points, *,
+                 donate: bool = False) -> tuple[NeighborIndex, UpdateStats]:
+    """Re-bin moved points into the index's frozen spec.
+
+    Returns the updated index and its :class:`UpdateStats` as 0-d tensors
+    on the index's device, with no host synchronisation: ``overflow`` and
+    ``oob`` (nonzero means the frozen spec can no longer hold the scene
+    exactly) and ``max_disp2`` against ``anchor_points`` (the staleness
+    statistic). The anchor is not advanced: re-anchoring after a replan is
+    the caller's job (``with_anchor``). ``donate=True`` writes the new dense
+    grid into the old one's storage (``update_cell_grid``), so ``index``
+    must not be searched afterwards; the points are never written.
+    """
+    with record_function("repro.update_index"):
+        pts = _as_points(new_points, index.device)
+        grid, stats, _ccoord = update_cell_grid(
+            index.grid, pts, index.anchor_points,
+            use_pallas=index.opts.use_pallas, donate=donate,
+            origin=index.origin, mask_parked=index.opts.mask_parked)
+        return dataclasses.replace(index, points=pts, grid=grid), stats
 
 
 # ---------------------------------------------------------------------------
@@ -305,5 +332,6 @@ __all__ = [
     "plan_query",
     "query",
     "query_concat",
+    "update_index",
     "validate_queries",
 ]

@@ -1,18 +1,21 @@
-"""Uniform cell grid build: bin + stable-rank scatter + summed-area table.
+"""Uniform cell grid: bin + stable-rank scatter + summed-area table, and
+the incremental update of a frozen grid for dynamic scenes.
 
-The build path of the reference's ``core/grid.py``. The reference's
-scatters use ``mode="drop"`` to discard out-of-range slots; PyTorch's index
-ops raise on the CPU and assert on CUDA instead, so the port routes dropped
-slots to one extra dump slot past the end and slices it off. That keeps the
-build free of host synchronisation (a boolean mask or ``bincount`` would
-sync on CUDA).
+The reference's ``core/grid.py`` on tensors. Its scatters use
+``mode="drop"`` to discard out-of-range slots; PyTorch's index ops raise
+on the CPU and assert on CUDA instead. So the port adds ``id + 1`` into a
+grid filled with -1 and adds 0 for a dropped row, and routes dropped
+counts to one extra slot past the end that is sliced off. That keeps the
+build and the update free of host synchronisation (a boolean mask or
+``bincount`` would sync on CUDA).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .types import (PARK_THRESHOLD, CellGrid, GridSpec, Tensor,
+from ..kernels.ref import sq_dist
+from .types import (PARK_THRESHOLD, CellGrid, GridSpec, Tensor, UpdateStats,
                     device_table)
 
 
@@ -78,9 +81,12 @@ def build_cell_grid(points: Tensor, spec: GridSpec,
     return _grid_from_flat(flat, points.shape[0], spec)
 
 
-def _grid_from_flat(flat: Tensor, n: int, spec: GridSpec) -> CellGrid:
+def _grid_from_flat(flat: Tensor, n: int, spec: GridSpec,
+                    out: Tensor | None = None) -> CellGrid:
     """Dense grid + counts + SAT from flat cell ids [N] int32 (an id equal
-    to ``num_cells`` marks a row that belongs to no cell)."""
+    to ``num_cells`` marks a row that belongs to no cell). With ``out``, a
+    dense grid of this spec, the new dense grid is written into its
+    storage instead of a new allocation."""
     dev = flat.device
     cap, n_cells = spec.capacity, spec.num_cells
     order = torch.argsort(flat, stable=True)
@@ -92,14 +98,15 @@ def _grid_from_flat(flat: Tensor, n: int, spec: GridSpec) -> CellGrid:
     rank = torch.empty((n,), dtype=torch.int32, device=dev)
     rank[order] = rank_sorted
 
-    # dropped rows (over capacity, or no cell) all write to the dump slot
-    # past the end; several rows may land there, and it is sliced off
-    dump = n_cells * cap
+    # every kept row owns its slot, so adding id + 1 into the -1 fill
+    # stores id; dropped rows (over capacity, or no cell) add 0 to slot 0
     keep = (rank < cap) & (flat < n_cells)
-    slot = torch.where(keep, flat.to(torch.int64) * cap + rank, dump)
-    dense = torch.full((dump + 1,), -1, dtype=torch.int32, device=dev)
-    dense[slot] = torch.arange(n, dtype=torch.int32, device=dev)
-    dense = dense[:dump]
+    slot = torch.where(keep, flat.to(torch.int64) * cap + rank, 0)
+    ids = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
+    dense = (torch.empty((n_cells * cap,), dtype=torch.int32, device=dev)
+             if out is None else out.view(-1))
+    dense.fill_(-1)
+    dense.index_add_(0, slot, torch.where(keep, ids, 0))
 
     counts_full = torch.zeros((n_cells + 1,), dtype=torch.int32, device=dev)
     counts_full.index_add_(0, flat.to(torch.int64),
@@ -109,9 +116,109 @@ def _grid_from_flat(flat: Tensor, n: int, spec: GridSpec) -> CellGrid:
     overflow = torch.sum(counts_full - clipped).to(torch.int32)
     dx, dy, dz = spec.dims
     counts = clipped.reshape(dx, dy, dz)
-    return CellGrid(spec=spec, dense=dense.reshape(dx, dy, dz, cap),
+    return CellGrid(spec=spec, dense=dense.view(dx, dy, dz, cap),
                     counts=counts, sat=_summed_area_table(counts),
                     overflow=overflow)
+
+
+# ---------------------------------------------------------------------------
+# dynamic-scene incremental update (core/dynamic.py)
+# ---------------------------------------------------------------------------
+
+def _bin_and_stats(spec: GridSpec, points: Tensor, anchor_points: Tensor,
+                   origin: Tensor | None = None,
+                   valid: Tensor | None = None
+                   ) -> tuple[Tensor, Tensor, Tensor]:
+    """Binning + motion statistics, plain path (``use_pallas=False``).
+
+    Returns ``(ccoord [N, 3] clipped, oob, max_disp2)``: ``oob`` counts the
+    points whose true cell lies outside the frozen grid, ``max_disp2`` is
+    the largest squared displacement against ``anchor_points``. The cell
+    divides by the float32 cell size, as :meth:`GridSpec.cell_of` does;
+    ``valid`` [N] leaves rows out of both statistics.
+    """
+    dev = points.device
+    o = (device_table(spec.origin, torch.float32, dev) if origin is None
+         else origin.to(torch.float32))
+    cs = device_table(np.float32(spec.cell_size), torch.float32, dev)
+    hi = device_table([d - 1 for d in spec.dims], torch.float32, dev)
+    c = torch.floor((points - o) / cs)
+    escaped = torch.any((c < 0) | (c > hi), dim=-1)
+    d2 = sq_dist(points, anchor_points)
+    if valid is not None:
+        escaped = escaped & valid
+        d2 = torch.where(valid, d2, 0.0)
+    oob = torch.sum(escaped, dtype=torch.int32)
+    max_d2 = (torch.max(d2) if d2.numel()
+              else torch.zeros((), dtype=torch.float32, device=dev))
+    return torch.minimum(c.clamp_min(0.0), hi).to(torch.int32), oob, max_d2
+
+
+def _update_impl(grid: CellGrid, points: Tensor, anchor_points: Tensor,
+                 use_pallas: bool, origin: Tensor | None = None,
+                 mask_parked: bool = False, donate: bool = False):
+    spec = grid.spec
+    valid = torch.logical_not(parked_mask(points)) if mask_parked else None
+    if use_pallas:
+        from ..kernels.update_tile import bin_disp_tile
+        ccoord, oob, max_d2 = bin_disp_tile(points, anchor_points, spec,
+                                            origin=origin,
+                                            mask_parked=mask_parked)
+    else:
+        ccoord, oob, max_d2 = _bin_and_stats(spec, points, anchor_points,
+                                             origin, valid)
+    flat = spec.flat_cell(ccoord)
+    if valid is not None:
+        flat = torch.where(valid, flat, spec.num_cells)
+    new = _grid_from_flat(flat, points.shape[0], spec,
+                          out=grid.dense if donate else None)
+    stats = UpdateStats(overflow=new.overflow, oob=oob, max_disp2=max_d2)
+    return new, stats, ccoord
+
+
+def update_cell_grid(
+    grid: CellGrid,
+    points: Tensor,
+    anchor_points: Tensor,
+    *,
+    use_pallas: bool = False,
+    donate: bool | None = None,
+    origin: Tensor | None = None,
+    mask_parked: bool = False,
+) -> tuple[CellGrid, UpdateStats, Tensor]:
+    """Re-bin moved ``points`` into the *frozen* spec of ``grid``.
+
+    Binning, the overflow and out-of-bounds counters and the
+    max-displacement statistic come out of one pass with no host
+    synchronisation; ``use_pallas`` bins with the hand-written kernel
+    ``kernels/update_tile.bin_disp_tile``. ``donate=True`` writes the new
+    dense grid into the storage of ``grid.dense``, so that two dense grids
+    are not live at once; ``grid`` must not be used afterwards. ``None``
+    donates off the CPU, as the reference's auto setting does.
+
+    Returns ``(grid', stats, ccoord)``; ``ccoord`` is the per-point cell.
+    """
+    if donate is None:
+        donate = grid.dense.device.type != "cpu"
+    return _update_impl(grid, points, anchor_points, use_pallas, origin,
+                        mask_parked, donate=bool(donate))
+
+
+def update_cell_grid_traced(
+    grid: CellGrid,
+    points: Tensor,
+    anchor_points: Tensor,
+    *,
+    use_pallas: bool = False,
+    origin: Tensor | None = None,
+    mask_parked: bool = False,
+) -> tuple[CellGrid, UpdateStats, Tensor]:
+    """:func:`update_cell_grid` with ``donate=False``, under the
+    reference's name for its traced core (which jitted programs inline;
+    PyTorch runs eagerly, so here it is the same update). ``update_index``
+    calls :func:`update_cell_grid` with its own ``donate``."""
+    return _update_impl(grid, points, anchor_points, use_pallas, origin,
+                        mask_parked)
 
 
 def _summed_area_table(counts: Tensor) -> Tensor:

@@ -19,6 +19,7 @@ import torch
 
 from ..core.types import device_table
 from .knn_tile import knn_tile_anchored
+from .update_tile import bin_disp_tile
 
 Tensor = torch.Tensor
 
@@ -183,5 +184,6 @@ def window_search_pallas(
     return idx[:nq], d2[:nq], cnt[:nq]
 
 
-__all__ = ["knn_tile_anchored", "segment_levels", "assign_tile_levels",
-           "launch_inputs", "window_search_segmented", "window_search_pallas"]
+__all__ = ["bin_disp_tile", "knn_tile_anchored", "segment_levels",
+           "assign_tile_levels", "launch_inputs", "window_search_segmented",
+           "window_search_pallas"]

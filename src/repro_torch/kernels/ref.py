@@ -19,6 +19,13 @@ def dot3(a: Tensor, b: Tensor) -> Tensor:
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
+def sq_dist(a: Tensor, b: Tensor) -> Tensor:
+    """Squared distance over the last axis [..., 3]: ``d = a - b``, then
+    ``dot3(d, d)``, the squares summed x, y, z in that order."""
+    d = a - b
+    return dot3(d, d)
+
+
 def pairwise_d2(q: Tensor, p: Tensor) -> Tensor:
     """Squared Euclidean distances [Nq, Np] between q [Nq, 3] and p [Np, 3]."""
     qn = dot3(q, q)[:, None]                              # [Nq, 1]

@@ -1,0 +1,79 @@
+"""Device-resident telemetry counters (the reference's ``obs/device.py`` on
+tensors).
+
+A session step's one blocking host transfer is a small packed int32
+vector
+
+    [flags, overflow, oob, disp_bits, occ_0, ..., occ_{L-1}]
+
+where ``disp_bits`` is the f32 max-squared-displacement viewed as int32
+(lossless; unpacked host-side with a view), and ``occ_i`` counts query
+tiles on ladder level ``i`` (the escalation-occupancy histogram). The
+reference's header has two more slots, ``migrated`` and ``halo``, which
+only its sharded session fills; that session is not ported, so neither
+are they.
+The port's session fetches the header before it plans, so it packs no
+occupancy tail; the plan's histogram reaches the host later without a
+sync of its own (``core/dynamic.py``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+Tensor = torch.Tensor
+
+# header slots before the per-level occupancy tail
+TELEM_FLAGS = 0
+TELEM_OVERFLOW = 1
+TELEM_OOB = 2
+TELEM_DISP_BITS = 3
+TELEM_HEADER = 4
+
+
+def level_occupancy(tile_levels: Tensor, n_levels: int) -> Tensor:
+    """Per-ladder-level query-tile occupancy histogram [n_levels] int32.
+
+    Counts with ``index_add_`` into ``n_levels + 1`` slots, not
+    ``torch.bincount``, which reads the input's maximum on the host (a
+    sync on CUDA). As the reference's ``jnp.bincount(length=n_levels)``
+    does, negative levels count as level 0 and levels past the end are
+    dropped (into the extra slot, which is sliced off).
+    """
+    lv = tile_levels.reshape(-1).to(torch.int64).clamp(0, n_levels)
+    hist = torch.zeros((n_levels + 1,), dtype=torch.int32,
+                       device=tile_levels.device)
+    hist.index_add_(0, lv, torch.ones_like(lv, dtype=torch.int32))
+    return hist[:n_levels]
+
+
+def pack_step_telemetry(flags: Tensor, *, overflow: Tensor, oob: Tensor,
+                        max_disp2: Tensor,
+                        occupancy: Tensor | None = None) -> Tensor:
+    """Pack per-step counters into one int32 vector [TELEM_HEADER + L] on
+    the counters' device, without a sync. Every argument is a 0-d int32 or
+    f32 tensor except ``occupancy`` [L] int32 (None packs no tail)."""
+    def i32(x):
+        return x.to(torch.int32).reshape(())
+
+    disp_bits = max_disp2.to(torch.float32).reshape(()).view(torch.int32)
+    head = torch.stack([i32(flags), i32(overflow), i32(oob), disp_bits])
+    if occupancy is None:
+        return head
+    return torch.cat([head, occupancy.to(torch.int32).reshape(-1)])
+
+
+def unpack_step_telemetry(vec) -> dict:
+    """Host-side unpack of a fetched telemetry vector (a CPU tensor or a
+    numpy array). Returns plain Python numbers: flags, overflow, oob,
+    max_disp2 (f32 recovered from its bit pattern), and the occupancy
+    list."""
+    v = np.asarray(vec, np.int32).reshape(-1)
+    return {
+        "flags": int(v[TELEM_FLAGS]),
+        "overflow": int(v[TELEM_OVERFLOW]),
+        "oob": int(v[TELEM_OOB]),
+        "max_disp2": float(v[TELEM_DISP_BITS:TELEM_DISP_BITS + 1]
+                           .view(np.float32)[0]),
+        "occupancy": [int(x) for x in v[TELEM_HEADER:]],
+    }

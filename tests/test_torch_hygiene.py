@@ -25,7 +25,8 @@ def test_port_imports_no_jax_and_no_reference():
     names = _modules()
     assert {"repro_torch.api", "repro_torch.convert",
             "repro_torch.kernels.knn_tile", "repro_torch.kernels.build",
-            "repro_torch.core.grid"} <= set(names)
+            "repro_torch.core.grid", "repro_torch.core.dynamic",
+            "repro_torch.obs", "repro_torch.kernels.update_tile"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"

@@ -1,0 +1,234 @@
+"""The port's telemetry (``repro_torch.obs``) vs the reference's
+``repro.obs`` on the same values: the registry's counters, gauges and
+histograms, the text summary and metric schema, span paths, the trace
+knob, and the packed step-telemetry vector. Then the session's use of it:
+one ``SimulationSession`` step with tracing on emits the step's spans,
+and results and host-sync counts are identical with tracing on and off.
+Everything compares exactly (the same host arithmetic on the same
+values)."""
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import obs as jobs
+from repro.obs import device as jdev
+import repro_torch.core as tc
+from repro_torch import obs
+
+
+@pytest.fixture(autouse=True)
+def clean_obs():
+    """Every test starts with empty registries and span rings and ends with
+    the trace mode re-read from the environment."""
+    obs.reset()
+    jobs.reset()
+    yield
+    obs.configure()
+    jobs.configure()
+    obs.reset()
+    jobs.reset()
+
+
+def _read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _record(o):
+    """The same recording sequence into either package's registry."""
+    a, b = o.metric_set("session"), o.metric_set("session")
+    a.count("steps", 2)
+    b.count("steps", 3)
+    a.count("host_syncs")
+    a.gauge("staleness_disp2", 0.25)
+    for v in (0.001, 0.004, 0.002, 0.003):
+        a.observe("step_s", v)
+    e = o.metric_set("executor")
+    e.count("queries", 4)
+    e.observe("query_s", 0.002)
+    return a
+
+
+def _untick(rows):
+    return [{k: v for k, v in r.items() if k != "tick"} for r in rows]
+
+
+def test_registry_matches_reference():
+    ta, ja = _record(obs), _record(jobs)
+    assert ta.counters() == ja.counters() == {"steps": 2, "host_syncs": 1}
+    snap_t, snap_j = ta.snapshot(), ja.snapshot()
+    snap_t["staleness_disp2"].pop("tick")
+    snap_j["staleness_disp2"].pop("tick")
+    assert snap_t == snap_j
+    assert _untick(obs.metrics_dict()["metrics"]) == \
+        _untick(jobs.metrics_dict()["metrics"])
+    assert obs.metrics_dict()["schema"] == "repro.obs/v1"
+    assert obs.summary() == jobs.summary()
+    assert "query_us" in obs.summary()
+
+
+def test_histogram_percentiles_match_reference():
+    th, jh = obs.Histogram(), jobs.Histogram()
+    for v in range(1, 101):
+        th.observe(float(v))
+        jh.observe(float(v))
+    assert th.percentiles() == jh.percentiles()
+    assert (th.count, th.vmin, th.vmax) == (100, 1.0, 100.0)
+
+
+def test_trace_knob_parsing_matches_reference():
+    from repro.obs import tracing as jtr
+    from repro_torch.obs import tracing as ttr
+    for knob in (None, "", "0", "off", "1", "log", "2", "jsonl",
+                 "/tmp/t.jsonl", "weird"):
+        assert ttr._parse_knob(knob) == jtr._parse_knob(knob)
+
+
+def _span_sequence(o):
+    with o.span("step", slabs=2):
+        with o.span("plan"):
+            pass
+        with o.span("launch"):
+            o.record_span("compile", 0.5)
+        with o.trace_scope("req-1"):
+            with o.span("sync"):
+                pass
+    return [(s["path"], s.get("attrs"), s.get("trace"))
+            for s in o.recent_spans()]
+
+
+def test_spans_nest_like_reference():
+    obs.configure(mode="log")
+    jobs.configure(mode="log")
+    got = _span_sequence(obs)
+    assert got == _span_sequence(jobs)
+    assert [p for p, _, _ in got] == ["step/plan", "step/launch/compile",
+                                      "step/launch", "step/sync", "step"]
+    assert obs.timeline("req-1")[0]["path"] == "step/sync"
+
+
+def test_spans_dropped_when_off():
+    obs.configure(mode="off")
+    with obs.span("query") as sp:
+        pass
+    assert sp.duration >= 0.0
+    assert obs.recent_spans() == []
+
+
+def test_jsonl_streaming_and_export(tmp_path):
+    out = str(tmp_path / "trace.jsonl")
+    obs.configure(mode="jsonl", path=out)
+    with obs.span("query", nq=64):
+        pass
+    obs.metric_set("exec").observe("query_s", 0.004)
+    assert [r["name"] for r in _read_jsonl(out) if r["type"] == "span"] \
+        == ["query"]
+    obs.export_jsonl(out)
+    row = next(r for r in _read_jsonl(out) if r["type"] == "metric"
+               and r["component"] == "exec" and r["name"] == "query_s")
+    assert row["kind"] == "histogram" and "p50" in row and "p99" in row
+
+
+def test_reset_runs_registered_hooks():
+    calls = []
+    hook = lambda: calls.append(1)          # noqa: E731
+    obs.on_reset(hook)
+    obs.on_reset(hook)                      # idempotent
+    obs.metric_set("x").count("n")
+    obs.reset()
+    assert calls == [1]
+    assert obs.metrics_dict()["metrics"] == []
+    from repro_torch.obs import lifecycle
+    lifecycle._HOOKS.remove(hook)
+
+
+@pytest.mark.parametrize("disp2", [0.0, 1.5e-5, 3.0e38, float("inf")])
+@pytest.mark.parametrize("tail", [False, True])
+def test_pack_unpack_matches_reference(disp2, tail):
+    """The packed vector and its unpacked dict equal the reference's on the
+    same counters, header-only and with the occupancy tail. The
+    reference's sharded-session slots (``migrated``, ``halo``) are not
+    ported: the port's vector is the reference's without them."""
+    occ = np.array([3, 0, 7, 1] if tail else [], np.int32)
+    jvec = np.asarray(jobs.pack_step_telemetry(
+        jnp.int32(3), overflow=jnp.int32(2), oob=jnp.int32(11),
+        max_disp2=jnp.float32(disp2), occupancy=jnp.asarray(occ)))
+    tvec = obs.pack_step_telemetry(
+        torch.tensor(3, dtype=torch.int32),
+        overflow=torch.tensor(2, dtype=torch.int32),
+        oob=torch.tensor(11, dtype=torch.int32),
+        max_disp2=torch.tensor(disp2, dtype=torch.float32),
+        occupancy=torch.from_numpy(occ) if tail else None)
+    assert tvec.dtype == torch.int32
+    assert tvec.shape == (obs.TELEM_HEADER + occ.size,)
+    np.testing.assert_array_equal(
+        np.delete(jvec, [jdev.TELEM_MIGRATED, jdev.TELEM_HALO]), tvec.numpy())
+    want = jobs.unpack_step_telemetry(jvec)
+    assert want.pop("migrated") == 0 and want.pop("halo") == 0
+    assert obs.unpack_step_telemetry(tvec) == want
+
+
+def test_level_occupancy_matches_reference(rng):
+    levels = rng.integers(-2, 7, 300).astype(np.int32)
+    for n_levels in (1, 4, 9):
+        want = np.asarray(jobs.level_occupancy(jnp.asarray(levels),
+                                               n_levels))
+        got = obs.level_occupancy(torch.from_numpy(levels), n_levels)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(want, got.numpy())
+
+
+def _jitter(rng, pts, scale=0.004):
+    return np.clip(pts + rng.normal(0, scale, pts.shape).astype(np.float32),
+                   0, 1).astype(np.float32)
+
+
+PARAMS = tc.SearchParams(radius=0.12, k=8, knn_window="exact")
+
+
+def test_session_step_emits_jsonl_telemetry(rng, tmp_path):
+    """Session steps with tracing on emit the step's spans and a step-time
+    histogram; the counters ride the one fetch per step."""
+    out = str(tmp_path / "session.jsonl")
+    obs.configure(mode="jsonl", path=out)
+    pts = rng.random((500, 3)).astype(np.float32)
+    sess = tc.SimulationSession(pts, PARAMS, device="cpu")
+    sess.step(pts)
+    sess.step(_jitter(rng, pts))
+    st = sess.stats()
+    obs.export_jsonl(out)
+    recs = _read_jsonl(out)
+    paths = {r["path"] for r in recs if r["type"] == "span"}
+    assert {"step", "step/plan", "step/launch", "step/sync"} <= paths
+    rows = {(r["component"], r["name"]): r for r in recs
+            if r["type"] == "metric"}
+    hist = rows[("session", "step_s")]
+    assert hist["count"] == 2 and "p50" in hist and "p99" in hist
+    assert st["host_syncs"] == 2 and st["stats_fetches"] == 0
+    assert any(name.startswith("level_occ_") for _, name in rows)
+    assert "session" in obs.summary()
+
+
+def test_session_results_and_syncs_identical_on_off(rng):
+    pts0 = rng.random((400, 3)).astype(np.float32)
+    traj = [pts0]
+    for _ in range(2):
+        traj.append(_jitter(rng, traj[-1]))
+
+    def run(mode):
+        obs.reset()
+        obs.configure(mode=mode)
+        sess = tc.SimulationSession(pts0, PARAMS, device="cpu")
+        return [sess.step(p) for p in traj], sess.stats()
+
+    outs_off, st_off = run("off")
+    outs_on, st_on = run("log")
+    for a, b in zip(outs_off, outs_on):
+        assert torch.equal(a.indices, b.indices)
+        assert torch.equal(a.counts, b.counts)
+        assert torch.equal(a.distances2, b.distances2)
+    assert st_off["host_syncs"] == st_on["host_syncs"] == len(traj)
+    assert st_off["stats_fetches"] == st_on["stats_fetches"] == 0
