@@ -11,6 +11,15 @@ paths and checks each against the brute-force oracle:
 - the static query path: ``repro_torch.api`` on a 1M-point KITTI-like
   scene queried by its own points, in knn and in range mode, also checked
   against the port's CPU planning;
+- the host-planned path: ``NeighborSearch.query`` (partition plan,
+  bundling, ``QueryExecutor``) on the same scene in knn and range mode,
+  with two blocking transfers per query (the plan fetch and the result
+  wait), knn distances bitwise equal to ``api.query``'s, and no new
+  launcher on a repeated query;
+- the kernel layer (``kernels/ops``: ``knn_tile``, ``range_count``,
+  ``distance_tile``) at the static plan's shapes: 64 of its tiles' windows
+  materialised as id streams, ``knn_tile`` bitwise equal to
+  ``knn_tile_anchored`` on them, ``range_count`` equal to brute force;
 - the dynamic path: ``SimulationSession.step`` on 1M particles moving by
   ``benchmarks/fig_dynamic.py``'s trajectory model (8 steps, then one
   that forces a respec, then one more), with one blocking transfer per
@@ -38,6 +47,12 @@ KERNELS = {
                           "src/repro/kernels/knn_tile.py:293"),
     "bin_disp_tile": ("src/repro_torch/kernels/csrc/bin_disp_tile.cu",
                       "src/repro/kernels/update_tile.py:32"),
+    "knn_tile": ("src/repro_torch/kernels/csrc/knn_tile.cu",
+                 "src/repro/kernels/knn_tile.py:172"),
+    "range_count": ("src/repro_torch/kernels/csrc/range_count.cu",
+                    "src/repro/kernels/range_tile.py:46"),
+    "distance_tile": ("src/repro_torch/kernels/csrc/distance_tile.cu",
+                      "src/repro/kernels/distance_tile.py:36"),
 }
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32 = 67e12
@@ -51,11 +66,19 @@ OPS_PER_PAIR = 10
 # the clamp; 3 sub, 3 mul, 2 add for the displacement; the max)
 BIN_BYTES_PER_POINT = 36
 BIN_OPS_PER_POINT = 30
+# distance_tile per pair: the cross product (3 mul + 2 add), qn + pn,
+# 2*cross, the subtraction and the clamp
+DIST_OPS_PER_PAIR = 9
 
 N_POINTS = 1_000_000
 RADIUS, K = 0.02, 8        # benchmarks/fig11_speedup.py's KITTI setting
 N_SAMPLE = 4096
 N_KERNEL_TILES = 64
+LAYER_WINDOW = (19, 19, 11)   # the static knn plan's most common window
+DIST_SHAPE = (8192, 131072)   # distance_tile: 4.3 GB of float32 output
+N_TIMED_QUERIES = 3           # NeighborSearch.query timed, median
+HP_TILES_PER_LEVEL = 3        # tiles per window of each launch group held
+                              # against the plain version
 
 # the dynamic path: benchmarks/fig_dynamic.py's trajectory model at the
 # radius of the KITTI setting, with examples/sph_fluid.py's K_MAX and mode
@@ -383,6 +406,418 @@ def phase_bin_edge_cases(upd) -> float:
     return worst
 
 
+def phase_layer_vs_plain(ops, tknn, trange, tdist) -> dict:
+    """Bitwise kernel-vs-plain of ``knn_tile``, ``range_count`` and
+    ``distance_tile`` on the cases of ``tests/test_kernels.py``. Returns
+    the largest difference per kernel (0 when equal)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    worst = {"knn_tile": 0.0, "range_count": 0.0, "distance_tile": 0.0}
+
+    def cuda(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    def knn_case(tag, q, p, wnd, k, r2, tile=64):
+        for skip in (False, True):
+            kw = dict(k=k, r2=r2, skip_test=skip, tile=tile)
+            args = (cuda(q), cuda(p), cuda(wnd))
+            d2_k, idx_k = ops.knn_tile(*args, **kw)
+            d2_p, idx_p = tknn.knn_tile_plain(*args, **kw)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(d2_p)
+            err = (float((d2_k[fin] - d2_p[fin]).abs().max())
+                   if fin.any() else 0.0)
+            worst["knn_tile"] = max(worst["knn_tile"], err)
+            check(torch.equal(d2_k, d2_p) and torch.equal(idx_k, idx_p),
+                  f"knn_tile differs from its plain version ({tag}, "
+                  f"skip={skip}): max |d2| err {err}")
+
+    cases = 0
+    for k in (1, 4, 8, 32, 100):
+        for m in (60, 256, 1000):
+            q = rng.random((128, 3)).astype(np.float32)
+            p = rng.random((m, 3)).astype(np.float32)
+            wnd = np.broadcast_to(np.arange(m, dtype=np.int32), (2, m))
+            knn_case(f"k={k} m={m}", q, p, wnd, k, 0.4 * 0.4)
+            cases += 1
+    knn_case("k above the candidates",
+             rng.random((64, 3)).astype(np.float32),
+             rng.random((5, 3)).astype(np.float32),
+             np.arange(5, dtype=np.int32)[None], 8, 10.0)
+    knn_case("all masked", rng.random((64, 3)).astype(np.float32),
+             np.full((64, 3), 50.0, np.float32),
+             np.full((1, 64), -1, np.int32), 4, 0.01)
+    knn_case("duplicate points", np.zeros((64, 3), np.float32),
+             np.zeros((10, 3), np.float32),
+             np.arange(10, dtype=np.int32)[None], 4, 1.0)
+    cases += 3
+    for m in (100, 600):
+        q = rng.random((128, 3)).astype(np.float32)
+        pos = rng.random((2, m, 3)).astype(np.float32)
+        wnd = rng.integers(-1, m, (2, m)).astype(np.int32)
+        args = (cuda(q), cuda(pos), cuda(wnd))
+        got = ops.range_count(*args, r2=0.25 ** 2, tile=64)
+        want = trange.range_count_plain(*args, r2=0.25 ** 2, tile=64)
+        torch.cuda.synchronize()
+        worst["range_count"] = max(worst["range_count"],
+                                   int((got - want).abs().max()))
+        check(torch.equal(got, want), f"range_count differs from its plain "
+              f"version (m={m})")
+        cases += 1
+    for nq, npts in ((8, 16), (100, 300), (256, 512), (33, 700), (513, 129)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q = cuda(rng.random((nq, 3)).astype(np.float32)).to(dtype)
+            p = cuda(rng.random((npts, 3)).astype(np.float32)).to(dtype)
+            got = ops.distance_tile(q, p)
+            want = tdist.distance_tile_plain(q, p)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            worst["distance_tile"] = max(worst["distance_tile"], err)
+            check(torch.equal(got, want), f"distance_tile differs from its "
+                  f"plain version ({nq}x{npts} {dtype}): max err {err}")
+            cases += 1
+    emit("layer_vs_plain", cases=cases, max_abs_err=worst, bitwise=True)
+    return worst
+
+
+def window_ids(dense_flat, anchors, ws, cap, dims):
+    """The ids of each anchored window [n, wx*wy*wz*cap], in window order
+    (cells in x, y, z raster order, slots innermost): the id stream the
+    anchored kernel derives inside itself."""
+    import torch
+    dev = dense_flat.device
+    m = ws[0] * ws[1] * ws[2] * cap
+    c = torch.arange(m, device=dev)
+    slot, cell = c % cap, c // cap
+    iz, iy, ix = cell % ws[2], (cell // ws[2]) % ws[1], cell // (ws[2] * ws[1])
+    a = anchors.to(torch.int64)
+    flat = ((((a[:, :1] + ix) * dims[1] + (a[:, 1:2] + iy)) * dims[2]
+             + (a[:, 2:] + iz)) * cap + slot)
+    return dense_flat[flat].contiguous()
+
+
+def phase_kernel_layer(api, ops, tknn, trange, tdist, ref, index, queries):
+    """The kernel layer at the static knn plan's shapes. Takes 64 tiles of
+    the plan's most common window, materialises each window as an id
+    stream and runs ``knn_tile`` and ``range_count`` on it (counted), and
+    ``distance_tile`` at DIST_SHAPE in float32 and bfloat16 (counted); then
+    holds each against its plain version, ``knn_tile`` against
+    ``knn_tile_anchored`` on the same tiles, ``range_count`` against brute
+    force on every query whose r-ball its window covers, and times them.
+    Returns the kernel table's rows for the three."""
+    import numpy as np
+    import torch
+    plan = api.plan_query(index, queries)
+    args, kw, entries = kernel_inputs(index, plan, queries)
+    spec, params, tile = index.spec, index.params, kw["tile"]
+    dims, cap = tuple(spec.dims), spec.capacity
+    lvl = entries.index((LAYER_WINDOW, False))
+    # prefer tiles at the full-radius level: their window covers every
+    # member's r-ball, which the brute-force check of range_count needs
+    full = plan.ladder.index((index.statics.w_full, False))
+    ids = torch.nonzero(args[4] == lvl).flatten()
+    ids = torch.cat([ids[plan.tile_levels[ids] == full],
+                     ids[plan.tile_levels[ids] != full]])[:N_KERNEL_TILES]
+    check(ids.numel() == N_KERNEL_TILES,
+          f"kernel_layer: only {ids.numel()} tiles take {LAYER_WINDOW}")
+    rows = (ids[:, None] * tile + torch.arange(tile, device=ids.device)
+            ).flatten()
+    q = args[0][rows].contiguous()
+    anchors = args[3][ids].contiguous()
+    wnd = window_ids(args[2], anchors, LAYER_WINDOW, cap, dims)
+    wnd_pos = index.points[wnd.clamp_min(0).long()].contiguous()
+    r2 = float(np.float32(params.radius) * np.float32(params.radius))
+    gen = torch.Generator().manual_seed(5)
+    pick = torch.randperm(index.points.shape[0], generator=gen)
+    dq = index.points[pick[:DIST_SHAPE[0]].to(q.device)].contiguous()
+    dp = index.points[:DIST_SHAPE[1]].contiguous()
+    dq16, dp16 = dq.to(torch.bfloat16), dp.to(torch.bfloat16)
+
+    # the layer's run: every launch count set to 0 just before, read after
+    torch.cuda.synchronize()
+    for fn in (ops.knn_tile, ops.range_count, ops.distance_tile):
+        fn.launches = 0
+    d2_s, idx_s = ops.knn_tile(q, index.points, wnd, k=params.k, r2=r2,
+                               tile=tile)
+    cnt = ops.range_count(q, wnd_pos, wnd, r2=r2, tile=tile)
+    dist = ops.distance_tile(dq, dp)
+    dist16 = ops.distance_tile(dq16, dp16)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in
+                (ops.knn_tile, ops.range_count, ops.distance_tile)}
+    for name, n in launches.items():
+        check(n >= 1, f"kernel_layer: {name} was not launched")
+
+    # knn_tile: = knn_tile_anchored on the same tiles, = its plain version
+    sub = [q, args[1], args[2], anchors, args[4][ids].contiguous(), args[5]]
+    d2_a, idx_a = ops.knn_tile_anchored(*sub, **kw)
+    check(torch.equal(d2_a, d2_s) and torch.equal(idx_a, idx_s),
+          "kernel_layer: knn_tile differs from knn_tile_anchored")
+    d2_p, idx_p = tknn.knn_tile_plain(q, index.points, wnd, k=params.k,
+                                      r2=r2, tile=tile)
+    fin = torch.isfinite(d2_p)
+    knn_err = float((d2_s[fin] - d2_p[fin]).abs().max()) if fin.any() else 0.
+    check(torch.equal(d2_s, d2_p) and torch.equal(idx_s, idx_p),
+          f"kernel_layer: knn_tile differs from its plain version "
+          f"({knn_err})")
+
+    # range_count: = its plain version; = brute force where covered
+    cnt_p = trange.range_count_plain(q, wnd_pos, wnd, r2=r2, tile=tile)
+    check(torch.equal(cnt, cnt_p),
+          "kernel_layer: range_count differs from its plain version")
+    w = index.statics.w_full
+    dims_t = torch.tensor(dims, device=q.device, dtype=torch.int32)
+    c = spec.cell_of(q)
+    lo = torch.clamp_min(c - w, 0)
+    hi = torch.minimum(c + w, dims_t - 1)
+    a = anchors.repeat_interleave(tile, dim=0)
+    ws_t = torch.tensor(LAYER_WINDOW, device=q.device, dtype=torch.int32)
+    covered = torch.all((lo >= a) & (hi <= a + ws_t - 1), dim=1)
+    r2_t = torch.tensor(r2, device=q.device)
+    brute = torch.cat([
+        torch.sum(ref.pairwise_d2(q[s:s + 256], index.points) <= r2_t,
+                  dim=1, dtype=torch.int32)
+        for s in range(0, q.shape[0], 256)])
+    n_cov = int(covered.sum())
+    check(n_cov > 0, "kernel_layer: no query's r-ball inside its window")
+    check(int(index.grid.overflow) == 0, "kernel_layer: the grid overflowed")
+    check(torch.equal(cnt[covered], brute[covered]),
+          "kernel_layer: range_count differs from brute force")
+
+    # distance_tile: = its plain version, f32 and bf16
+    dist_err = 0.0
+    for got, qq, pp in ((dist, dq, dp), (dist16, dq16, dp16)):
+        want = tdist.distance_tile_plain(qq, pp)
+        dist_err = max(dist_err, float((got - want).abs().max()))
+        check(torch.equal(got, want), f"kernel_layer: distance_tile differs "
+              f"from its plain version ({qq.dtype})")
+        del want
+    del dist, dist16
+
+    # times: kernel, plain version, library call
+    t = {}
+    t["knn_tile"] = cuda_time_ms(lambda: ops.knn_tile(
+        q, index.points, wnd, k=params.k, r2=r2, tile=tile), 10)
+    t["knn_tile_plain"] = cuda_time_ms(lambda: tknn.knn_tile_plain(
+        q, index.points, wnd, k=params.k, r2=r2, tile=tile), 1, warmup=0)
+    t["knn_tile_anchored"] = cuda_time_ms(lambda: ops.knn_tile_anchored(
+        *sub, **kw), 10)
+    t["range_count"] = cuda_time_ms(lambda: ops.range_count(
+        q, wnd_pos, wnd, r2=r2, tile=tile), 10)
+    t["range_count_plain"] = cuda_time_ms(lambda: trange.range_count_plain(
+        q, wnd_pos, wnd, r2=r2, tile=tile), 3)
+    t["distance_tile"] = cuda_time_ms(lambda: ops.distance_tile(dq, dp), 10)
+    t["distance_tile_bf16"] = cuda_time_ms(
+        lambda: ops.distance_tile(dq16, dp16), 10)
+    t["distance_tile_plain"] = cuda_time_ms(
+        lambda: tdist.distance_tile_plain(dq, dp), 3)
+    t["cdist"] = cuda_time_ms(lambda: torch.cdist(
+        dq, dp, compute_mode="use_mm_for_euclid_dist"), 5)
+
+    # bounds from this run's inputs: bytes each input read once and each
+    # output written once; operations over the valid (query, id) pairs
+    n_valid = int((wnd >= 0).sum())
+    pairs = n_valid * tile
+    out_b = q.shape[0] * params.k * 8
+    knn_bytes = (q.numel() + index.points.numel() + wnd.numel()) * 4 + out_b
+    rc_bytes = (q.numel() + wnd_pos.numel() + wnd.numel()
+                + q.shape[0]) * 4
+    dist_bytes = (dq.numel() + dp.numel() + dq.shape[0] * dp.shape[0]) * 4
+
+    def row(name, nbytes, ops_count, err, ms, plain_ms, library_ms):
+        bytes_ms = nbytes / PEAK_BYTES * 1e3
+        ops_ms = ops_count / PEAK_FP32 * 1e3
+        return dict(launches=launches[name], err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                    library_ms=library_ms, bytes=nbytes, ops=ops_count)
+
+    rows = {
+        "knn_tile": row("knn_tile", knn_bytes, pairs * OPS_PER_PAIR,
+                        knn_err, t["knn_tile"], t["knn_tile_plain"], None),
+        "range_count": row("range_count", rc_bytes, pairs * OPS_PER_PAIR,
+                           0.0, t["range_count"], t["range_count_plain"],
+                           None),
+        "distance_tile": row("distance_tile", dist_bytes,
+                             dq.shape[0] * dp.shape[0] * DIST_OPS_PER_PAIR,
+                             dist_err, t["distance_tile"],
+                             t["distance_tile_plain"], t["cdist"]),
+    }
+    emit("kernel_layer", n_tiles=N_KERNEL_TILES, window=list(LAYER_WINDOW),
+         ids_per_tile=int(wnd.shape[1]), ids=int(wnd.numel()),
+         valid_ids=n_valid, valid_pairs=pairs,
+         wnd_pos_mb=wnd_pos.numel() * 4 / 1e6,
+         full_radius_tiles=int((plan.tile_levels[ids] == full).sum()),
+         range_brute_force_queries=n_cov, mean_count=float(
+             cnt.float().mean()), distance_shape=list(DIST_SHAPE),
+         distance_out_gb=dist_bytes / 1e9, launches=launches, times_ms=t,
+         bitwise=True, bounds={k: {"bound_ms": v["bound_ms"],
+                                   "bound_by": v["bound_by"],
+                                   "bytes": v["bytes"], "ops": v["ops"]}
+                               for k, v in rows.items()})
+    return rows
+
+
+def group_launches(ns, queries, groups):
+    """For each launch group, the arguments the executor's searcher hands
+    ``knn_tile_anchored`` (its edge-padded selection, a one-entry ladder)
+    and the window entries its levels index."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    tile = ns.opts.query_tile
+    perm, _ = ns._schedule(queries)
+    queries_s = queries[perm.long()]
+    for g in groups:
+        sel = np.pad(g.sel, (0, g.pad_n - g.sel.shape[0]), mode="edge")
+        qb = queries_s[torch.from_numpy(sel).to(queries.device)]
+        ladder = ((int(g.w_search), bool(g.skip_test)),)
+        levels = torch.zeros((g.pad_n // tile,), dtype=torch.int32,
+                             device=queries.device)
+        args, kw = ops.launch_inputs(ns.grid, ns.points, qb, ns.spec,
+                                     ladder, levels, ns.params.radius,
+                                     ns.params.k, tile)
+        yield args, kw, ops.segment_levels(ladder, tuple(ns.spec.dims))
+
+
+def phase_host_planned(core, api, ref, knn_mod, pts, mode: str):
+    """``NeighborSearch.query`` on ``pts`` queried by its own points: one
+    counted query under sync-debug "warn" (two blocking transfers: the plan
+    fetch and the result wait), brute force on sampled queries, in knn mode
+    d2 bitwise equal to ``api.query`` on the same index, ``knn_tile_anchored``
+    against its plain version on tiles of every window of every launch
+    group, a second query that builds no launcher, then the timings.
+    Returns the kernel's max error against its plain version."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    params = (core.SearchParams(radius=RADIUS, k=K, knn_window="exact")
+              if mode == "knn" else
+              core.SearchParams(radius=RADIUS, k=K, mode="range"))
+    ns = core.NeighborSearch(pts, params, core.SearchOpts(use_pallas=True))
+    queries = ns.points.clone()
+
+    def counted():
+        torch.cuda.synchronize()
+        knn_mod.knn_tile_anchored.launches = 0
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                res = ns.query(queries)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        syncs = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                 if "synchronizing CUDA operation" in str(w.message)]
+        return res, wall_ms, syncs, knn_mod.knn_tile_anchored.launches
+
+    res, first_ms, syncs, launches = counted()
+    check(len(syncs) == 2, f"host_planned {mode}: {len(syncs)} blocking "
+          f"transfers ({syncs}), expected the plan fetch and the wait")
+    check(launches == ns.report.launches >= 1,
+          f"host_planned {mode}: {launches} kernel launches for "
+          f"{ns.report.launches} launch groups")
+    # the plan just run: the executor's newest plan-cache entry
+    plan, _bundles, groups = list(ns.executor._plan_cache.values())[-1]
+
+    # brute force on sampled queries
+    rng = np.random.default_rng(11)
+    sample = torch.from_numpy(rng.choice(queries.shape[0], N_SAMPLE,
+                                         replace=False)).cuda()
+    _oi, od, oc = ref.brute_force_search(ns.points, queries[sample],
+                                         params.radius, params.k, chunk=256)
+    check(torch.equal(oc, res.counts[sample]),
+          f"host_planned {mode}: counts differ from brute force")
+    d2, idx = res.distances2[sample], res.indices[sample]
+    check(torch.equal(torch.isinf(od), torch.isinf(d2)),
+          f"host_planned {mode}: inf masks differ from brute force")
+    valid = idx >= 0
+    fin = torch.isfinite(d2)
+    err = float((od[fin] - d2[fin]).abs().max()) if fin.any() else 0.0
+    pos = ns.points[idx.clamp_min(0).long()]
+    rec = ((queries[sample][:, None] - pos) ** 2).sum(-1)
+    check(bool((rec[valid] - d2[valid]).abs().max() <= 1e-5),
+          f"host_planned {mode}: an index does not reproduce its distance")
+    if mode == "knn":
+        check(err <= 1e-6, f"host_planned knn: d2 off brute force by {err}")
+        other = api.query(ns.index, queries)
+        check(torch.equal(other.distances2, res.distances2)
+              and torch.equal(other.counts, res.counts),
+              "host_planned knn: d2 or counts differ from api.query")
+    else:
+        check(bool((d2[valid] <= np.float32(RADIUS) ** 2).all()),
+              "host_planned range: an index lies outside the radius")
+
+    # each group's launch: its work, and the kernel against its plain
+    # version on tiles of every window that launch uses
+    kerr, group_rows = 0.0, []
+    for g, (args, kw, entries) in zip(groups, group_launches(ns, queries,
+                                                             groups)):
+        gerr, checked = compare_level_tiles(
+            args, kw, HP_TILES_PER_LEVEL,
+            f"host_planned {mode} w={g.w_search} skip={g.skip_test}")
+        kerr = max(kerr, gerr)
+        pairs, slot_pairs, _b, ops_ms, _bm, tiles = knn_work(
+            ns.index, args, entries)
+        group_rows.append(dict(
+            w=g.w_search, skip=g.skip_test, n=int(len(g.sel)),
+            pad_n=g.pad_n, bundles=g.n_bundles, tiles_per_window=tiles,
+            kernel_vs_plain_tiles={str(entries[lvl]): c
+                                   for lvl, c in checked.items()},
+            kernel_max_abs_err=gerr, valid_pairs=pairs,
+            slot_pairs=slot_pairs, bound_ops_ms=ops_ms))
+        del args
+
+    # a repeated query: plan and launcher caches hit, nothing built
+    res2, second_ms, syncs2, _ = counted()
+    last = ns.executor.stats()["last"]
+    check(len(syncs2) == 2 and last["compilations"] == 0
+          and last["plan_cache_hit"] and last["launcher_cache_hit"],
+          f"host_planned {mode}: repeated query {last}, syncs {syncs2}")
+    check(torch.equal(res2.distances2, res.distances2)
+          and torch.equal(res2.indices, res.indices),
+          f"host_planned {mode}: a repeated query differs")
+
+    query_ms = cuda_time_ms(lambda: ns.query(queries), N_TIMED_QUERIES)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ns.query(queries)
+        torch.cuda.synchronize()
+    kern_us, kern_n = device_us(prof, "knn_tile_anchored")
+    # each launch's device time, in launch (= group) order
+    per_launch = sorted(
+        (e.time_range.start, e.time_range.elapsed_us() / 1e3)
+        for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and "knn_tile_anchored" in e.name)
+    del prof
+    emit("host_planned", mode=mode, n_points=int(ns.points.shape[0]),
+         n_queries=int(queries.shape[0]),
+         partitions=[dict(w=p.w_search, skip=p.skip_test, count=p.count)
+                     for p in plan.partitions],
+         bundles=[dict(members=list(b.members), w=b.w_search,
+                       skip=b.skip_test, count=b.count)
+                  for b in ns.report.bundles],
+         groups=group_rows, kernel_max_abs_err=kerr,
+         knn_tile_anchored_launch_ms=[ms for _, ms in per_launch],
+         launches=launches, blocking_transfers=syncs,
+         blocking_transfers_second=syncs2, first_query_ms=first_ms,
+         second_query_ms=second_ms, query_ms=query_ms,
+         queries_per_s=queries.shape[0] / query_ms * 1e3,
+         t_opt_ms=ns.report.t_opt * 1e3,
+         knn_tile_anchored_device_ms=(None if kern_us is None
+                                      else kern_us * kern_n / 1e3),
+         knn_tile_anchored_profiled=kern_n, sampled=N_SAMPLE,
+         brute_force_max_abs_d2_err=err,
+         mean_count=float(res.counts.float().mean()),
+         stats={k: v for k, v in ns.executor.stats().items()
+                if k != "last"})
+    return kerr
+
+
 def device_us(prof, name: str):
     """Mean device time (us) per launch of the kernels whose name contains
     ``name`` in a finished ``torch.profiler`` run, and their launch count;
@@ -671,8 +1106,10 @@ def main() -> int:
     import repro_torch.api as api
     import repro_torch.core as core
     import repro_torch.data as data
-    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import distance_tile as tdist
     from repro_torch.kernels import knn_tile as knn_mod
+    from repro_torch.kernels import range_tile as trange
     from repro_torch.kernels import update_tile as upd
 
     smi = smi_line()
@@ -690,6 +1127,7 @@ def main() -> int:
     emit("kernel_vs_plain_done", max_abs_err=worst, bitwise=True)
     worst = phase_bin_edge_cases(upd)
     emit("bin_vs_plain_done", max_abs_err=worst, bitwise=True)
+    layer_worst = phase_layer_vs_plain(ops, knn_mod, trange, tdist)
 
     pts = data.kitti_like_cloud(N_POINTS, seed=1)
     opts = api.SearchOpts(use_pallas=True)
@@ -704,6 +1142,8 @@ def main() -> int:
         if mode == "knn":
             query_ms = cuda_time_ms(lambda: api.query(index, queries), 5)
             knn_index, knn_queries = index, queries
+            layer = phase_kernel_layer(api, ops, knn_mod, trange, tdist, ref,
+                                       index, queries)
 
     # kernel and plain-version times at the main path's shapes (the plain
     # version takes about a minute a run, so it is timed once)
@@ -721,13 +1161,21 @@ def main() -> int:
         n_points=int(knn_index.points.shape[0]))
     del knn_index, knn_queries, index, queries, out
 
+    hp_err = max(phase_host_planned(core, api, ref, knn_mod, pts, mode)
+                 for mode in ("knn", "range"))
+
     d = phase_dynamic(core, ref, knn_mod, upd)
 
     rows = [("knn_tile_anchored", dict(
-        launches=m["launches"], err=max(m["err"], d["search_err"]),
+        launches=m["launches"], err=max(m["err"], hp_err,
+                                        d["search_err"]),
         ms=kernel_ms, plain_ms=plain_ms, bound_ms=m["bound_ms"],
         bound_by=m["bound_by"])),
         ("bin_disp_tile", d)]
+    for name in ("knn_tile", "range_count", "distance_tile"):
+        r = layer[name]
+        r["err"] = max(r["err"], layer_worst[name])
+        rows.append((name, r))
     table = []
     for name, r in rows:
         src, replaces = KERNELS[name]
@@ -736,7 +1184,7 @@ def main() -> int:
             "replaces": replaces, "launches": r["launches"],
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None})
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Carry a built index, a captured plan or a dynamic session into the port.
+"""Carry a built index, a captured plan, a host partition plan or a dynamic
+session into the port.
 
 The state of this system is its built grid, its captured query plan and,
 for a dynamic session, the positions that plan was captured at. These
@@ -15,7 +16,7 @@ import torch
 
 from .core.api import NeighborIndex, QueryPlan, resolve_device
 from .core.dynamic import SessionOpts, SimulationSession
-from .core.partition import megacell_statics
+from .core.partition import Partition, PartitionPlan, megacell_statics
 from .core.types import CellGrid, GridSpec, SearchOpts, SearchParams
 
 
@@ -78,6 +79,24 @@ def plan_from_arrays(perm, tile_levels, *, nq: int, tile: int, ladder,
         ladder=tuple((int(w), bool(s)) for w, s in ladder),
         perm=_tensor(perm, torch.int32, dev),
         tile_levels=_tensor(tile_levels, torch.int32, dev))
+
+
+def partition_plan_from_arrays(perm, partitions, *,
+                               w_full: int) -> PartitionPlan:
+    """A host :class:`PartitionPlan` from another implementation's: its
+    partition-sorted permutation and its partitions (objects with the
+    fields of :class:`Partition`, or their ``dict``s), so the executor's
+    bundles, groups and selections can be compared under the same plan."""
+    parts = []
+    for p in partitions:
+        d = p if isinstance(p, dict) else {
+            f: getattr(p, f) for f in Partition.__dataclass_fields__}
+        parts.append(Partition(w_search=int(d["w_search"]),
+                               skip_test=bool(d["skip_test"]),
+                               count=int(d["count"]), rho=float(d["rho"]),
+                               start=int(d["start"])))
+    return PartitionPlan(perm=np.array(perm, dtype=np.int64, copy=True),
+                         partitions=parts, w_full=int(w_full))
 
 
 def session_from_arrays(points, dense, counts, sat, overflow, anchor_points,

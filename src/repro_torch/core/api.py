@@ -13,11 +13,14 @@ Every entry point runs on the card unless the caller asks otherwise: the
 ``device`` of :func:`build_index` defaults to ``"cuda"`` and every later
 tensor follows ``index.points.device``. ``update_index`` re-bins moved
 points into the index's frozen spec (the dynamic session's first stage).
-``cached_searcher`` is not ported yet.
+``cached_searcher`` keeps the host-planned ``NeighborSearch`` objects of
+the one-shot ``neighbor_search`` by a fingerprint of their inputs.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import hashlib
 import os
 
 import numpy as np
@@ -317,6 +320,53 @@ def query_concat(index: NeighborIndex, queries_list) -> list[SearchResult]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# keyed searcher cache (one-shot surface)
+# ---------------------------------------------------------------------------
+
+_SEARCHER_CACHE: collections.OrderedDict = collections.OrderedDict()
+_SEARCHER_CACHE_MAX = 8
+
+
+def cached_searcher(points, params: SearchParams,
+                    opts: SearchOpts = SearchOpts(), *, device="cuda"):
+    """Keyed cache behind the one-shot ``neighbor_search``.
+
+    The searcher is cached by a value fingerprint of (points, params,
+    opts, device), so repeated one-shot calls over the same point set
+    reuse the built grid and the executor's plan and launcher caches.
+    LRU-bounded at ``_SEARCHER_CACHE_MAX``; the entries hold their grids on
+    the device until evicted, so memory-sensitive callers should use
+    :func:`searcher_cache_clear` or build a ``NeighborSearch`` directly.
+    """
+    from .search import NeighborSearch
+    dev = resolve_device(device)
+    pts_np = (points.detach().cpu().numpy() if isinstance(
+        points, torch.Tensor) else np.asarray(points, np.float32))
+    pts_np = np.ascontiguousarray(pts_np, np.float32)
+    digest = hashlib.sha1(pts_np.tobytes()).digest()
+    key = (pts_np.shape, digest, params, opts, dev)
+    hit = _SEARCHER_CACHE.get(key)
+    if hit is not None:
+        _SEARCHER_CACHE.move_to_end(key)
+        return hit
+    ns = NeighborSearch(pts_np, params, opts, device=dev)
+    _SEARCHER_CACHE[key] = ns
+    if len(_SEARCHER_CACHE) > _SEARCHER_CACHE_MAX:
+        _SEARCHER_CACHE.popitem(last=False)
+    return ns
+
+
+def searcher_cache_stats() -> dict:
+    """Size of the one-shot searcher cache."""
+    return {"entries": len(_SEARCHER_CACHE),
+            "max_entries": _SEARCHER_CACHE_MAX}
+
+
+def searcher_cache_clear() -> None:
+    _SEARCHER_CACHE.clear()
+
+
 __all__ = [
     "GridSpec",
     "NeighborIndex",
@@ -327,11 +377,14 @@ __all__ = [
     "SearchResult",
     "UpdateStats",
     "build_index",
+    "cached_searcher",
     "execute_plan",
     "launch_signatures",
     "plan_query",
     "query",
     "query_concat",
+    "searcher_cache_clear",
+    "searcher_cache_stats",
     "update_index",
     "validate_queries",
 ]

@@ -13,8 +13,9 @@ Window sizing:
 where a = (2*w*+1)*cell is the megacell width; all windows are clamped to
 the full-radius window w_full = ceil(r/cell).
 
-The host-planned ``plan_partitions``/``trivial_plan``/``inflate_plan_inputs``
-belong to the executor and are not ported yet.
+The host-planned executor (``core/executor.py``) fetches the per-query
+``(w_search, skip, rho)`` once and groups the queries into partitions on
+the host (:func:`plan_partitions`), as the paper's host code does.
 """
 from __future__ import annotations
 
@@ -141,6 +142,90 @@ def compute_megacells(
     rho_fallback = counts[..., -1].to(torch.float32) / (a_last ** 3)
     rho = torch.where(found, rho_found, torch.clamp_min(rho_fallback, 1e-12))
     return w_search, skip, rho.to(torch.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class Partition:
+    """One query partition: all queries sharing a window radius/skip flag."""
+
+    w_search: int
+    skip_test: bool
+    count: int            # number of queries (N_i in the cost model)
+    rho: float            # mean density estimate (rho_i)
+    start: int            # offset into the partition-sorted query order
+
+
+@dataclasses.dataclass
+class PartitionPlan:
+    """Host-side partition layout: queries sorted by (partition key, Morton
+    slot) and the per-partition metadata for bundling."""
+
+    perm: np.ndarray              # partition-sorted order over *scheduled* idx
+    partitions: list[Partition]
+    w_full: int
+
+    @property
+    def num_partitions(self) -> int:
+        return len(self.partitions)
+
+
+def trivial_plan(nq: int, w_full: int) -> PartitionPlan:
+    """Single full-window partition (partitioning disabled / no megacells)."""
+    part = Partition(w_search=w_full, skip_test=False, count=nq, rho=1.0,
+                     start=0)
+    return PartitionPlan(perm=np.arange(nq), partitions=[part],
+                         w_full=w_full)
+
+
+def inflate_plan_inputs(
+    w_search: np.ndarray,
+    skip: np.ndarray,
+    *,
+    margin: int,
+    w_full: int,
+    w_sph: int,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Staleness allowance of a plan captured for reuse across frames:
+    every per-query window grows by ``margin`` cells, clamped to ``w_full``
+    (which always covers the whole r-ball, so inflation never loses
+    exactness), and the sphere-test skip is revoked for any window pushed
+    past the inscribed ring ``w_sph``."""
+    w = np.minimum(w_search.astype(np.int64) + int(margin),
+                   int(w_full)).astype(w_search.dtype)
+    s = skip.astype(bool) & (w <= w_sph)
+    return w, s
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def plan_partitions(w_search, skip, rho, w_full: int) -> PartitionPlan:
+    """Group queries into partitions on the host, like the paper's
+    host-side partition launch loop. Accepts tensors (fetched here, one
+    transfer each) or the host arrays the executor already fetched.
+
+    The stable sort keeps the Morton schedule order within each partition;
+    ``rho`` is the numpy float32 mean of the members' densities, as the
+    reference computes it, so the cost model compares identical floats.
+    """
+    w_np, s_np, r_np = _host(w_search), _host(skip), _host(rho)
+    key = w_np.astype(np.int64) * 2 + s_np.astype(np.int64)
+    perm = np.argsort(key, kind="stable")
+    key_sorted = key[perm]
+    uniq, starts, counts = np.unique(key_sorted, return_index=True,
+                                     return_counts=True)
+    parts = []
+    for u, st, cn in zip(uniq, starts, counts):
+        sel = perm[st:st + cn]
+        parts.append(Partition(
+            w_search=int(u // 2),
+            skip_test=bool(u % 2),
+            count=int(cn),
+            rho=float(r_np[sel].mean()),
+            start=int(st),
+        ))
+    return PartitionPlan(perm=perm, partitions=parts, w_full=int(w_full))
 
 
 def launch_signatures(

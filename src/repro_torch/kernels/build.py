@@ -10,7 +10,6 @@ the CPU-only test environment has no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 import shutil
 import subprocess
@@ -47,9 +46,13 @@ def _command(name: str, out: Path) -> list[str]:
 
 
 def _stale(name: str) -> bool:
+    """True if the library is missing or older than its source or than any
+    header in ``csrc/`` (a header may be shared by several kernels)."""
     lib = library_path(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+    if not lib.exists():
+        return True
+    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 
 def build(names) -> dict[str, str]:
@@ -78,8 +81,18 @@ def build(names) -> dict[str, str]:
     return reports
 
 
-@functools.lru_cache(maxsize=None)
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The bound library of ``csrc/<name>.cu``, built first if stale."""
-    build([name])
-    return ctypes.CDLL(str(library_path(name)))
+    """The bound library of ``csrc/<name>.cu``, built first if stale;
+    loaded once per process."""
+    if name not in _LIBS:
+        build([name])
+        _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+    return _LIBS[name]
+
+
+def is_loaded(name: str) -> bool:
+    """Whether this process has loaded the library of ``csrc/<name>.cu``."""
+    return name in _LIBS

@@ -23,25 +23,32 @@
 // does not diverge. The best-K list lives in registers for k <= 32 (the
 // main path uses k = 8); k up to 128 spills to local memory.
 //
-// Exactness: d2 = max(qn + pn - 2*cross, 0) with each sum taken x, y, z
-// in that order through __fmul_rn/__fadd_rn, so nvcc cannot contract it
-// into FMAs; the plain PyTorch version in knn_tile.py does the same
-// elementwise ops and the two agree bitwise. A candidate enters the list
-// only when strictly less than the current k-th best, so ties keep the
-// earlier window position: the reference merge's rule.
-#include <cuda_runtime.h>
-#include <math_constants.h>
+// Exactness and ties: see knn_stream.cuh, which this kernel shares with
+// knn_tile.cu (the id-stream variant), so the two agree bitwise on the same
+// candidates.
+#include "knn_stream.cuh"
 
 namespace {
 
-constexpr int kChunk = 512;       // candidates staged per shared-memory pass
-constexpr float kBig = 3.4e38f;   // "empty" distance; emitted as +inf
+// Candidate id at window position cc of a tile anchored at (ax, ay, az):
+// (window cell, slot) -> global cell -> flattened dense grid, clipped.
+struct AnchoredIds {
+  const int* __restrict__ dense;
+  int n_flat, ax, ay, az, wy, wz, dy, dz, cap;
 
-__device__ __forceinline__ float dot3(float ax, float ay, float az,
-                                      float bx, float by, float bz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)),
-                   __fmul_rn(az, bz));
-}
+  __device__ __forceinline__ int operator()(int cc) const {
+    const int slot = cc % cap;
+    const int cell = cc / cap;
+    const int iz = cell % wz;
+    const int iy = (cell / wz) % wy;
+    const int ix = cell / (wz * wy);
+    long long flat =
+        (((long long)(ax + ix) * dy + (ay + iy)) * dz + (az + iz)) * cap +
+        slot;
+    flat = flat < 0 ? 0 : (flat >= n_flat ? n_flat - 1 : flat);
+    return dense[flat];
+  }
+};
 
 template <int KMAX>
 __global__ void __launch_bounds__(1024) knn_tile_anchored_kernel(
@@ -50,21 +57,12 @@ __global__ void __launch_bounds__(1024) knn_tile_anchored_kernel(
     const int* __restrict__ levels, const int* __restrict__ table,
     int n_entries, int n_pts, int n_flat, int dy, int dz, int cap, int k,
     float r2, float* __restrict__ out_d2, int* __restrict__ out_idx) {
-  __shared__ int s_id[kChunk];
-  __shared__ float s_x[kChunk], s_y[kChunk], s_z[kChunk], s_n[kChunk];
-
+  __shared__ knn_stream::Chunk s;
   const int tile_id = blockIdx.x;
-  const int t = threadIdx.x;
-  const long long row = (long long)tile_id * blockDim.x + t;
-
+  const long long row = (long long)tile_id * blockDim.x + threadIdx.x;
   float best_d[KMAX];
   int best_i[KMAX];
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    best_d[j] = kBig;
-    best_i[j] = -1;
-  }
-  float worst = kBig;             // best_d[k - 1]
+  knn_stream::init(best_d, best_i);
 
   const int lvl = levels[tile_id];
   if (lvl >= 0 && lvl < n_entries) {      // uniform across the CTA
@@ -72,89 +70,16 @@ __global__ void __launch_bounds__(1024) knn_tile_anchored_kernel(
     const int wy = table[lvl * 4 + 1];
     const int wz = table[lvl * 4 + 2];
     const bool skip = table[lvl * 4 + 3] != 0;
-    const int ax = anchors[tile_id * 3 + 0];
-    const int ay = anchors[tile_id * 3 + 1];
-    const int az = anchors[tile_id * 3 + 2];
+    const AnchoredIds ids{dense, n_flat, anchors[tile_id * 3 + 0],
+                          anchors[tile_id * 3 + 1], anchors[tile_id * 3 + 2],
+                          wy, wz, dy, dz, cap};
     const int m = wx * wy * wz * cap;     // < n_flat < 2^31 (checked)
-    const float qx = q[row * 3 + 0];
-    const float qy = q[row * 3 + 1];
-    const float qz = q[row * 3 + 2];
-    const float qn = dot3(qx, qy, qz, qx, qy, qz);
-
-    for (int base = 0; base < m; base += kChunk) {
-      // stage: candidate id from the anchor, then its position
-      for (int c = t; c < kChunk; c += blockDim.x) {
-        const int cc = base + c;
-        int id = -1;
-        if (cc < m) {
-          const int slot = cc % cap;
-          const int cell = cc / cap;
-          const int iz = cell % wz;
-          const int iy = (cell / wz) % wy;
-          const int ix = cell / (wz * wy);
-          long long flat =
-              (((long long)(ax + ix) * dy + (ay + iy)) * dz + (az + iz)) *
-                  cap + slot;
-          flat = flat < 0 ? 0 : (flat >= n_flat ? n_flat - 1 : flat);
-          id = dense[flat];
-        }
-        float px = 0.f, py = 0.f, pz = 0.f, pn = 0.f;
-        if (id >= 0) {
-          const long long p = id < n_pts ? id : n_pts - 1;
-          px = points[p * 3 + 0];
-          py = points[p * 3 + 1];
-          pz = points[p * 3 + 2];
-          pn = dot3(px, py, pz, px, py, pz);
-        }
-        s_id[c] = id;
-        s_x[c] = px;
-        s_y[c] = py;
-        s_z[c] = pz;
-        s_n[c] = pn;
-      }
-      __syncthreads();
-      const int n_here = min(kChunk, m - base);
-      for (int j = 0; j < n_here; ++j) {
-        const int id = s_id[j];
-        if (id < 0) continue;
-        const float cross = dot3(qx, qy, qz, s_x[j], s_y[j], s_z[j]);
-        float d = __fsub_rn(__fadd_rn(qn, s_n[j]), __fmul_rn(2.f, cross));
-        d = d > 0.f ? d : 0.f;
-        if (!skip && d > r2) continue;
-        if (!(d < worst)) continue;
-        // insert after every held entry <= d (strictly-less rule)
-#pragma unroll
-        for (int s = KMAX - 1; s > 0; --s) {
-          if (s < k) {
-            if (d < best_d[s - 1]) {
-              best_d[s] = best_d[s - 1];
-              best_i[s] = best_i[s - 1];
-            } else if (d < best_d[s]) {
-              best_d[s] = d;
-              best_i[s] = id;
-            }
-          }
-        }
-        if (d < best_d[0]) {
-          best_d[0] = d;
-          best_i[0] = id;
-        }
-#pragma unroll
-        for (int s = 0; s < KMAX; ++s) {
-          if (s == k - 1) worst = best_d[s];
-        }
-      }
-      __syncthreads();
-    }
+    knn_stream::stream_topk<KMAX>(s, ids, m, points, n_pts, q[row * 3 + 0],
+                                  q[row * 3 + 1], q[row * 3 + 2], skip, r2, k,
+                                  best_d, best_i);
   }
-  // emit; off-level tiles emit the neutral (inf, -1) rows
-#pragma unroll
-  for (int s = 0; s < KMAX; ++s) {
-    if (s < k) {
-      out_d2[row * k + s] = best_d[s] >= kBig ? CUDART_INF_F : best_d[s];
-      out_idx[row * k + s] = best_i[s];
-    }
-  }
+  // off-level tiles emit the neutral (inf, -1) rows
+  knn_stream::emit<KMAX>(best_d, best_i, k, row, out_d2, out_idx);
 }
 
 }  // namespace

@@ -1,17 +1,26 @@
-"""Fused gather -> distance -> streaming top-K over anchored tile windows.
+"""Fused gather -> distance -> streaming top-K over tile windows.
 
-:func:`knn_tile_anchored` is the port of the reference's Pallas kernel of
-the same name (``src/repro/kernels/knn_tile.py``). On a CUDA tensor it
-launches the hand-written kernel ``csrc/knn_tile_anchored.cu`` (built by
-``kernels/build.py``); on a CPU tensor it runs
-:func:`knn_tile_anchored_plain`, the same arithmetic in plain PyTorch.
-There is no fallback from one to the other.
+Two kernels share the stream (``csrc/knn_stream.cuh``), as the reference's
+two Pallas kernels of the same names (``src/repro/kernels/knn_tile.py``)
+share theirs:
+
+* :func:`knn_tile_anchored` derives each tile's candidate ids from its
+  window anchor inside the kernel (the main path);
+* :func:`knn_tile` streams a caller-supplied candidate-id stream
+  ``[n_tiles, M]`` (-1 = invalid), the kernel layer's public entry point.
+
+On a CUDA tensor each launches its hand-written kernel (``csrc/<name>.cu``,
+built by ``kernels/build.py``); on a CPU tensor it runs its plain version,
+the same arithmetic in plain PyTorch. There is no fallback from one to the
+other. On the ids of an anchored window, in window order, the two kernels
+agree bitwise, and so do the two plain versions.
 
 Unlike the reference, which launches once per ladder level with the other
-levels' tiles masked off (a TPU construct), ONE launch covers every tile:
-each tile reads its ``(wx, wy, wz, skip)`` from ``table[levels[tile]]``. A
-tile whose level lies outside the table emits neutral rows (inf, -1), like
-an off-level tile of the reference.
+levels' tiles masked off (a TPU construct), ONE launch of
+``knn_tile_anchored`` covers every tile: each tile reads its
+``(wx, wy, wz, skip)`` from ``table[levels[tile]]``. A tile whose level lies
+outside the table emits neutral rows (inf, -1), like an off-level tile of
+the reference.
 """
 from __future__ import annotations
 
@@ -31,25 +40,41 @@ _BIG = 3.4e38          # the reference's "empty" distance sentinel
 _PLAIN_CHUNK = 65536   # candidates per merge step of the plain version
 
 
+def _check_args(name, q, expect):
+    """Raise unless each ``(tensor, dtype, shape)`` of ``expect`` matches
+    and lies on ``q``'s device."""
+    for i, (t, dtype, shape) in enumerate(expect):
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+            raise ValueError(
+                f"{name}: argument {i} is {t.dtype} {tuple(t.shape)}, "
+                f"expected {dtype} {tuple(shape)}")
+        if t.device != q.device:
+            raise ValueError(f"{name}: tensors on different devices "
+                             f"({t.device} vs {q.device})")
+
+
+def _check_launch(name, tensors, tile):
+    """The CUDA launch's own limits: a CTA of ``tile`` threads, a whole
+    number of warps, and contiguous tensors."""
+    if tile % 32 or not 32 <= tile <= MAX_TILE:
+        raise ValueError(f"{name}: tile={tile} must be a multiple of 32 in "
+                         f"[32, {MAX_TILE}]")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+
+
 def _check(q, points, dense_flat, anchors, levels, table, dims, cap, k,
            tile):
     n_tiles = anchors.shape[0]
-    expect = (
+    _check_args("knn_tile_anchored", q, (
         (q, torch.float32, (n_tiles * tile, 3)),
         (points, torch.float32, (points.shape[0], 3)),
         (dense_flat, torch.int32, (dims[0] * dims[1] * dims[2] * cap,)),
         (anchors, torch.int32, (n_tiles, 3)),
         (levels, torch.int32, (n_tiles,)),
         (table, torch.int32, (table.shape[0], 4)),
-    )
-    for i, (t, dtype, shape) in enumerate(expect):
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"knn_tile_anchored: argument {i} is {t.dtype} "
-                f"{tuple(t.shape)}, expected {dtype} {shape}")
-        if t.device != q.device:
-            raise ValueError("knn_tile_anchored: tensors on different "
-                             f"devices ({t.device} vs {q.device})")
+    ))
     if points.shape[0] < 1:
         raise ValueError("knn_tile_anchored: empty points table")
     if k < 1:
@@ -96,16 +121,12 @@ def knn_tile_anchored(
                                        k=k, r2=r2, tile=tile)
     if q.device.type != "cuda":
         raise ValueError(f"knn_tile_anchored: no kernel for {q.device}")
-    if tile % 32 or not 32 <= tile <= MAX_TILE:
-        raise ValueError(f"knn_tile_anchored: tile={tile} must be a "
-                         f"multiple of 32 in [32, {MAX_TILE}]")
+    _check_launch("knn_tile_anchored",
+                  (q, points, dense_flat, anchors, levels, table), tile)
     if k > MAX_K:
         raise ValueError(f"knn_tile_anchored: k={k} exceeds {MAX_K}")
     if dense_flat.numel() >= 2 ** 31 or points.shape[0] >= 2 ** 31:
         raise ValueError("knn_tile_anchored: grid or points exceed int32")
-    for t in (q, points, dense_flat, anchors, levels, table):
-        if not t.is_contiguous():
-            raise ValueError("knn_tile_anchored: tensors must be contiguous")
     n_tiles = anchors.shape[0]
     out_d2 = torch.empty((n_tiles * tile, k), dtype=torch.float32,
                          device=q.device)
@@ -132,27 +153,53 @@ def knn_tile_anchored(
 knn_tile_anchored.launches = 0
 
 
+def _stream_plain(qt, points, chunks, *, k, r2, skip):
+    """The plain streaming top-K of one tile ``qt`` [tile, 3]: ``chunks``
+    yields the tile's candidate ids in window order; each chunk is merged
+    into the running best, held entries first, so the order equals one
+    stable sort over the whole window. Returns ([tile, k] d2, [tile, k]
+    idx), or empty columns for an empty window."""
+    dev = qt.device
+    n_pts = points.shape[0]
+    r2_t = torch.tensor(np.float32(r2)).to(dev)
+    big = torch.tensor(np.float32(_BIG)).to(dev)
+    qn = dot3(qt, qt)[:, None]
+    best_d2 = torch.full((qt.shape[0], 0), float("inf"), device=dev)
+    best_idx = torch.full((qt.shape[0], 0), -1, dtype=torch.int32,
+                          device=dev)
+    for ids in chunks:
+        p = points[ids.clamp(0, n_pts - 1).long()]
+        pn = dot3(p, p)[None, :]
+        cross = dot3(qt[:, None, :], p[None, :, :])
+        d2 = torch.clamp_min(qn + pn - 2.0 * cross, 0.0)
+        # the kernel's list starts at _BIG: nothing >= _BIG enters it
+        invalid = (ids < 0)[None, :] | (d2 >= big)
+        if not skip:
+            invalid = invalid | (d2 > r2_t)
+        d2 = torch.where(invalid, float("inf"), d2)
+        idx = torch.where(invalid, -1, ids[None, :])
+        best_d2, best_idx = topk_select(torch.cat([best_d2, d2], 1),
+                                        torch.cat([best_idx, idx], 1), k)
+    return best_d2, best_idx
+
+
 def knn_tile_anchored_plain(q, points, dense_flat, anchors, levels, table,
                             *, dims, cap, k, r2, tile):
     """Plain PyTorch version of :func:`knn_tile_anchored`: the same
     elementwise arithmetic, selected by a stable sort.
 
     Loops over tiles, and over each window in chunks of ``_PLAIN_CHUNK``
-    candidates merged into the running best (held entries first, so the
-    order equals one stable sort over the whole window). It reads the
-    levels, anchors and table on the host, so it synchronises on CUDA.
+    candidates. It reads the levels, anchors and table on the host, so it
+    synchronises on CUDA.
     """
     dev = q.device
     n_tiles = anchors.shape[0]
     _, dy, dz = dims
     n_flat = dense_flat.shape[0]
-    n_pts = points.shape[0]
     out_d2 = torch.full((n_tiles * tile, k), float("inf"),
                         dtype=torch.float32, device=dev)
     out_idx = torch.full((n_tiles * tile, k), -1, dtype=torch.int32,
                          device=dev)
-    r2_t = torch.tensor(np.float32(r2)).to(dev)
-    big = torch.tensor(np.float32(_BIG)).to(dev)
     table_h, levels_h, anchors_h = (table.tolist(), levels.tolist(),
                                     anchors.tolist())
     for i in range(n_tiles):
@@ -162,28 +209,109 @@ def knn_tile_anchored_plain(q, points, dense_flat, anchors, levels, table,
         wx, wy, wz, skip = table_h[lvl]
         ax, ay, az = anchors_h[i]
         m = wx * wy * wz * cap
-        qt = q[i * tile:(i + 1) * tile]
-        qn = dot3(qt, qt)[:, None]
-        best_d2 = torch.full((tile, 0), float("inf"), device=dev)
-        best_idx = torch.full((tile, 0), -1, dtype=torch.int32, device=dev)
-        for base in range(0, m, _PLAIN_CHUNK):
-            c = torch.arange(base, min(m, base + _PLAIN_CHUNK), device=dev)
-            slot, cell = c % cap, c // cap
-            iz, iy, ix = cell % wz, (cell // wz) % wy, cell // (wz * wy)
-            flat = (((ax + ix) * dy + (ay + iy)) * dz + (az + iz)) * cap + slot
-            ids = dense_flat[flat.clamp(0, n_flat - 1)]
-            p = points[ids.clamp(0, n_pts - 1).long()]
-            pn = dot3(p, p)[None, :]
-            cross = dot3(qt[:, None, :], p[None, :, :])
-            d2 = torch.clamp_min(qn + pn - 2.0 * cross, 0.0)
-            # the kernel's list starts at _BIG: nothing >= _BIG enters it
-            invalid = (ids < 0)[None, :] | (d2 >= big)
-            if not skip:
-                invalid = invalid | (d2 > r2_t)
-            d2 = torch.where(invalid, float("inf"), d2)
-            idx = torch.where(invalid, -1, ids[None, :])
-            best_d2, best_idx = topk_select(torch.cat([best_d2, d2], 1),
-                                            torch.cat([best_idx, idx], 1), k)
+
+        def chunks():
+            for base in range(0, m, _PLAIN_CHUNK):
+                c = torch.arange(base, min(m, base + _PLAIN_CHUNK),
+                                 device=dev)
+                slot, cell = c % cap, c // cap
+                iz, iy, ix = cell % wz, (cell // wz) % wy, cell // (wz * wy)
+                flat = ((((ax + ix) * dy + (ay + iy)) * dz + (az + iz)) * cap
+                        + slot)
+                yield dense_flat[flat.clamp(0, n_flat - 1)]
+
+        best_d2, best_idx = _stream_plain(q[i * tile:(i + 1) * tile], points,
+                                          chunks(), k=k, r2=r2, skip=skip)
+        if best_d2.shape[1]:
+            out_d2[i * tile:(i + 1) * tile] = best_d2
+            out_idx[i * tile:(i + 1) * tile] = best_idx
+    return out_d2, out_idx
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_library():
+    from .build import load
+    fn = load("knn_tile").knn_tile_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, i, i, i, i, i, i, ctypes.c_float, p, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def knn_tile(
+    q: Tensor,            # [n_tiles * tile, 3] f32 queries
+    points: Tensor,       # [N, 3] f32 coordinate table
+    wnd_idx: Tensor,      # [n_tiles, M] i32 candidate ids (-1 = invalid)
+    *,
+    k: int,
+    r2: float,
+    skip_test: bool = False,
+    tile: int = 256,
+) -> tuple[Tensor, Tensor]:
+    """Streaming top-K of each query against its tile's candidate ids, in
+    stream order.
+
+    Returns (d2 [Nq, k] f32 ascending, inf-padded; idx [Nq, k] i32,
+    -1-padded). Ids are clipped to ``[0, N-1]`` for the gather and -1 ids
+    are dropped; candidates beyond ``r2`` are dropped unless
+    ``skip_test``; ties keep the earlier stream position.
+    """
+    n_tiles, m = wnd_idx.shape
+    _check_args("knn_tile", q, (
+        (q, torch.float32, (n_tiles * tile, 3)),
+        (points, torch.float32, (points.shape[0], 3)),
+        (wnd_idx, torch.int32, (n_tiles, m)),
+    ))
+    if points.shape[0] < 1 or k < 1:
+        raise ValueError(f"knn_tile: needs points and k >= 1 (k={k})")
+    if q.device.type == "cpu":
+        return knn_tile_plain(q, points, wnd_idx, k=k, r2=r2,
+                              skip_test=skip_test, tile=tile)
+    if q.device.type != "cuda":
+        raise ValueError(f"knn_tile: no kernel for {q.device}")
+    _check_launch("knn_tile", (q, points, wnd_idx), tile)
+    if k > MAX_K:
+        raise ValueError(f"knn_tile: k={k} exceeds {MAX_K}")
+    if m >= 2 ** 31 or points.shape[0] >= 2 ** 31:
+        raise ValueError("knn_tile: stream or points exceed int32")
+    out_d2 = torch.empty((n_tiles * tile, k), dtype=torch.float32,
+                         device=q.device)
+    out_idx = torch.empty((n_tiles * tile, k), dtype=torch.int32,
+                          device=q.device)
+    if n_tiles == 0:
+        return out_d2, out_idx
+    launch = _stream_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = launch(q.data_ptr(), points.data_ptr(), wnd_idx.data_ptr(),
+                     n_tiles, tile, m, points.shape[0], k, int(skip_test),
+                     float(np.float32(r2)), out_d2.data_ptr(),
+                     out_idx.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"knn_tile: kernel launch failed (cudaError "
+                           f"{err})")
+    knn_tile.launches += 1
+    return out_d2, out_idx
+
+
+knn_tile.launches = 0
+
+
+def knn_tile_plain(q, points, wnd_idx, *, k, r2, skip_test=False,
+                   tile=256):
+    """Plain PyTorch version of :func:`knn_tile`: the stream of
+    :func:`knn_tile_anchored_plain` over each tile's row of ids."""
+    n_tiles, m = wnd_idx.shape
+    out_d2 = torch.full((n_tiles * tile, k), float("inf"),
+                        dtype=torch.float32, device=q.device)
+    out_idx = torch.full((n_tiles * tile, k), -1, dtype=torch.int32,
+                         device=q.device)
+    for i in range(n_tiles):
+        row = wnd_idx[i]
+        chunks = (row[b:b + _PLAIN_CHUNK] for b in range(0, m, _PLAIN_CHUNK))
+        best_d2, best_idx = _stream_plain(q[i * tile:(i + 1) * tile], points,
+                                          chunks, k=k, r2=r2,
+                                          skip=skip_test)
         if best_d2.shape[1]:
             out_d2[i * tile:(i + 1) * tile] = best_d2
             out_idx[i * tile:(i + 1) * tile] = best_idx

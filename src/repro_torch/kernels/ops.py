@@ -1,4 +1,9 @@
-"""The fused search path (``SearchOpts(use_pallas=True)``).
+"""The kernel layer's entry point and the fused search path
+(``SearchOpts(use_pallas=True)``).
+
+It exports every kernel of the port (``knn_tile_anchored``, ``knn_tile``,
+``range_count``, ``distance_tile``, ``bin_disp_tile``) beside the fused
+search path built on the first.
 
 Each Morton-contiguous query tile gathers ONE shared cell window, the
 union of its members' windows. Window sizes come from a host-static ladder
@@ -18,11 +23,12 @@ from functools import lru_cache
 import torch
 
 from ..core.types import device_table
-from .knn_tile import knn_tile_anchored
+from .distance_tile import distance_tile
+from .knn_tile import knn_tile, knn_tile_anchored
+from .range_tile import range_count
 from .update_tile import bin_disp_tile
 
 Tensor = torch.Tensor
-
 
 @lru_cache(maxsize=512)
 def segment_levels(
@@ -184,6 +190,10 @@ def window_search_pallas(
     return idx[:nq], d2[:nq], cnt[:nq]
 
 
-__all__ = ["bin_disp_tile", "knn_tile_anchored", "segment_levels",
+# The reference also exports ``INTERPRET``, its switch for Pallas interpret
+# mode. A CUDA kernel has no interpret mode (on CPU tensors every wrapper
+# runs its plain version), so the port has no such switch.
+__all__ = ["bin_disp_tile", "distance_tile", "knn_tile",
+           "knn_tile_anchored", "range_count", "segment_levels",
            "assign_tile_levels", "launch_inputs", "window_search_segmented",
            "window_search_pallas"]

@@ -26,7 +26,11 @@ def test_port_imports_no_jax_and_no_reference():
     assert {"repro_torch.api", "repro_torch.convert",
             "repro_torch.kernels.knn_tile", "repro_torch.kernels.build",
             "repro_torch.core.grid", "repro_torch.core.dynamic",
-            "repro_torch.obs", "repro_torch.kernels.update_tile"} <= set(names)
+            "repro_torch.obs", "repro_torch.kernels.update_tile",
+            "repro_torch.core.bundle", "repro_torch.core.executor",
+            "repro_torch.kernels.range_tile",
+            "repro_torch.kernels.distance_tile",
+            "repro_torch.reliability.faults"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"
@@ -52,3 +56,24 @@ def test_build_index_defaults_to_cuda():
         build_index(pts, SearchParams(radius=0.2, k=4))
     index = build_index(pts, SearchParams(radius=0.2, k=4), device="cpu")
     assert index.points.device.type == "cpu"
+
+
+def test_host_planned_entry_points_default_to_cuda():
+    """``NeighborSearch`` and the one-shot ``neighbor_search`` raise without
+    a CUDA device unless the caller passes ``device="cpu"``."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device works")
+    from repro_torch.core import (NeighborSearch, SearchParams,
+                                  neighbor_search)
+    rng = np.random.default_rng(0)
+    pts = rng.random((50, 3)).astype(np.float32)
+    qs = rng.random((10, 3)).astype(np.float32)
+    params = SearchParams(radius=0.2, k=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        NeighborSearch(pts, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        neighbor_search(pts, qs, 0.2, 4)
+    ns = NeighborSearch(pts, params, device="cpu")
+    assert ns.query(qs).indices.device.type == "cpu"
+    res = neighbor_search(pts, qs, 0.2, 4, device="cpu")
+    assert res.counts.device.type == "cpu"
