@@ -5,8 +5,9 @@
 
 Run from the root of a checkout. It builds every hand-written kernel of
 the port from ``src/repro_torch/kernels/csrc`` (into ``build/``), holds
-each kernel bitwise against its plain PyTorch version, then drives two
-paths and checks each against the brute-force oracle:
+each neighbor-search kernel bitwise against its plain PyTorch version
+(``rwkv_scan`` within 1e-5 x max(1, its largest magnitude)), then drives these paths
+and checks each against the brute-force oracle or against itself:
 
 - the static query path: ``repro_torch.api`` on a 1M-point KITTI-like
   scene queried by its own points, in knn and in range mode, also checked
@@ -23,7 +24,14 @@ paths and checks each against the brute-force oracle:
 - the dynamic path: ``SimulationSession.step`` on 1M particles moving by
   ``benchmarks/fig_dynamic.py``'s trajectory model (8 steps, then one
   that forces a respec, then one more), with one blocking transfer per
-  step and both kernels launched on every step.
+  step and both kernels launched on every step;
+- the LM serving path (phase ``lm_serve``): full-width, full-depth
+  ``rwkv6-7b`` with float32 weights from a seed; ``rwkv_scan`` against its
+  plain version on layer 0's and the last layer's inputs of a 4 x 2048
+  prefill, on the decode shape, an odd length and head widths 8 and 16;
+  ``make_prefill_step`` timed and profiled; a cache-writing prefill of 64
+  tokens against 64 single-token ``decode_step`` calls; ``greedy_generate``
+  at ``serve_lm``'s defaults, run three times with identical tokens.
 
 Phases print one JSON line each. The last three lines are the kernel
 table, the card's name and power limit as ``nvidia-smi`` reports them,
@@ -53,6 +61,8 @@ KERNELS = {
                     "src/repro/kernels/range_tile.py:46"),
     "distance_tile": ("src/repro_torch/kernels/csrc/distance_tile.cu",
                       "src/repro/kernels/distance_tile.py:36"),
+    "rwkv_scan": ("src/repro_torch/kernels/csrc/rwkv_scan.cu",
+                  "src/repro/kernels/rwkv_scan.py:47"),
 }
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32 = 67e12
@@ -87,6 +97,24 @@ DYN_STEPS = 8              # trajectory frames before the respec step
 DYN_ESCAPEES = 1000        # points moved 0.1 past the box: forces a respec
 N_TIMED_STEPS = 3          # fast steps and replan steps timed, each
 DYN_TILES_PER_LEVEL = 3    # tiles per ladder level held against the plain
+
+# the LM serving path: full-width, full-depth rwkv6-7b
+# (src/repro_torch/configs/rwkv6_7b.py), float32 weights from a seed
+LM_ARCH, LM_SEED = "rwkv6-7b", 0
+LM_PREFILL = (4, 2048)     # a cut of configs/shapes.py PREFILL_32K (32 x 32768)
+LM_TIMED_PREFILLS = 3      # timed by CUDA events, median
+LM_PARITY_PROMPT = 64      # cache-writing prefill vs token-by-token decode
+LM_DECODE_TOL = 2e-3       # tests/test_models.py's decode-vs-parallel atol=rtol
+LM_CPU_TOL = 1e-4          # card vs CPU path at smoke size, atol=rtol (the
+                           # CPU tests' tolerance against the JAX reference)
+LM_REQUESTS, LM_PROMPT, LM_MAX_NEW = 4, 16, 32   # serve_lm's defaults
+LM_TIMED_TOKENS = 16       # single decode steps timed, median
+RWKV_RTOL = 1e-5           # kernel vs plain: max|diff| <= RWKV_RTOL*max(1, max|plain|)
+# FP32 operations per (b, h, t) and state cell that rwkv_scan needs at
+# least: r_i*S_ij and its add to out_j, k_i*v_j, w_i*S_ij and the add of
+# k_i*v_j. The bonus term r_t (u (x) k_t^T v_t) = (r_t . (u (x) k_t)) v_t is
+# O(hd) per step and left out.
+RWKV_OPS_PER_CELL = 5
 
 
 def emit(phase: str, **fields) -> None:
@@ -1093,6 +1121,340 @@ def phase_dynamic(core, ref, knn_mod, upd, n: int = DYN_N,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def rwkv_vs_plain(scan, ins, tag: str) -> dict:
+    """``rwkv_scan`` kernel vs its plain version on the same inputs: out and
+    state_T finite and within RWKV_RTOL * max(1, max|plain|). Returns the
+    gaps."""
+    import torch
+    got = scan.rwkv_scan(*ins)
+    want = scan.rwkv_scan_plain(*ins)
+    torch.cuda.synchronize()
+    row = {"case": tag, "shape": list(ins[0].shape)}
+    for name, g, w in zip(("out", "state"), got, want):
+        err = float((g - w).abs().max())
+        scale = max(1.0, float(w.abs().max()))
+        row[f"{name}_max_abs_err"], row[f"{name}_scale"] = err, scale
+        check(bool(torch.isfinite(g).all()), f"rwkv_scan ({tag}): {name} "
+              "is not finite")
+        check(err <= RWKV_RTOL * scale, f"rwkv_scan differs from its plain "
+              f"version ({tag}, {name}): {err} > {RWKV_RTOL} * {scale}")
+    emit("rwkv_vs_plain", **row)
+    return row
+
+
+def device_breakdown(prof) -> dict:
+    """Device time of a finished ``torch.profiler`` run by kind of kernel
+    (``rwkv_scan``, matmuls, everything else), the busy time, the span from
+    the first kernel's start to the last one's end, the idle share of that
+    span, and the five kernels that took the most time."""
+    import torch
+    evts = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not evts:
+        return {"recorded": False}
+    kinds, by_name = {"rwkv_scan": 0.0, "matmul": 0.0, "other": 0.0}, {}
+    for e in evts:
+        us = e.time_range.elapsed_us()
+        low = e.name.lower()
+        kind = ("rwkv_scan" if "rwkv_scan" in low else "matmul" if any(
+            m in low for m in ("gemm", "gemv", "cutlass", "xmma")) else
+            "other")
+        kinds[kind] += us / 1e3
+        by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
+    busy = sum(kinds.values())
+    span = (max(e.time_range.end for e in evts)
+            - min(e.time_range.start for e in evts)) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"recorded": True, "kernels": len(evts), "busy_ms": busy,
+            "span_ms": span, "idle_share": 1.0 - busy / span if span else 0.0,
+            "ms_by_kind": kinds, "top_ms": [[n[:80], ms] for n, ms in top],
+            "rwkv_scan_launches": sum("rwkv_scan" in e.name for e in evts)}
+
+
+def allclose_gap(got, want, tol: float):
+    """(max |got - want|, whether |got - want| <= tol + tol * |want| holds
+    everywhere): numpy's assert_allclose rule with atol = rtol = tol."""
+    diff = (got - want).abs()
+    return float(diff.max()), bool((diff <= tol + tol * want.abs()).all())
+
+
+def lm_small_vs_cpu(M, cfg) -> None:
+    """The smoke-size model of ``cfg`` with one set of weights on the card
+    (``rwkv_scan``'s kernel at hd 16) and on the CPU (its plain version,
+    the path the CPU tests hold against the JAX reference): logits of
+    ``forward_logits`` and of a cache-writing ``decode_step`` within
+    LM_CPU_TOL, the decode's states too."""
+    import torch
+    from repro_torch.configs import smoke_config
+    small = smoke_config(cfg)
+    cpu_lm = M.init_params(small, LM_SEED, device="cpu")
+    # the same seed on the CPU generator: the same weights, then moved
+    card_lm = M.init_params(small, LM_SEED, device="cpu").to("cuda")
+    toks = torch.randint(0, small.vocab, (2, 37), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(LM_SEED))
+    want = M.forward_logits(cpu_lm, toks, small)
+    got = M.forward_logits(card_lm, toks.cuda(), small).cpu()
+    gaps = {"forward_logits": allclose_gap(got, want, LM_CPU_TOL)}
+    cache = M.init_decode_cache(small, 2, 38, torch.float32, device="cpu")
+    want, want_c = M.decode_step(cpu_lm, cache, toks, small)
+    cache = M.init_decode_cache(small, 2, 38, torch.float32)
+    got, got_c = M.decode_step(card_lm, cache, toks.cuda(), small)
+    gaps["decode_step"] = allclose_gap(got.cpu(), want, LM_CPU_TOL)
+    per_layer = [allclose_gap(g["tm"]["state"].cpu(), w["tm"]["state"],
+                              LM_CPU_TOL) for g, w in zip(got_c, want_c)]
+    gaps["state"] = (max(g for g, _ in per_layer),
+                     all(ok for _, ok in per_layer))
+    for key, (gap, ok) in gaps.items():
+        check(ok, f"lm: smoke {key} on the card off the CPU path by {gap} "
+              f"(atol = rtol = {LM_CPU_TOL})")
+    emit("lm_small_vs_cpu", arch=small.name, tokens=list(toks.shape),
+         max_abs_err={k: g for k, (g, _) in gaps.items()}, tol=LM_CPU_TOL,
+         tf32_matmul=torch.backends.cuda.matmul.allow_tf32)
+
+
+def phase_lm_serve() -> dict:
+    """The LM serving path at full ``rwkv6-7b`` width and depth, float32
+    weights from a seeded generator, after the smoke-size model on the
+    card has been held against the CPU path. The first prefill captures
+    layer 0's and the last layer's ``rwkv_scan`` inputs, on which (and on
+    the decode shape, an odd S and hd 8 and 16) the kernel is held against
+    its plain version; then the counted main path (one prefill of LM_PREFILL and one
+    ``greedy_generate`` at ``serve_lm``'s defaults), the prefill's time and
+    profile, a cache-writing prefill against token-by-token decode, the
+    greedy runs' tokens and times, per-token decode latency and blocking
+    transfers. Returns the kernel table's row."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels import rwkv_scan as scan
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models.config import get_config
+    from repro_torch.train.serve_step import (greedy_generate,
+                                              make_decode_step,
+                                              make_prefill_step)
+    cfg = get_config(LM_ARCH)
+    lm_small_vs_cpu(M, cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, LM_SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == M.count_params(cfg), "lm: parameter count")
+    gen = torch.Generator(device="cuda").manual_seed(LM_SEED)
+    b, s = LM_PREFILL
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    prompts = torch.randint(0, cfg.vocab, (LM_REQUESTS, LM_PROMPT),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    batch = {"tokens": tokens}
+    full = SHAPES["prefill_32k"]
+    emit("lm_setup", arch=cfg.name, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, heads=cfg.d_model // cfg.rwkv_head_dim,
+         head_dim=cfg.rwkv_head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab,
+         params=n_params, weight_gb=sum(
+             p.numel() * p.element_size() for p in params.parameters()) / 1e9,
+         dtype="float32", init_s=init_s,
+         prefill_cut={"batch": b, "seq": s, "of": full.name,
+                      "full_batch": full.global_batch,
+                      "full_seq": full.seq_len})
+    prefill = make_prefill_step(cfg)
+    decode = make_decode_step(cfg)
+
+    # the first prefill: capture layer 0's and the last layer's kernel
+    # inputs and final states
+    last, real, captured, calls = cfg.n_layers - 1, L.rwkv_scan, {}, [0]
+
+    def capture(*ins):
+        out = real(*ins)
+        if calls[0] in (0, last):
+            captured[calls[0]] = (list(ins), out[1])
+        calls[0] += 1
+        return out
+
+    L.rwkv_scan = capture
+    try:
+        prefill(params, batch)
+    finally:
+        L.rwkv_scan = real
+    torch.cuda.synchronize()
+    check(calls[0] == cfg.n_layers, f"lm: {calls[0]} scans in a prefill")
+
+    # the kernel against its plain version
+    ins0, st0 = captured[0]
+    ins_l, st_l = captured[last]
+    # the model's init sets u = 0, so one full-width case also takes a
+    # nonzero u drawn from the seed
+    u_rand = 0.1 * torch.randn(ins_l[4].shape, generator=gen,
+                               device="cuda")
+    cases = [rwkv_vs_plain(scan, ins0, "layer 0, prefill"),
+             rwkv_vs_plain(scan, ins_l, f"layer {last}, prefill"),
+             rwkv_vs_plain(scan, ins_l[:4] + [u_rand, st_l],
+                           f"layer {last}, prefill, u = 0.1 randn"),
+             rwkv_vs_plain(scan, [t[:, :1] for t in ins_l[:4]]
+                           + [ins_l[4], st_l], f"S=1 from layer {last}'s "
+                           "prefill state"),
+             rwkv_vs_plain(scan, [t[:, :17] for t in ins0[:4]]
+                           + [ins0[4], st0], "S=17 from layer 0's prefill "
+                           "state")]
+    rng = np.random.default_rng(3)
+    for shape in ((2, 17, 3, 8), (1, 64, 2, 16)):  # tests/test_kernels.py's
+        h, hd = shape[2:]
+        r, k, v, x = (rng.standard_normal(shape).astype(np.float32)
+                      for _ in range(4))
+        w = np.exp(-np.clip(np.exp(x), 0, 5)).astype(np.float32)
+        u = (0.1 * rng.standard_normal((h, hd))).astype(np.float32)
+        s0 = (0.3 * rng.standard_normal((shape[0], h, hd, hd))
+              ).astype(np.float32)
+        cases.append(rwkv_vs_plain(scan, [torch.from_numpy(a).cuda() for a
+                                          in (r, k, v, w, u, s0)],
+                                   f"hd={hd}, random"))
+    del captured, st0, st_l
+
+    # the counted main path: one prefill and one greedy generation (after
+    # a warmup generation, which builds nothing new but warms the GEMVs)
+    cache_len = LM_PROMPT + LM_MAX_NEW + 1
+    greedy_generate(params, cfg, prompts, LM_MAX_NEW, cache_len)
+    torch.cuda.synchronize()
+    scan.rwkv_scan.launches = 0
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_launches = scan.rwkv_scan.launches
+    served = greedy_generate(params, cfg, prompts, LM_MAX_NEW, cache_len)
+    torch.cuda.synchronize()
+    launches = scan.rwkv_scan.launches
+    n_steps = LM_PROMPT + LM_MAX_NEW
+    check(prefill_launches == cfg.n_layers,
+          f"lm: {prefill_launches} rwkv_scan launches in a prefill")
+    check(launches == cfg.n_layers * (1 + n_steps),
+          f"lm: {launches} rwkv_scan launches in a prefill and "
+          f"{n_steps} decode steps")
+    check(logits.shape == (b, cfg.vocab) and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()),
+          "lm: prefill logits not finite float32 [B, V]")
+    check(served.shape == (LM_REQUESTS, LM_MAX_NEW)
+          and served.dtype == torch.int32
+          and bool(((served >= 0) & (served < cfg.vocab)).all()),
+          "lm: greedy tokens out of range")
+
+    # the prefill's time and where its device time goes
+    prefill_ms = cuda_time_ms(lambda: prefill(params, batch),
+                              LM_TIMED_PREFILLS, warmup=0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prefill(params, batch)
+        torch.cuda.synchronize()
+    prefill_prof = device_breakdown(prof)
+    del prof, logits
+
+    # cache-writing prefill (the kernel at S = 64) vs 64 single-token steps
+    prompt = tokens[:, :LM_PARITY_PROMPT]
+    whole, cache_w = decode(params, M.init_decode_cache(
+        cfg, b, LM_PARITY_PROMPT + 1, torch.float32), prompt)
+    cache_t = M.init_decode_cache(cfg, b, LM_PARITY_PROMPT + 1,
+                                  torch.float32)
+    for i in range(LM_PARITY_PROMPT):
+        step_logits, cache_t = decode(params, cache_t, prompt[:, i:i + 1])
+    torch.cuda.synchronize()
+    gaps = {"logits": allclose_gap(whole[:, -1], step_logits[:, -1],
+                                   LM_DECODE_TOL)}
+    for key, get in (("state", lambda c: c["tm"]["state"]),
+                     ("tm_x_prev", lambda c: c["tm"]["x_prev"]),
+                     ("cm_x_prev", lambda c: c["cm"]["x_prev"])):
+        per_layer = [allclose_gap(get(a), get(c), LM_DECODE_TOL)
+                     for a, c in zip(cache_w, cache_t)]
+        gaps[key] = (max(g for g, _ in per_layer),
+                     all(ok for _, ok in per_layer))
+    for key, (gap, ok) in gaps.items():
+        check(ok, f"lm: cache-writing prefill vs token-by-token decode, "
+              f"{key} off by {gap} (atol = rtol = {LM_DECODE_TOL})")
+    del whole, cache_w, cache_t, step_logits
+
+    # serve: greedy generations, identical tokens, their times
+    gen_ms, outs = [], []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs.append(greedy_generate(params, cfg, prompts, LM_MAX_NEW,
+                                    cache_len))
+        end.record()
+        end.synchronize()
+        gen_ms.append(start.elapsed_time(end))
+    check(all(torch.equal(o, served) for o in outs),
+          "lm: greedy tokens differ between runs")
+    gen_med = sorted(gen_ms)[1]
+
+    # single decode steps on a live cache: latency, blocking transfers,
+    # where the device time goes
+    cache = M.init_decode_cache(cfg, LM_REQUESTS, cache_len, torch.float32)
+    tok, lat = prompts[:, :1], []
+    for _ in range(LM_TIMED_TOKENS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step_logits, cache = decode(params, cache, tok)
+        end.record()
+        end.synchronize()
+        lat.append(start.elapsed_time(end))
+        tok = torch.argmax(step_logits[:, -1], dim=-1)[:, None].to(
+            torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step_logits, cache = decode(params, cache, tok)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+             if "synchronizing CUDA operation" in str(w.message)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode(params, cache, tok)
+        torch.cuda.synchronize()
+    decode_prof = device_breakdown(prof)
+    del prof, cache, step_logits
+
+    # the kernel row: rwkv_scan at the prefill shape (layer 0's inputs)
+    kernel_ms = cuda_time_ms(lambda: scan.rwkv_scan(*ins0), 10)
+    plain_ms = cuda_time_ms(lambda: scan.rwkv_scan_plain(*ins0), 1,
+                            warmup=0)
+    bb, ss, hh, hd = ins0[0].shape
+    nbytes = (5 * bb * ss * hh * hd + 2 * bb * hh * hd * hd + hh * hd) * 4
+    n_ops = RWKV_OPS_PER_CELL * hd * hd * bb * hh * ss
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    ops_ms = n_ops / PEAK_FP32 * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_tok = LM_REQUESTS * LM_MAX_NEW
+    err = max(max(c["out_max_abs_err"], c["state_max_abs_err"])
+              for c in cases)
+    emit("lm_serve", arch=cfg.name, prefill_shape=[b, s],
+         prefill_ms=prefill_ms, prefill_tokens_per_s=b * s / prefill_ms * 1e3,
+         prefill_device=prefill_prof, rwkv_scan_launches=launches,
+         rwkv_scan_launches_per_prefill=prefill_launches,
+         rwkv_scan_launches_per_decode_step=cfg.n_layers,
+         parity_prompt=LM_PARITY_PROMPT,
+         decode_vs_prefill_max_abs_err={k: g for k, (g, _) in gaps.items()},
+         requests=LM_REQUESTS, prompt_len=LM_PROMPT, max_new=LM_MAX_NEW,
+         cache_len=cache_len, generate_ms=gen_ms, tokens_identical=True,
+         tokens_per_s=n_tok / gen_med * 1e3,
+         decode_step_ms=lat, decode_step_median_ms=sorted(lat)[len(lat) // 2],
+         decode_blocking_transfers=syncs, decode_device=decode_prof,
+         first_tokens=served[:, :8].tolist(), peak_memory_gb=peak_gb,
+         rwkv_scan_ms=kernel_ms, rwkv_scan_plain_ms=plain_ms,
+         rwkv_scan_max_abs_err=err, bytes=nbytes, ops=n_ops,
+         bound_bytes_ms=bytes_ms, bound_ops_ms=ops_ms)
+    del params, ins0, ins_l
+    torch.cuda.empty_cache()
+    return dict(launches=launches, err=err, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=None)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1166,6 +1528,8 @@ def main() -> int:
 
     d = phase_dynamic(core, ref, knn_mod, upd)
 
+    lm = phase_lm_serve()
+
     rows = [("knn_tile_anchored", dict(
         launches=m["launches"], err=max(m["err"], hp_err,
                                         d["search_err"]),
@@ -1176,6 +1540,7 @@ def main() -> int:
         r = layer[name]
         r["err"] = max(r["err"], layer_worst[name])
         rows.append((name, r))
+    rows.append(("rwkv_scan", lm))
     table = []
     for name, r in rows:
         src, replaces = KERNELS[name]

@@ -1,5 +1,5 @@
-"""Carry a built index, a captured plan, a host partition plan or a dynamic
-session into the port.
+"""Carry a built index, a captured plan, a host partition plan, a dynamic
+session or a language model's parameters and decode cache into the port.
 
 The state of this system is its built grid, its captured query plan and,
 for a dynamic session, the positions that plan was captured at. These
@@ -7,7 +7,9 @@ functions take that state as numpy arrays and plain values (the static
 spec, params and options as dataclasses or as the ``dict`` that
 ``dataclasses.asdict`` makes of the reference's ones), so that
 ``execute_plan`` or ``SimulationSession.step`` can run under exactly the
-state that another implementation built.
+state that another implementation built. A language model's parameters
+and decode cache come as the reference's nested trees of numpy arrays,
+with each period's layers stacked on a leading axis.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from .core.api import NeighborIndex, QueryPlan, resolve_device
 from .core.dynamic import SessionOpts, SimulationSession
 from .core.partition import Partition, PartitionPlan, megacell_statics
 from .core.types import CellGrid, GridSpec, SearchOpts, SearchParams
+from .models.model import LM, Cache, init_params, layer_groups
 
 
 def _spec(spec) -> GridSpec:
@@ -121,3 +124,61 @@ def session_from_arrays(points, dense, counts, sat, overflow, anchor_points,
         sopts = SessionOpts(**(sopts or {}))
     return SimulationSession.from_state(index, sopts, plan=tplan,
                                         anchor_queries=aq)
+
+
+def _leaf(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(a, copy=True)).to(device)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _unstack(tree, cfg) -> list:
+    """The per-layer subtrees of a reference tree in layer order: the
+    ``prefix`` list, each period of the stacked ``body`` slots, the
+    ``tail`` list (as ``model._unstack_layers`` in the reference)."""
+    groups = layer_groups(cfg)
+    out = list(tree.get("prefix", []))
+    for pi in range(groups.n_periods):
+        for si in range(len(groups.period)):
+            out.append(_tree_map(lambda a: np.asarray(a)[pi],
+                                 tree["body"][si]))
+    return out + list(tree.get("tail", []))
+
+
+def _flatten(tree, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def lm_params_from_arrays(cfg, tree, *, device="cuda") -> LM:
+    """The port's :class:`LM` holding the reference's parameters: ``tree``
+    is the reference's param tree as numpy arrays
+    (``jax.tree.map(np.asarray, params)``), its stacked body unstacked
+    into one block per layer. Dtypes are kept."""
+    dev = resolve_device(device)
+    top = {k: v for k, v in tree.items()
+           if k not in ("prefix", "body", "tail")}
+    state = _flatten(top)
+    for li, layer in enumerate(_unstack(tree, cfg)):
+        state.update(_flatten(layer, f"blocks.{li}."))
+    model = init_params(cfg, dtype=torch.float32, device="meta")
+    model.load_state_dict({k: _leaf(v, dev) for k, v in state.items()},
+                          strict=True, assign=True)
+    return model
+
+
+def decode_cache_from_arrays(cfg, tree, *, device="cuda") -> Cache:
+    """The port's decode cache (one entry per layer) from the reference's
+    ``init_decode_cache``/``decode_step`` cache tree as numpy arrays."""
+    dev = resolve_device(device)
+    return [_tree_map(lambda a: _leaf(a, dev), layer)
+            for layer in _unstack(tree, cfg)]

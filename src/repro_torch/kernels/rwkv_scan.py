@@ -1,0 +1,123 @@
+"""RWKV-6 recurrence with the state held on chip.
+
+:func:`rwkv_scan` is the port of the reference's Pallas kernel of the same
+name (``src/repro/kernels/rwkv_scan.py``). Per (batch, head), with the
+``[hd, hd]`` float32 state S (row i the k index, column j the v index)::
+
+    out_t = r_t (S + u * k_t^T v_t) ;  S <- diag(w_t) S + k_t^T v_t
+
+r/k/v/w are [B, S, H, hd], u [H, hd] (broadcast over B), state0
+[B, H, hd, hd]; every input is upcast to float32 and both outputs are
+float32. On a CUDA tensor it launches the hand-written kernel
+``csrc/rwkv_scan.cu`` (built by ``kernels/build.py``), which reads the
+inputs in place through their strides; on a CPU tensor it runs
+:func:`rwkv_scan_plain`, the reference's ``_rwkv_scan_core``
+(``src/repro/models/layers.py``) as a loop over t. There is no fallback
+from one to the other.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+Tensor = torch.Tensor
+HEAD_DIMS = (8, 16, 32, 64)   # head widths the kernel is compiled for
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    from .build import load
+    fn = load("rwkv_scan").rwkv_scan_launch
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p, p, p, p, *([ll] * 12), p, p, i, i, i, i, p, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(r, k, v, w, u, state0) -> None:
+    if r.dim() != 4:
+        raise ValueError(f"rwkv_scan: r is {tuple(r.shape)}, expected "
+                         "[B, S, H, hd]")
+    b, _s, h, hd = r.shape
+    for name, t in (("k", k), ("v", v), ("w", w)):
+        if t.shape != r.shape:
+            raise ValueError(f"rwkv_scan: {name} is {tuple(t.shape)}, r is "
+                             f"{tuple(r.shape)}")
+    if u.shape != (h, hd):
+        raise ValueError(f"rwkv_scan: u is {tuple(u.shape)}, expected "
+                         f"{(h, hd)}")
+    if state0.shape != (b, h, hd, hd):
+        raise ValueError(f"rwkv_scan: state0 is {tuple(state0.shape)}, "
+                         f"expected {(b, h, hd, hd)}")
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u),
+                    ("state0", state0)):
+        if not t.is_floating_point():
+            raise ValueError(f"rwkv_scan: {name} is {t.dtype}, expected a "
+                             "floating dtype")
+        if t.device != r.device:
+            raise ValueError(f"rwkv_scan: {name} is on {t.device}, r on "
+                             f"{r.device}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"rwkv_scan: head dim {hd} not supported (one of "
+                         f"{HEAD_DIMS})")
+
+
+def rwkv_scan(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
+              state0: Tensor) -> tuple[Tensor, Tensor]:
+    """r/k/v/w [B, S, H, hd], u [H, hd], state0 [B, H, hd, hd] ->
+    (out [B, S, H, hd], state_T [B, H, hd, hd]), both float32."""
+    _check(r, k, v, w, u, state0)
+    if r.device.type == "cpu":
+        return rwkv_scan_plain(r, k, v, w, u, state0)
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv_scan: no kernel for {r.device}")
+    b, s, h, hd = r.shape
+    if b * h >= 2 ** 31 or s >= 2 ** 31:
+        raise ValueError("rwkv_scan: B*H or S exceeds int32")
+
+    def seq_input(t):
+        t = t.to(torch.float32)
+        return t if t.stride(-1) == 1 else t.contiguous()
+
+    ins = [seq_input(t) for t in (r, k, v, w)]
+    uf = u.to(torch.float32).contiguous()
+    s0 = state0.to(torch.float32).contiguous()
+    out = torch.empty((b, s, h, hd), dtype=torch.float32, device=r.device)
+    s_t = torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
+    if b * h == 0:
+        return out, s_t
+    strides = [st for t in ins for st in t.stride()[:3]]
+    launch = _library()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = launch(*(t.data_ptr() for t in ins), *strides, uf.data_ptr(),
+                     s0.data_ptr(), b, s, h, hd, out.data_ptr(),
+                     s_t.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv_scan: kernel launch failed "
+                           f"(cudaError {err})")
+    rwkv_scan.launches += 1
+    return out, s_t
+
+
+rwkv_scan.launches = 0
+
+
+def rwkv_scan_plain(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
+                    state0: Tensor) -> tuple[Tensor, Tensor]:
+    """Plain PyTorch version of :func:`rwkv_scan`: the reference's
+    ``_rwkv_scan_core``, the same einsum in a loop over t."""
+    r, k, v, w, u, state = (t.to(torch.float32)
+                            for t in (r, k, v, w, u, state0))
+    outs = []
+    for t in range(r.shape[1]):
+        r_t, k_t, v_t, w_t = r[:, t], k[:, t], v[:, t], w[:, t]  # [B,H,hd]
+        kv = k_t[..., :, None] * v_t[..., None, :]               # [B,H,hd,hd]
+        outs.append(torch.einsum("bhi,bhij->bhj", r_t,
+                                 state + u[..., None] * kv))
+        state = w_t[..., None] * state + kv
+    out = (torch.stack(outs, dim=1) if outs else
+           torch.zeros_like(r))
+    return out, state

@@ -1,0 +1,58 @@
+"""Serving steps: prefill (last-position logits) + decode (one token or a
+cache-writing prompt) + a batched greedy loop.
+
+Port of ``src/repro/train/serve_step.py``. PyTorch runs eagerly, so the
+steps are plain closures (no jit), and the model's parameters do not
+require gradients, so no autograd graph is kept.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..models import model as M
+from ..models.config import ArchConfig
+
+Tensor = torch.Tensor
+
+
+def make_prefill_step(cfg: ArchConfig) -> Callable:
+    """Forward over the full prompt producing last-position logits [B, V]
+    float32. (The cache-writing prefill is ``decode_step`` with S > 1.)"""
+
+    def prefill(params: M.LM, batch: dict[str, Tensor]) -> Tensor:
+        x = params.embed[batch["tokens"]]
+        x = M._run_layers(params, x, cfg)
+        x = M._norm(x[:, -1], params.final_norm, cfg.norm_eps)
+        return M._logits(x, params.unembedding())
+
+    return prefill
+
+
+def make_decode_step(cfg: ArchConfig) -> Callable:
+    def decode(params: M.LM, cache: M.Cache, tokens: Tensor):
+        return M.decode_step(params, cache, tokens, cfg)
+    return decode
+
+
+def greedy_generate(params: M.LM, cfg: ArchConfig, prompt: Tensor,
+                    max_new: int, cache_len: int,
+                    dtype=torch.float32) -> Tensor:
+    """Simple batched greedy loop: ``prompt`` [B, P] -> [B, max_new] int32
+    tokens, on the prompt's device."""
+    b = prompt.shape[0]
+    cache = M.init_decode_cache(cfg, b, cache_len, dtype,
+                                device=prompt.device)
+
+    # feed the prompt one token at a time (prefill-by-decode; simple + exact)
+    logits = None
+    for i in range(prompt.shape[1]):
+        logits, cache = M.decode_step(params, cache, prompt[:, i: i + 1], cfg)
+    outs = []
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    for _ in range(max_new):
+        outs.append(tok)
+        logits, cache = M.decode_step(params, cache, tok, cfg)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    return torch.cat(outs, dim=1)

@@ -30,7 +30,11 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.core.bundle", "repro_torch.core.executor",
             "repro_torch.kernels.range_tile",
             "repro_torch.kernels.distance_tile",
-            "repro_torch.reliability.faults"} <= set(names)
+            "repro_torch.reliability.faults", "repro_torch.models.config",
+            "repro_torch.models.layers", "repro_torch.models.model",
+            "repro_torch.configs", "repro_torch.kernels.rwkv_scan",
+            "repro_torch.train.serve_step",
+            "repro_torch.launch.serve_lm"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"
@@ -77,3 +81,21 @@ def test_host_planned_entry_points_default_to_cuda():
     assert ns.query(qs).indices.device.type == "cpu"
     res = neighbor_search(pts, qs, 0.2, 4, device="cpu")
     assert res.counts.device.type == "cpu"
+
+
+def test_lm_entry_points_default_to_cuda():
+    """Without a CUDA device, ``serve_lm`` without ``--device cpu`` and
+    ``init_params`` on its default device raise instead of running on the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device works")
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import get_config, init_params
+    cfg = smoke_config(get_config("rwkv6-7b"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_lm.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg)
+    assert next(init_params(cfg, device="cpu").parameters()).device.type \
+        == "cpu"
