@@ -11,7 +11,12 @@ and checks each against the brute-force oracle or against itself:
 
 - the static query path: ``repro_torch.api`` on a 1M-point KITTI-like
   scene queried by its own points, in knn and in range mode, also checked
-  against the port's CPU planning;
+  against the port's CPU planning; ``knn_tile_anchored`` bitwise against
+  its plain version on sampled tiles of every level and on two
+  whole-grid-window tiles, at k = 8 and at k = 100 (the most work items a
+  tile can be split into, each merge 100 entries a row). Each launch
+  reports how it splits: its work items, the most of one tile, the
+  occupied and walked window slots, and the kernel's scratch bytes;
 - the host-planned path: ``NeighborSearch.query`` (partition plan,
   bundling, ``QueryExecutor``) on the same scene in knn and range mode,
   with two blocking transfers per query (the plan fetch and the result
@@ -89,6 +94,8 @@ DIST_SHAPE = (8192, 131072)   # distance_tile: 4.3 GB of float32 output
 N_TIMED_QUERIES = 3           # NeighborSearch.query timed, median
 HP_TILES_PER_LEVEL = 3        # tiles per window of each launch group held
                               # against the plain version
+WHOLE_GRID_TILES = 2          # whole-grid-window tiles held against the plain
+WHOLE_GRID_K = 100            # ... also at the largest k of the tests
 
 # the dynamic path: benchmarks/fig_dynamic.py's trajectory model at the
 # radius of the KITTI setting, with examples/sph_fluid.py's K_MAX and mode
@@ -263,6 +270,132 @@ def knn_work(index, args, entries):
     return pairs, slot_pairs, nbytes, ops_ms, bytes_ms, tiles
 
 
+def split_work(index, args, kw):
+    """How one ``knn_tile_anchored`` launch with ``args`` splits and walks:
+    its work items, the most items of one tile, the window cells it looks
+    up, the slots of the occupied ones that it reads, the occupied slots
+    among them (the valid candidates) and all the window slots (what a walk
+    of every slot would read), summed over tiles, and the kernel's scratch
+    in bytes (what the wrapper allocates besides the outputs)."""
+    import torch
+    from repro_torch.core.grid import _summed_area_table, box_count
+    from repro_torch.kernels.knn_tile import launch_scratch
+    spec, plevel, cap = index.spec, args[4], kw["cap"]
+    scratch = launch_scratch(plevel, args[5], args[2], cap)
+    order, cum, occupied, sync = scratch
+    per_tile = cum[1:] - cum[:-1]
+    ws = args[5][plevel.long(), :3]
+    hi = torch.minimum(args[3] + ws - 1,
+                       torch.tensor([d - 1 for d in spec.dims],
+                                    device=ws.device, dtype=torch.int32))
+    occ_sat = _summed_area_table(occupied.view(*spec.dims).to(torch.int32))
+    cells = ws.to(torch.int64).prod(-1)
+    return dict(items=int(cum[-1]), max_items_per_tile=int(per_tile.max()),
+                window_cells=int(cells.sum()),
+                slots_read=int(box_count(occ_sat, args[3], hi).to(
+                    torch.int64).sum()) * cap,
+                valid_slots=int(box_count(index.grid.sat, args[3],
+                                          hi).to(torch.int64).sum()),
+                window_slots=int(cells.sum()) * cap,
+                scratch_bytes=sum(t.numel() * t.element_size()
+                                  for t in scratch))
+
+
+def whole_grid_tiles(args, entries, dims, want: int):
+    """The first ``want`` tiles of this launch whose window is the whole
+    grid."""
+    import torch
+    plevel = args[4]
+    whole = [i for i, (ws, _) in enumerate(entries) if tuple(ws) == dims]
+    tiles = torch.nonzero(torch.isin(plevel, torch.tensor(
+        whole, device=plevel.device, dtype=plevel.dtype))).flatten()[:want]
+    check(tiles.numel() == want, f"the plan has {tiles.numel()} whole-grid "
+          f"tiles, {want} wanted")
+    return tiles
+
+
+def phase_whole_grid(knn_mod, args, kw, entries, dims) -> dict:
+    """``knn_tile_anchored`` bitwise against its plain version on
+    WHOLE_GRID_TILES whole-grid-window tiles of the static plan, at the
+    plan's k and at k = 100, where every tile splits into the most items
+    and each merge carries 100 entries a row."""
+    import torch
+    from repro_torch.kernels.knn_tile import launch_scratch
+    tiles = whole_grid_tiles(args, entries, dims, WHOLE_GRID_TILES)
+    tile = kw["tile"]
+    rows = (tiles[:, None] * tile + torch.arange(tile, device=tiles.device)
+            ).flatten()
+    sub = [args[0][rows].contiguous(), args[1], args[2],
+           args[3][tiles].contiguous(), args[4][tiles].contiguous(), args[5]]
+    out = dict(tiles=int(tiles.numel()), window=list(dims), per_k={})
+    for k in (kw["k"], WHOLE_GRID_K):
+        kk = dict(kw, k=k)
+        t0 = time.perf_counter()
+        err = compare_kernel(sub, kk, f"whole-grid tiles, k={k}")
+        scratch = launch_scratch(sub[4], sub[5], sub[2], kw["cap"])
+        cum = scratch[1]
+        kernel_ms = cuda_time_ms(lambda: knn_mod.knn_tile_anchored(*sub, **kk),
+                                 3)
+        out["per_k"][str(k)] = dict(
+            items=int(cum[-1]), max_items_per_tile=int(
+                (cum[1:] - cum[:-1]).max()),
+            scratch_bytes=sum(t.numel() * t.element_size()
+                              for t in scratch),
+            kernel_ms=kernel_ms, max_abs_err=err, bitwise=True,
+            compare_s=time.perf_counter() - t0)
+    emit("whole_grid", **out)
+    return out
+
+
+def level_breakdown(knn_mod, index, args, kw, entries) -> list:
+    """What sets the pace of one launch: the launch restricted to the tiles
+    of each window entry, timed alone, beside its work (valid pairs, walked
+    slots, items). Time that tracks the valid pairs is the compare-and-
+    insert; time that tracks the slots is the walk."""
+    import torch
+    plevel, tile = args[4], kw["tile"]
+    out = []
+    for lvl in sorted(set(plevel.tolist())):
+        tiles = torch.nonzero(plevel == lvl).flatten()
+        rows = (tiles[:, None] * tile
+                + torch.arange(tile, device=tiles.device)).flatten()
+        sub = [args[0][rows].contiguous(), args[1], args[2],
+               args[3][tiles].contiguous(), plevel[tiles].contiguous(),
+               args[5]]
+        pairs, slot_pairs, _b, ops_ms, _bm, _t = knn_work(index, sub,
+                                                          entries)
+        ms = cuda_time_ms(lambda: knn_mod.knn_tile_anchored(*sub, **kw), 3)
+        split = split_work(index, sub, kw)
+        out.append(dict(window=list(entries[lvl][0]), tiles=int(tiles.numel()),
+                        items=split["items"], valid_pairs=pairs,
+                        slot_pairs=slot_pairs, ms=ms, bound_ops_ms=ops_ms,
+                        ns_per_valid_pair=ms * 1e6 / max(pairs, 1),
+                        ns_per_slot=ms * 1e6 * tile / max(slot_pairs, 1)))
+    return out
+
+
+def call_trace(knn_mod, args, kw) -> dict:
+    """The device work of one ``knn_tile_anchored`` call, by
+    ``torch.profiler``: how many device operations it issues (the work-item
+    list, the occupancy bytes and the zeroed locks are small PyTorch
+    kernels and copies, then the one hand-written kernel) and their device
+    time, ours and the rest apart."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    knn_mod.knn_tile_anchored(*args, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        knn_mod.knn_tile_anchored(*args, **kw)
+        torch.cuda.synchronize()
+    evts = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    ours = [e.time_range.elapsed_us() / 1e3 for e in evts
+            if "knn_tile_anchored" in e.name]
+    total = sum(e.time_range.elapsed_us() for e in evts) / 1e3
+    return dict(device_ops=len(evts), hand_written=len(ours),
+                kernel_ms=sum(ours), other_ms=total - sum(ours))
+
+
 def phase_main(api, ref, knn_mod, index, queries, mode: str):
     """One run of the main path, counted and under sync-debug "error",
     then its checks. Returns what the kernel table needs."""
@@ -336,6 +469,8 @@ def phase_main(api, ref, knn_mod, index, queries, mode: str):
 
     pairs, slot_pairs, nbytes, ops_ms, bytes_ms, level_tiles = knn_work(
         index, args, entries)
+    whole = (phase_whole_grid(knn_mod, args, kw, entries, tuple(spec.dims))
+             if mode == "knn" else None)
     emit("main_path", mode=mode, n_points=int(index.points.shape[0]),
          n_queries=int(queries.shape[0]), dims=list(spec.dims),
          capacity=spec.capacity, w_full=index.statics.w_full,
@@ -348,7 +483,14 @@ def phase_main(api, ref, knn_mod, index, queries, mode: str):
          kernel_tiles_checked=sum(checked.values()),
          kernel_max_abs_err=kerr,
          valid_pairs=pairs, slot_pairs=slot_pairs, bytes=nbytes,
-         bound_ops_ms=ops_ms, bound_bytes_ms=bytes_ms)
+         bound_ops_ms=ops_ms, bound_bytes_ms=bytes_ms,
+         split=split_work(index, args, kw),
+         per_call=call_trace(knn_mod, args, kw),
+         by_window=(level_breakdown(knn_mod, index, args, kw, entries)
+                    if mode == "knn" else None))
+    if whole is not None:
+        kerr = max([kerr] + [v["max_abs_err"]
+                             for v in whole["per_k"].values()])
     return dict(args=args, kw=kw, launches=launches, err=kerr,
                 bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
@@ -582,6 +724,7 @@ def phase_kernel_layer(api, ops, tknn, trange, tdist, ref, index, queries):
     d2_a, idx_a = ops.knn_tile_anchored(*sub, **kw)
     check(torch.equal(d2_a, d2_s) and torch.equal(idx_a, idx_s),
           "kernel_layer: knn_tile differs from knn_tile_anchored")
+    anchored_split = split_work(index, sub, kw)
     d2_p, idx_p = tknn.knn_tile_plain(q, index.points, wnd, k=params.k,
                                       r2=r2, tile=tile)
     fin = torch.isfinite(d2_p)
@@ -680,6 +823,7 @@ def phase_kernel_layer(api, ops, tknn, trange, tdist, ref, index, queries):
          range_brute_force_queries=n_cov, mean_count=float(
              cnt.float().mean()), distance_shape=list(DIST_SHAPE),
          distance_out_gb=dist_bytes / 1e9, launches=launches, times_ms=t,
+         knn_tile_anchored_split=anchored_split,
          bitwise=True, bounds={k: {"bound_ms": v["bound_ms"],
                                    "bound_by": v["bound_by"],
                                    "bytes": v["bytes"], "ops": v["ops"]}
@@ -797,7 +941,8 @@ def phase_host_planned(core, api, ref, knn_mod, pts, mode: str):
             kernel_vs_plain_tiles={str(entries[lvl]): c
                                    for lvl, c in checked.items()},
             kernel_max_abs_err=gerr, valid_pairs=pairs,
-            slot_pairs=slot_pairs, bound_ops_ms=ops_ms))
+            slot_pairs=slot_pairs, bound_ops_ms=ops_ms,
+            split=split_work(ns.index, args, kw)))
         del args
 
     # a repeated query: plan and launcher caches hit, nothing built
@@ -1004,6 +1149,10 @@ def phase_dynamic(core, ref, knn_mod, upd, n: int = DYN_N,
                                           sess.index.points)
         pairs, slot_pairs, knn_bytes, knn_ops_ms, knn_bytes_ms, tiles = \
             knn_work(sess.index, args, entries)
+        # what the session's k costs: the same launch at k = 8 too, where
+        # the best-K lives in registers (k = 32 keeps it in local memory)
+        by_k = {k: cuda_time_ms(lambda: knn_mod.knn_tile_anchored(
+            *args, **dict(kw, k=k)), 3) for k in (kw["k"], 8)}
         t0 = time.perf_counter()
         err, checked = compare_level_tiles(args, kw, DYN_TILES_PER_LEVEL,
                                            f"dynamic search, {tag}")
@@ -1015,6 +1164,8 @@ def phase_dynamic(core, ref, knn_mod, upd, n: int = DYN_N,
              kernel_vs_plain_tiles={str(entries[lvl]): c
                                     for lvl, c in checked.items()},
              kernel_max_abs_err=err, bitwise=True,
+             split=split_work(sess.index, args, kw),
+             kernel_ms_by_k={str(k): v for k, v in by_k.items()},
              compare_s=time.perf_counter() - t0)
         return err
 

@@ -1,11 +1,11 @@
-// The streaming top-K shared by knn_tile_anchored.cu and knn_tile.cu: the
-// staging of a chunk of candidates in shared memory, the squared distance,
-// the merge into a per-query ascending best-K and the emit. The two kernels
-// differ only in where a candidate id comes from (index arithmetic on a
-// tile's anchor, or a caller-supplied id stream), so on the same ids, in the
-// same order, they agree bitwise by construction: the reference's contract
-// between its knn_tile_anchored and knn_tile (src/repro/kernels/knn_tile.py,
-// _stream_candidates, _merge_topk and _emit_best).
+// The streaming top-K of knn_tile.cu: the staging of a chunk of candidates
+// in shared memory, the squared distance, the merge into a per-query
+// ascending best-K and the emit. knn_tile_anchored.cu stages, splits and
+// merges its own way but shares the distance (dot3, sq_dist), the sentinel
+// and the insertion rule, so on the same ids the two agree bitwise: the
+// reference's contract between its knn_tile_anchored and knn_tile
+// (src/repro/kernels/knn_tile.py, _stream_candidates, _merge_topk and
+// _emit_best).
 //
 // Exactness: d2 = max(qn + pn - 2*cross, 0) with each sum taken x, y, z in
 // that order through __fmul_rn/__fadd_rn, so nvcc cannot contract it into

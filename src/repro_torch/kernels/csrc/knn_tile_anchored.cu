@@ -1,111 +1,610 @@
 // Fused window gather -> squared distance -> streaming top-K for the
 // level-segmented query path, written for Hopper (sm_90a).
 //
-// Replaces: src/repro/kernels/knn_tile.py, knn_tile_anchored (Pallas body
-// _knn_anchored_kernel with _stream_candidates, _merge_topk, _emit_best).
-// It computes what that kernel computes, for every level in ONE launch:
-// each query tile reads its level, looks up its window size and sphere-test
-// flag in a small table, derives candidate ids from its anchor by index
-// arithmetic on the flattened dense grid, and streams them, in window
-// order, through an ascending per-query top-K.
+// Replaces: src/repro/kernels/knn_tile.py:293, knn_tile_anchored (Pallas
+// body _knn_anchored_kernel with _stream_candidates, _merge_topk,
+// _emit_best). It computes what that kernel computes, for every level in
+// ONE launch: each query tile reads its level, looks up its window size
+// and sphere-test flag in a small table, derives candidate ids from its
+// anchor by index arithmetic on the flattened dense grid, and keeps, per
+// query, the k smallest valid candidates by (d2, window position): what a
+// stream in window order with the strictly-less insertion rule keeps.
 //
-// What bounds it on this card: the distance work, tile x m pairs of about
-// ten FP32 operations each, is far larger than the bytes it must move (the
-// points, the dense grid, the queries and the outputs, each once), so the
-// bound is operations. Most of the stream is empty grid slots, though: a
-// slot that holds -1 costs a load and a branch but no arithmetic.
+// What bounds it on this card: the distance work over the valid candidates
+// (tile x valid slots, about ten FP32 operations a pair) outweighs the
+// bytes it must move (the points, the dense grid, the queries and the
+// outputs, each once), so the bound is operations. What sets the pace now
+// is the compare of each (query, valid candidate) pair, about 13 warp
+// instructions a pair (a shared-memory broadcast, the distance, a test),
+// and, where most cells are empty, the walk of the window's cells.
 //
-// What the design does about it: one CTA per query tile, one thread per
-// query. Each chunk of candidate ids and positions is staged once in shared
-// memory by the whole CTA (coalesced loads of the dense grid) and then read
-// by every thread as a broadcast, so a candidate is fetched once per tile,
-// not once per query; the empty-slot test is uniform across a warp, so it
-// does not diverge. The best-K list lives in registers for k <= 32 (the
-// main path uses k = 8); k up to 128 spills to local memory.
+// What the design does about it:
+// - Walk only occupied slots. The wrapper marks each grid cell that holds
+//   any id (one byte a cell). A CTA looks up its window's cells,
+//   kRounds per thread per round, lists the occupied ones in window order
+//   (warp ballot, then a scan of the per-warp counts), reads their slots
+//   coalesced and compacts the valid ids, with their gathered positions,
+//   into shared memory. Only those reach the per-query loop, four
+//   candidates at a time. Any dense grid works: no precondition on how
+//   the slots of a cell are filled.
+// - Split large windows across CTAs. The wrapper cuts every tile's window
+//   into work items of whole cells, at most SEG slots each (knn_tile.py,
+//   work_items: an argsort by window size and a cumsum, on the device, no
+//   host sync). A persistent grid, sized from the SM count and the
+//   occupancy, reads the item count from device memory and takes the
+//   items largest-first, in guided chunks of consecutive items from an
+//   atomic counter; it streams the items of one tile in a chunk as one
+//   run. A run that covers its whole tile writes the tile's rows directly.
+// - Merge partial top-Ks without order. A run that covers part of a tile
+//   keeps the window position beside each entry; under the tile's lock it
+//   merges its list, by the key (d2, position), into the tile's rows of
+//   the outputs themselves (d2, and the position in place of the id), and
+//   the run that completes the tile writes the final rows (+inf / -1 where
+//   empty, the position turned back into its id). The result is bitwise
+//   the one-stream result, ties included, in whatever order runs finish.
+//   A tile is merged once per chunk that covers part of it, not once per
+//   item, so the merges of a whole-grid window do not queue on its lock.
+// Scratch: the wrapper's order [n_tiles] and cum [n_tiles + 1] (int32),
+// the occupancy byte of every grid cell, a lock and a merge count per tile
+// and one item counter (int32, zeroed): 16 * n_tiles + 8 bytes plus one a
+// grid cell, whatever k, the number of items or the window sizes (the
+// outputs themselves hold the partial rows). One call of the wrapper
+// issues this one kernel after a few small PyTorch operations that build
+// the item list and the occupancy and zero the locks.
 //
-// Exactness and ties: see knn_stream.cuh, which this kernel shares with
-// knn_tile.cu (the id-stream variant), so the two agree bitwise on the same
-// candidates.
+// Exactness and ties: the arithmetic is that of knn_stream.cuh (sums x, y,
+// z through __fmul_rn/__fadd_rn), shared with knn_tile.cu, so the two
+// kernels agree bitwise on the same candidates. k <= 8 keeps its list in
+// registers; a longer one lives in local memory.
 #include "knn_stream.cuh"
 
 namespace {
 
-// Candidate id at window position cc of a tile anchored at (ax, ay, az):
-// (window cell, slot) -> global cell -> flattened dense grid, clipped.
-struct AnchoredIds {
-  const int* __restrict__ dense;
-  int n_flat, ax, ay, az, wy, wz, dy, dz, cap;
+using knn_stream::dot3;
+using knn_stream::kBig;
+using knn_stream::sq_dist;
 
-  __device__ __forceinline__ int operator()(int cc) const {
-    const int slot = cc % cap;
-    const int cell = cc / cap;
-    const int iz = cell % wz;
-    const int iy = (cell / wz) % wy;
-    const int ix = cell / (wz * wy);
-    long long flat =
-        (((long long)(ax + ix) * dy + (ay + iy)) * dz + (az + iz)) * cap +
-        slot;
-    flat = flat < 0 ? 0 : (flat >= n_flat ? n_flat - 1 : flat);
-    return dense[flat];
+constexpr int kRounds = 4;          // cells or slots per thread per round
+constexpr unsigned kAll = 0xffffffffu;
+
+// n / d by multiply and shift, exact for 0 <= n < 2^31 and 1 <= d < 2^31
+// (Granlund and Montgomery): the window's divisors are fixed per item.
+struct FastDiv {
+  unsigned mul, shift;
+  bool one;
+
+  FastDiv() = default;                  // trivial: it lives in __shared__
+  __device__ explicit FastDiv(int d) : mul(0), shift(0), one(d == 1) {
+    if (!one) {
+      const int l = 32 - __clz(d - 1);              // ceil(log2 d)
+      mul = static_cast<unsigned>(((1ull << (31 + l)) + d - 1) / d);
+      shift = l - 1;
+    }
+  }
+  __device__ __forceinline__ int operator()(int n) const {
+    return one ? n : static_cast<int>(__umulhi(n, mul) >> shift);
   }
 };
 
-template <int KMAX>
-__global__ void __launch_bounds__(1024) knn_tile_anchored_kernel(
-    const float* __restrict__ q, const float* __restrict__ points,
-    const int* __restrict__ dense, const int* __restrict__ anchors,
-    const int* __restrict__ levels, const int* __restrict__ table,
-    int n_entries, int n_pts, int n_flat, int dy, int dz, int cap, int k,
-    float r2, float* __restrict__ out_d2, int* __restrict__ out_idx) {
-  __shared__ knn_stream::Chunk s;
-  const int tile_id = blockIdx.x;
-  const long long row = (long long)tile_id * blockDim.x + threadIdx.x;
-  float best_d[KMAX];
-  int best_i[KMAX];
-  knn_stream::init(best_d, best_i);
+// A tile's window, cells in x, y, z raster order and slots innermost: the
+// candidate id at window position cc, clipped to the flattened grid as the
+// reference clips, and whether window cell c holds any id (looked up at the
+// edge cell its slots clip to when it lies outside the grid). The wx * wy
+// runs of wz cells (wz * cap slots) are contiguous in the grid.
+struct Window {
+  const int* __restrict__ dense;
+  const unsigned char* __restrict__ occupied;
+  long long n_flat, n_cells;
+  int ax, ay, az, dy, dz, cap, wy, wz;
+  FastDiv by_run, by_wy, by_wz, by_cap;
 
-  const int lvl = levels[tile_id];
-  if (lvl >= 0 && lvl < n_entries) {      // uniform across the CTA
-    const int wx = table[lvl * 4 + 0];
-    const int wy = table[lvl * 4 + 1];
-    const int wz = table[lvl * 4 + 2];
-    const bool skip = table[lvl * 4 + 3] != 0;
-    const AnchoredIds ids{dense, n_flat, anchors[tile_id * 3 + 0],
-                          anchors[tile_id * 3 + 1], anchors[tile_id * 3 + 2],
-                          wy, wz, dy, dz, cap};
-    const int m = wx * wy * wz * cap;     // < n_flat < 2^31 (checked)
-    knn_stream::stream_topk<KMAX>(s, ids, m, points, n_pts, q[row * 3 + 0],
-                                  q[row * 3 + 1], q[row * 3 + 2], skip, r2, k,
-                                  best_d, best_i);
+  __device__ __forceinline__ int id(int cc) const {
+    const int r = by_run(cc);                 // (ix, iy) run, then offset
+    const int off = cc - r * wz * cap;
+    const int ix = by_wy(r);
+    const int iy = r - ix * wy;
+    long long flat =
+        (((long long)(ax + ix) * dy + (ay + iy)) * dz + az) * cap + off;
+    flat = flat < 0 ? 0 : (flat >= n_flat ? n_flat - 1 : flat);
+    return dense[flat];
   }
-  // off-level tiles emit the neutral (inf, -1) rows
-  knn_stream::emit<KMAX>(best_d, best_i, k, row, out_d2, out_idx);
+
+  __device__ __forceinline__ bool occupied_at(int c) const {
+    const int r = by_wz(c);
+    const int iz = c - r * wz;
+    const int ix = by_wy(r);
+    const int iy = r - ix * wy;
+    long long cell = ((long long)(ax + ix) * dy + (ay + iy)) * dz + az + iz;
+    cell = cell < 0 ? 0 : (cell >= n_cells ? n_cells - 1 : cell);
+    return occupied[cell] != 0;
+  }
+};
+
+struct Args {
+  const float* __restrict__ q;         // [n_tiles * tile, 3]
+  const float* __restrict__ points;    // [n_pts, 3]
+  const int* __restrict__ dense;       // [n_flat]
+  const int* __restrict__ anchors;     // [n_tiles, 3]
+  const int* __restrict__ levels;      // [n_tiles]
+  const int* __restrict__ table;       // [n_entries, 4] (wx, wy, wz, skip)
+  const int* __restrict__ order;       // [n_tiles] tiles, largest first
+  const int* __restrict__ cum;         // [n_tiles + 1] first item of each
+  const unsigned char* __restrict__ occupied;  // [n_flat / cap] cell holds
+                                               // an id (0 / 1)
+  int* locks;                          // [n_tiles], zeroed
+  int* merged;                         // [n_tiles], zeroed
+  int* next;                           // [1] items taken, zeroed
+  float* out_d2;                       // [n_tiles * tile, k]
+  int* out_idx;                        // [n_tiles * tile, k]
+  long long n_flat;
+  int n_entries, n_tiles, n_pts, dy, dz, cap, k;
+  int seg_cells;                       // window cells per work item
+  float r2;
+};
+
+__device__ __forceinline__ bool before(float d, int p, float bd, int bp) {
+  return d < bd || (d == bd && p < bp);
+}
+
+// One query's best-K, ascending by the key (d2, window position), with the
+// entry k - 1 that a new candidate must go before. Up to 8 entries stay in
+// registers (unrolled, constant indices); a longer list lives in local
+// memory, and `held` (the entries that are not empty) bounds its shifts.
+template <int KMAX>
+struct Best {
+  float d[KMAX];
+  int p[KMAX];
+  int held;
+  float worst;
+  int worst_p;
+
+  __device__ __forceinline__ void reset() {
+#pragma unroll
+    for (int e = 0; e < KMAX; ++e) {
+      d[e] = kBig;
+      p[e] = -1;
+    }
+    held = 0;
+    worst = kBig;
+    worst_p = -1;
+  }
+
+  // Inserts (nd, np), which the caller has checked goes before entry
+  // k - 1; that entry drops out. Streamed in window order this is the
+  // strictly-less rule, and it merges two partial lists as well.
+  __device__ __forceinline__ void insert(int k, float nd, int np) {
+    if constexpr (KMAX <= 8) {
+#pragma unroll
+      for (int e = KMAX - 1; e > 0; --e) {
+        if (e < k) {
+          if (before(nd, np, d[e - 1], p[e - 1])) {
+            d[e] = d[e - 1];
+            p[e] = p[e - 1];
+          } else if (before(nd, np, d[e], p[e])) {
+            d[e] = nd;
+            p[e] = np;
+          }
+        }
+      }
+      if (before(nd, np, d[0], p[0])) {
+        d[0] = nd;
+        p[0] = np;
+      }
+#pragma unroll
+      for (int e = 0; e < KMAX; ++e) {
+        if (e == k - 1) {
+          worst = d[e];
+          worst_p = p[e];
+        }
+      }
+    } else {
+      int e = held < k ? held : k - 1;  // entries from `held` on are empty
+      for (; e > 0 && before(nd, np, d[e - 1], p[e - 1]); --e) {
+        d[e] = d[e - 1];
+        p[e] = p[e - 1];
+      }
+      d[e] = nd;
+      p[e] = np;
+      held += held < k;
+      if (held == k) {
+        worst = d[k - 1];
+        worst_p = p[k - 1];
+      }
+    }
+  }
+};
+
+// Warp 0 turns v[0..n) into its exclusive prefix sums, in place, and
+// writes the sum to *total.
+__device__ __forceinline__ void warp_exclusive_scan(int* v, int n,
+                                                    int* total) {
+  const int lane = threadIdx.x & 31;
+  const int per = (n + 31) / 32;
+  const int lo = min(lane * per, n), hi = min(lo + per, n);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += v[i];
+  int incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kAll, incl, o);
+    if (lane >= o) incl += y;
+  }
+  int run = incl - sum;
+  for (int i = lo; i < hi; ++i) {
+    const int x = v[i];
+    v[i] = run;
+    run += x;
+  }
+  if (lane == 31) *total = incl;
+}
+
+template <int KMAX>
+__device__ __forceinline__ void emit_final(const Best<KMAX>& b, int k,
+                                           long long row, const Window& w,
+                                           float* out_d2, int* out_idx) {
+#pragma unroll
+  for (int e = 0; e < KMAX; ++e) {
+    if (e < k) {
+      const bool has = b.d[e] < kBig;
+      out_d2[row * k + e] = has ? b.d[e] : CUDART_INF_F;
+      out_idx[row * k + e] = has ? w.id(b.p[e]) : -1;
+    }
+  }
+}
+
+// Every query against the n staged candidates (n a multiple of 4), in
+// window order, four at a time: independent distances and one test on
+// their unclamped minimum (clamping at 0 only raises a value); on the rare
+// hit the four are taken again one by one, so the list is inserted into
+// at one place in the code (more copies push the list out of registers).
+// ``lim`` is what a candidate's d2 must stay under: the lesser of entry
+// k - 1's and ``cap`` (the least float above r2, as d <= r2 iff d < it, or
+// kBig where the level skips the sphere test).
+template <int KMAX>
+__device__ __forceinline__ void scan_stage(const float4* s_pt,
+                                           const int* s_pos, int n, float qx,
+                                           float qy, float qz, float qn,
+                                           Best<KMAX>& b, int k, float cap,
+                                           float& lim) {
+  for (int j = 0; j < n; j += 4) {
+    float d[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 c = s_pt[j + u];
+      d[u] = __fsub_rn(__fadd_rn(qn, c.w),
+                       __fmul_rn(2.f, dot3(qx, qy, qz, c.x, c.y, c.z)));
+    }
+    if (fminf(fminf(d[0], d[1]), fminf(d[2], d[3])) < lim) {
+#pragma unroll 1
+      for (int u = 0; u < 4; ++u) {
+        const float4 c = s_pt[j + u];
+        const float du = sq_dist(qn, c.w, dot3(qx, qy, qz, c.x, c.y, c.z));
+        if (du < lim) {
+          b.insert(k, du, s_pos[j + u]);
+          lim = fminf(b.worst, cap);
+        }
+      }
+    }
+  }
+}
+
+// A CTA's static shared memory: the bookkeeping of a round, a merge and a
+// chunk, and the window of the tile being run. (The dynamic part: the
+// compacted candidates, (kRounds + 1) * blockDim.x positions with |p|^2
+// and as many window positions, then kRounds * blockDim.x listed cells.)
+struct Stage {
+  int cnt[2][kRounds * 32];   // per (round, warp); two rounds in flight
+  int total, merged;
+  int chunk[3];               // tile index j (-1: no work left), items
+  Window w;                   // the window of the tile being run
+};
+
+// Fills the stage up to a multiple of 4 with candidates no query takes:
+// at |p|^2 = +inf the distance is +inf. (The stage holds a multiple of 4.)
+__device__ __forceinline__ void pad_stage(float4* s_pt, int fill) {
+  const int t = threadIdx.x;
+  if (t < ((fill + 3) & ~3) - fill)
+    s_pt[fill + t] = make_float4(0.f, 0.f, 0.f, CUDART_INF_F);
+}
+
+// Warp ballots of a round's flags, then warp 0 scans the per-warp counts:
+// a flagged thread's rank in window order is cnt[r * nw + warp] plus its
+// lane's rank in mk[r], and st.total is the round's count. Rounds take the
+// two count buffers in turn, so a round may start while the threads of
+// the one before still read theirs.
+__device__ __forceinline__ const int* rank_round(
+    Stage& st, int& parity, const bool (&flag)[kRounds],
+    unsigned (&mk)[kRounds]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  int* cnt = st.cnt[parity];
+  parity ^= 1;
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    mk[r] = __ballot_sync(kAll, flag[r]);
+    if (lane == 0) cnt[r * nw + warp] = __popc(mk[r]);
+  }
+  __syncthreads();
+  if (warp == 0) warp_exclusive_scan(cnt, kRounds * nw, &st.total);
+  __syncthreads();
+  return cnt;
+}
+
+// One run of a tile's work items: items first_item .. first_item + covered
+// of its nseg, one stream over their window slots through a fresh best-K
+// per query. Then it writes the tile's rows, or merges into them under the
+// tile's lock if other runs cover the rest. Every thread of the CTA calls
+// this together.
+template <int KMAX>
+__device__ __forceinline__ void run_tile(const Args& a, Stage& st,
+                                         float4* s_pt, int* s_pos,
+                                         int* s_cells, int tile,
+                                         int first_item, int covered,
+                                         int nseg) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int nthr = blockDim.x, nw = nthr >> 5;
+  const long long row = (long long)tile * nthr + t;
+  const float qx = a.q[row * 3 + 0], qy = a.q[row * 3 + 1],
+              qz = a.q[row * 3 + 2];
+  const float qn = dot3(qx, qy, qz, qx, qy, qz);
+  Best<KMAX> best;
+  best.reset();
+
+  int win_cells = 0;                      // 0 off the table
+  bool skip = false;
+  const int lvl = a.levels[tile];
+  if (lvl >= 0 && lvl < a.n_entries) {    // uniform across the CTA
+    const int wx = a.table[lvl * 4 + 0], wy = a.table[lvl * 4 + 1],
+              wz = a.table[lvl * 4 + 2];
+    skip = a.table[lvl * 4 + 3] != 0;
+    win_cells = wx * wy * wz;  // inside the grid: * cap <= n_flat < 2^31
+    if (t == 0) {
+      Window& w = st.w;
+      w.dense = a.dense;
+      w.occupied = a.occupied;
+      w.n_flat = a.n_flat;
+      w.n_cells = a.n_flat / a.cap;
+      w.ax = a.anchors[tile * 3 + 0];
+      w.ay = a.anchors[tile * 3 + 1];
+      w.az = a.anchors[tile * 3 + 2];
+      w.dy = a.dy;
+      w.dz = a.dz;
+      w.cap = a.cap;
+      w.wy = wy;
+      w.wz = wz;
+      w.by_run = FastDiv(wz * a.cap);
+      w.by_wy = FastDiv(wy);
+      w.by_wz = FastDiv(wz);
+      w.by_cap = FastDiv(a.cap);
+    }
+  }
+  __syncthreads();                        // st.w is set
+  const Window& w = st.w;
+  const int c_first = static_cast<int>(
+      min((long long)first_item * a.seg_cells, (long long)win_cells));
+  const int c_last = static_cast<int>(
+      min((long long)(first_item + covered) * a.seg_cells,
+          (long long)win_cells));
+
+  const float cap = skip ? kBig : nextafterf(a.r2, CUDART_INF_F);
+  float lim = cap;
+  const unsigned below = (1u << lane) - 1;
+  int parity = 0;
+
+  // Two levels: list the window cells that hold any id, then stage the
+  // occupied slots of those cells, with their positions, in window order.
+  int fill = 0;
+  for (long long cb = c_first; cb < c_last;
+       cb += (long long)kRounds * nthr) {
+    bool on[kRounds];
+    unsigned mk[kRounds];
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      const long long c = cb + (long long)r * nthr + t;
+      on[r] = c < c_last && w.occupied_at(static_cast<int>(c));
+    }
+    const int* cnt = rank_round(st, parity, on, mk);
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      if (on[r])
+        s_cells[cnt[r * nw + warp] + __popc(mk[r] & below)] =
+            static_cast<int>(cb + (long long)r * nthr + t);
+    }
+    const int n_slots = st.total * w.cap;
+    __syncthreads();                      // s_cells is complete
+    for (int sb = 0; sb < n_slots; sb += kRounds * nthr) {
+      int id[kRounds], pos[kRounds];
+      bool valid[kRounds];
+#pragma unroll
+      for (int r = 0; r < kRounds; ++r) {
+        const int i = sb + r * nthr + t;
+        id[r] = -1;
+        if (i < n_slots) {
+          const int li = w.by_cap(i);
+          pos[r] = s_cells[li] * w.cap + (i - li * w.cap);
+          id[r] = w.id(pos[r]);
+        }
+        valid[r] = id[r] >= 0;
+      }
+      const int* scnt = rank_round(st, parity, valid, mk);
+#pragma unroll
+      for (int r = 0; r < kRounds; ++r) {
+        if (valid[r]) {
+          const int at = fill + scnt[r * nw + warp] + __popc(mk[r] & below);
+          const long long p = id[r] < a.n_pts ? id[r] : a.n_pts - 1;
+          const float px = a.points[p * 3 + 0], py = a.points[p * 3 + 1],
+                      pz = a.points[p * 3 + 2];
+          s_pt[at] = make_float4(px, py, pz, dot3(px, py, pz, px, py, pz));
+          s_pos[at] = pos[r];
+        }
+      }
+      fill += st.total;
+      if (fill > nthr) {                  // room for one more round only
+        pad_stage(s_pt, fill);
+        __syncthreads();
+        scan_stage(s_pt, s_pos, (fill + 3) & ~3, qx, qy, qz, qn, best, a.k,
+                   cap, lim);
+        fill = 0;
+      }
+    }
+  }
+  if (fill > 0) {
+    pad_stage(s_pt, fill);
+    __syncthreads();
+    scan_stage(s_pt, s_pos, (fill + 3) & ~3, qx, qy, qz, qn, best, a.k, cap,
+               lim);
+  }
+
+  if (covered == nseg) {                  // the whole window: write it
+    emit_final(best, a.k, row, w, a.out_d2, a.out_idx);
+    __syncthreads();
+    return;
+  }
+  // merge into the tile's rows under its lock; the run that completes the
+  // tile writes the final rows
+  if (t == 0) {
+    while (atomicCAS(a.locks + tile, 0, 1) != 0) __nanosleep(64);
+    __threadfence();
+    st.merged = *reinterpret_cast<volatile int*>(a.merged + tile);
+  }
+  __syncthreads();
+  const int merged = st.merged;
+  float* rd = a.out_d2 + row * a.k;
+  int* rp = a.out_idx + row * a.k;
+  if (merged > 0) {
+    for (int e = 0; e < a.k; ++e) {       // the held rows, ascending
+      const float gd = __ldcg(rd + e);
+      const int gp = __ldcg(rp + e);
+      if (!before(gd, gp, best.worst, best.worst_p)) break;
+      best.insert(a.k, gd, gp);
+    }
+  }
+  if (merged + covered == nseg) {
+    emit_final(best, a.k, row, w, a.out_d2, a.out_idx);
+  } else {
+#pragma unroll
+    for (int e = 0; e < KMAX; ++e) {
+      if (e < a.k) {
+        __stcg(rd + e, best.d[e]);
+        __stcg(rp + e, best.p[e]);
+      }
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (t == 0) {
+    *reinterpret_cast<volatile int*>(a.merged + tile) = merged + covered;
+    __threadfence();
+    atomicExch(a.locks + tile, 0);
+  }
+  __syncthreads();
+}
+
+// Persistent: each CTA takes chunks of consecutive work items (guided: a
+// chunk is 1 / (kGuide * gridDim.x) of what is left, at least one item)
+// and runs each tile they touch once, so a tile is merged once per chunk
+// that covers part of it, not once per item.
+constexpr int kGuide = 4;
+
+template <int KMAX>
+__global__ void __launch_bounds__(1024) knn_tile_anchored_kernel(Args a) {
+  extern __shared__ float4 s_pt[];
+  __shared__ Stage st;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int* s_pos = reinterpret_cast<int*>(s_pt + (kRounds + 1) * blockDim.x);
+  int* s_cells = s_pos + (kRounds + 1) * blockDim.x;
+  const int n_items = a.cum[a.n_tiles];
+
+  for (;;) {
+    if (warp == 0) {                      // take a chunk, find its first tile
+      int start = 0, size = 0;
+      if (lane == 0) {
+        const int taken = *reinterpret_cast<volatile int*>(a.next);
+        size = max(1, (n_items - taken) / (kGuide * (int)gridDim.x));
+        start = atomicAdd(a.next, size);
+      }
+      start = __shfl_sync(kAll, start, 0);
+      size = __shfl_sync(kAll, size, 0);
+      if (start >= n_items) {
+        if (lane == 0) st.chunk[0] = -1;
+      } else {
+        // the j with cum[j] <= start < cum[j + 1], 32 probes a step
+        int lo = 0, hi = a.n_tiles;
+        while (hi - lo > 1) {
+          const int step = (hi - lo + 31) / 32;
+          const int p = lo + lane * step;
+          const unsigned le =
+              __ballot_sync(kAll, p < hi && a.cum[p] <= start);
+          lo += (31 - __clz(le)) * step;
+          hi = min(lo + step, hi);
+        }
+        if (lane == 0) {
+          st.chunk[0] = lo;
+          st.chunk[1] = start;
+          st.chunk[2] = min(start + size, n_items);
+        }
+      }
+    }
+    __syncthreads();
+    int j = st.chunk[0];
+    if (j < 0) break;
+    int item = st.chunk[1];
+    const int end = st.chunk[2];
+    __syncthreads();                      // st.chunk is read
+    while (item < end) {                  // uniform across the CTA
+      const int c0 = a.cum[j], c1 = a.cum[j + 1];
+      const int upto = min(end, c1);
+      run_tile<KMAX>(a, st, s_pt, s_pos, s_cells, a.order[j], item - c0,
+                     upto - item, c1 - c0);
+      item = upto;
+      ++j;
+    }
+  }
+}
+
+template <int KMAX>
+int launch(const Args& a, int tile, cudaStream_t stream) {
+  const size_t smem = (size_t)(kRounds + 1) * tile *
+                          (sizeof(float4) + sizeof(int)) +
+                      (size_t)kRounds * tile * sizeof(int);
+  auto kernel = knn_tile_anchored_kernel<KMAX>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, tile,
+                                                        smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  kernel<<<sms * per_sm, tile, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Launches on ``stream`` and
-// returns cudaGetLastError() of the launch: 0 on success.
+// returns the first CUDA error of the set-up or the launch: 0 on success.
+// ``occupied`` is [n_flat / cap] bytes, whether each cell holds an id;
+// ``sync`` is [2 * n_tiles + 1] int32 zeros: the locks, the merge counts
+// and the item counter.
 extern "C" int knn_tile_anchored_launch(
     const float* q, const float* points, const int* dense,
     const int* anchors, const int* levels, const int* table, int n_entries,
-    int n_tiles, int tile, int n_pts, int n_flat, int dy, int dz, int cap,
-    int k, float r2, float* out_d2, int* out_idx, void* stream) {
+    const int* order, const int* cum, const unsigned char* occupied,
+    int* sync, int n_tiles, int tile, int n_pts, int n_flat, int dy, int dz,
+    int cap, int k, int seg_cells, float r2, float* out_d2, int* out_idx,
+    void* stream) {
   if (n_tiles <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(n_tiles), block(tile);
-  if (k <= 8) {
-    knn_tile_anchored_kernel<8><<<grid, block, 0, s>>>(
-        q, points, dense, anchors, levels, table, n_entries, n_pts, n_flat,
-        dy, dz, cap, k, r2, out_d2, out_idx);
-  } else if (k <= 32) {
-    knn_tile_anchored_kernel<32><<<grid, block, 0, s>>>(
-        q, points, dense, anchors, levels, table, n_entries, n_pts, n_flat,
-        dy, dz, cap, k, r2, out_d2, out_idx);
-  } else {
-    knn_tile_anchored_kernel<128><<<grid, block, 0, s>>>(
-        q, points, dense, anchors, levels, table, n_entries, n_pts, n_flat,
-        dy, dz, cap, k, r2, out_d2, out_idx);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const Args a{q, points, dense, anchors, levels, table, order, cum,
+               occupied, sync, sync + n_tiles, sync + 2 * n_tiles, out_d2,
+               out_idx, n_flat, n_entries, n_tiles, n_pts, dy, dz, cap, k,
+               seg_cells, r2};
+  if (k <= 8) return launch<8>(a, tile, s);
+  if (k <= 32) return launch<32>(a, tile, s);
+  return launch<128>(a, tile, s);
 }

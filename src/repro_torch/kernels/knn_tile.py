@@ -1,13 +1,18 @@
 """Fused gather -> distance -> streaming top-K over tile windows.
 
-Two kernels share the stream (``csrc/knn_stream.cuh``), as the reference's
-two Pallas kernels of the same names (``src/repro/kernels/knn_tile.py``)
-share theirs:
+Two kernels share the distance arithmetic and the strictly-less insertion
+rule (``csrc/knn_stream.cuh``), as the reference's two Pallas kernels of
+the same names (``src/repro/kernels/knn_tile.py``) share their stream:
 
 * :func:`knn_tile_anchored` derives each tile's candidate ids from its
-  window anchor inside the kernel (the main path);
+  window anchor inside the kernel (the main path). Its kernel reads the
+  slots of occupied cells only and compacts the valid ones, splits a large
+  window into work items of at most :data:`SEG` slots across CTAs
+  (:func:`work_items`), and merges their partial top-Ks by (d2, window
+  position), in any order;
 * :func:`knn_tile` streams a caller-supplied candidate-id stream
-  ``[n_tiles, M]`` (-1 = invalid), the kernel layer's public entry point.
+  ``[n_tiles, M]`` (-1 = invalid), the kernel layer's public entry point,
+  one CTA per tile.
 
 On a CUDA tensor each launches its hand-written kernel (``csrc/<name>.cu``,
 built by ``kernels/build.py``); on a CPU tensor it runs its plain version,
@@ -36,6 +41,8 @@ Tensor = torch.Tensor
 
 MAX_K = 128            # largest k the CUDA kernel takes
 MAX_TILE = 1024        # threads per CTA
+SEG = 1 << 16          # window slots per work item of knn_tile_anchored's
+                       # kernel: a larger window is split across CTAs
 _BIG = 3.4e38          # the reference's "empty" distance sentinel
 _PLAIN_CHUNK = 65536   # candidates per merge step of the plain version
 
@@ -81,14 +88,62 @@ def _check(q, points, dense_flat, anchors, levels, table, dims, cap, k,
         raise ValueError(f"knn_tile_anchored: k={k} must be >= 1")
 
 
+def work_items(levels: Tensor, table: Tensor, cap: int,
+               seg: int = SEG) -> tuple[Tensor, Tensor]:
+    """The work items of one ``knn_tile_anchored`` launch, built on the
+    device with no host synchronisation.
+
+    A tile whose level indexes ``table`` has a window of ``wx*wy*wz``
+    cells, cut into items of ``seg_cells = max(1, seg // cap)`` whole
+    cells (at most ``seg`` slots); a tile off the table has no cells and
+    one empty item, which writes its neutral rows. Returns ``(order
+    [n_tiles] i32, cum [n_tiles + 1] i32)``: the tiles by descending window
+    size (stable), and ``cum[j]``, the first item of tile ``order[j]``,
+    whose item ``cum[j] + s`` covers window cells ``[s*seg_cells,
+    min((s+1)*seg_cells, cells))``. ``cum[-1]`` is the item count, which
+    the kernel reads from device memory.
+    """
+    n_entries = table.shape[0]
+    lvl = levels.long()
+    if n_entries:
+        ws = table[lvl.clamp(0, n_entries - 1), :3].long()
+        on = (lvl >= 0) & (lvl < n_entries)
+        cells = torch.where(on, ws.prod(dim=1), 0)
+    else:
+        cells = torch.zeros_like(lvl)
+    seg_cells = max(1, seg // cap)
+    nseg = torch.clamp_min((cells + seg_cells - 1) // seg_cells, 1)
+    order = torch.argsort(cells, descending=True, stable=True)
+    cum = torch.zeros(lvl.shape[0] + 1, dtype=torch.int32,
+                      device=levels.device)
+    cum[1:] = torch.cumsum(nseg[order], 0)
+    return order.to(torch.int32), cum
+
+
+def launch_scratch(levels: Tensor, table: Tensor, dense_flat: Tensor,
+                   cap: int, seg: int = SEG) -> tuple[Tensor, ...]:
+    """Everything one kernel launch gets besides its inputs and outputs:
+    :func:`work_items`' ``order`` and ``cum``; ``occupied`` [cells] bool,
+    whether each grid cell holds any id, so that the kernel reads the slots
+    of occupied cells only; and ``sync`` [2 * n_tiles + 1] i32 zeros (a
+    lock and a merge count per tile, the item counter). In all
+    ``16 * n_tiles + 8`` bytes plus one byte a grid cell, whatever k and
+    the window sizes."""
+    order, cum = work_items(levels, table, cap, seg)
+    occupied = (dense_flat.view(-1, cap) >= 0).any(dim=1)
+    sync = torch.zeros(2 * levels.shape[0] + 1, dtype=torch.int32,
+                       device=levels.device)
+    return order, cum, occupied, sync
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     from .build import load
     lib = load("knn_tile_anchored")
     fn = lib.knn_tile_anchored_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
-                   ctypes.c_float, p, p, p]
+    fn.argtypes = [p, p, p, p, p, p, i, p, p, p, p, i, i, i, i, i, i, i, i,
+                   i, ctypes.c_float, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -135,14 +190,18 @@ def knn_tile_anchored(
     if n_tiles == 0:
         return out_d2, out_idx
     launch = _library()
+    seg = SEG
+    order, cum, occupied, sync = launch_scratch(levels, table, dense_flat,
+                                                cap, seg)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(q.data_ptr(), points.data_ptr(), dense_flat.data_ptr(),
                      anchors.data_ptr(), levels.data_ptr(), table.data_ptr(),
-                     table.shape[0], n_tiles, tile, points.shape[0],
-                     dense_flat.numel(), dims[1], dims[2], cap, k,
-                     float(np.float32(r2)), out_d2.data_ptr(),
-                     out_idx.data_ptr(), stream)
+                     table.shape[0], order.data_ptr(), cum.data_ptr(),
+                     occupied.data_ptr(), sync.data_ptr(), n_tiles, tile,
+                     points.shape[0], dense_flat.numel(), dims[1], dims[2],
+                     cap, k, max(1, seg // cap), float(np.float32(r2)),
+                     out_d2.data_ptr(), out_idx.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"knn_tile_anchored: kernel launch failed "
                            f"(cudaError {err})")
