@@ -17,6 +17,13 @@ and checks each against the brute-force oracle or against itself:
   tile can be split into, each merge 100 entries a row). Each launch
   reports how it splits: its work items, the most of one tile, the
   occupied and walked window slots, and the kernel's scratch bytes;
+- what the reference accepts beyond the main path's k and query tile:
+  ``api.query`` on a 20k-point KITTI-like scene at query tiles 8, 40 and
+  2048 (masked CTAs, row blocks) and k = 129 and 300 (passes of 128
+  columns), knn and range, each against the oracle on every query and
+  ``knn_tile_anchored`` bitwise against its plain version (phase
+  ``any_k_and_tile``); ``knn_tile`` and ``range_count`` at tile 8 and
+  k = 129 in phase ``layer_vs_plain``;
 - the host-planned path: ``NeighborSearch.query`` (partition plan,
   bundling, ``QueryExecutor``) on the same scene in knn and range mode,
   with two blocking transfers per query (the plan fetch and the result
@@ -33,7 +40,9 @@ and checks each against the brute-force oracle or against itself:
 - the LM serving path (phase ``lm_serve``): full-width, full-depth
   ``rwkv6-7b`` with float32 weights from a seed; ``rwkv_scan`` against its
   plain version on layer 0's and the last layer's inputs of a 4 x 2048
-  prefill, on the decode shape, an odd length and head widths 8 and 16;
+  prefill, on the decode shape, an odd length and head widths 8, 16, 12,
+  48, 96 and 128 (S = 1, 17, 256); its prefill-shape time, its decode
+  launch's device time and its registers from nvcc's report;
   ``make_prefill_step`` timed and profiled; a cache-writing prefill of 64
   tokens against 64 single-token ``decode_step`` calls; ``greedy_generate``
   at ``serve_lm``'s defaults, run three times with identical tokens.
@@ -46,6 +55,7 @@ exits non-zero; without a CUDA device it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -96,6 +106,13 @@ HP_TILES_PER_LEVEL = 3        # tiles per window of each launch group held
                               # against the plain version
 WHOLE_GRID_TILES = 2          # whole-grid-window tiles held against the plain
 WHOLE_GRID_K = 100            # ... also at the largest k of the tests
+# what the reference accepts beyond the main path's k and tile: a small
+# KITTI-like scene whose radius gives 77 % of the points more than 128
+# neighbors and 36 % more than 300
+ANY_K_POINTS, ANY_K_RADIUS = 20_000, 0.05
+ANY_K_TILES = (8, 40, 2048)   # below a warp, not whole warps, 2 row blocks
+ANY_K_KS = (129, 300)         # two and three passes of 128 columns
+ANY_K_TILES_CHECKED = 16      # tiles of a case held against the plain
 
 # the dynamic path: benchmarks/fig_dynamic.py's trajectory model at the
 # radius of the KITTI setting, with examples/sph_fluid.py's K_MAX and mode
@@ -117,11 +134,46 @@ LM_CPU_TOL = 1e-4          # card vs CPU path at smoke size, atol=rtol (the
 LM_REQUESTS, LM_PROMPT, LM_MAX_NEW = 4, 16, 32   # serve_lm's defaults
 LM_TIMED_TOKENS = 16       # single decode steps timed, median
 RWKV_RTOL = 1e-5           # kernel vs plain: max|diff| <= RWKV_RTOL*max(1, max|plain|)
+RWKV_HEAD_DIMS = (12, 48, 96, 128)   # head dims off the model's, held
+RWKV_SEQS = (1, 17, 256)             # ... against the plain version at these S
+RWKV_DECODE_LAUNCHES = 100           # S = 1 launches profiled
 # FP32 operations per (b, h, t) and state cell that rwkv_scan needs at
 # least: r_i*S_ij and its add to out_j, k_i*v_j, w_i*S_ij and the add of
 # k_i*v_j. The bonus term r_t (u (x) k_t^T v_t) = (r_t . (u (x) k_t)) v_t is
 # O(hd) per step and left out.
 RWKV_OPS_PER_CELL = 5
+
+
+def ptxas_entries(report: str) -> dict:
+    """Each kernel entry of an ``nvcc -Xptxas -v`` report, by mangled
+    name: its registers, stack frame and spill bytes."""
+    out, name = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and name:
+            out.setdefault(name, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def rwkv_layouts(report: str) -> dict:
+    """``rwkv_scan``'s instantiations in a ptxas report, keyed by their
+    template arguments: row groups, rows a lane, panels."""
+    out = {}
+    for name, info in ptxas_entries(report).items():
+        m = re.search(r"rwkv_scan_kernelILi(\d+)ELi(\d+)ELb([01])E", name)
+        if m:
+            out["G{}_R{}_panels{}".format(*m.groups())] = info
+    return out
 
 
 def emit(phase: str, **fields) -> None:
@@ -396,6 +448,93 @@ def call_trace(knn_mod, args, kw) -> dict:
                 kernel_ms=sum(ours), other_ms=total - sum(ours))
 
 
+def check_oracle(ref, index, queries, res, sample, mode: str,
+                 tag: str) -> float:
+    """``res`` on the queries ``sample`` against the brute-force oracle:
+    counts and inf masks equal, every index reproduces its distance; knn
+    distances within 1e-6 of the oracle's, range indices within the
+    radius. Returns the largest knn d2 difference."""
+    import numpy as np
+    import torch
+    params = index.params
+    oi, od, oc = ref.brute_force_search(index.points, queries[sample],
+                                        params.radius, params.k, chunk=256)
+    check(torch.equal(oc, res.counts[sample]), f"{tag}: counts differ "
+          "from brute force")
+    d2 = res.distances2[sample]
+    check(torch.equal(torch.isinf(od), torch.isinf(d2)),
+          f"{tag}: inf masks differ from brute force")
+    fin = torch.isfinite(d2)
+    err = float((od[fin] - d2[fin]).abs().max()) if fin.any() else 0.0
+    idx = res.indices[sample]
+    valid = idx >= 0
+    pos = index.points[idx.clamp_min(0).long()]
+    rec = ((queries[sample][:, None] - pos) ** 2).sum(-1)
+    check(bool((rec[valid] - d2[valid]).abs().max() <= 1e-5),
+          f"{tag}: an index does not reproduce its distance")
+    if mode == "knn":
+        check(err <= 1e-6, f"{tag}: d2 off brute force by {err}")
+    else:
+        check(bool((d2[valid] <= np.float32(params.radius) ** 2).all()),
+              f"{tag}: an index lies outside the radius")
+    return err
+
+
+def phase_any_k_and_tile(api, data, ref, knn_mod) -> float:
+    """What the reference accepts beyond the main path's k and tile:
+    ``api.query`` with ``use_pallas=True`` on a small KITTI-like scene at
+    every query tile of ANY_K_TILES (below a warp, not a whole number of
+    warps, two row blocks of 1024) and k of ANY_K_KS (two and three passes
+    of 128 columns), in knn and range mode. Each call is counted (one
+    launch per pass), held against the brute-force oracle on every query,
+    and ``knn_tile_anchored`` against its plain version on sampled tiles
+    of every level of its plan, bitwise. Returns the largest kernel
+    difference (0 when equal)."""
+    import torch
+    pts = data.kitti_like_cloud(ANY_K_POINTS, seed=1)
+    worst = 0.0
+    for tile in ANY_K_TILES:
+        for k in ANY_K_KS:
+            for mode in ("knn", "range"):
+                tag = f"tile={tile} k={k} {mode}"
+                params = (api.SearchParams(radius=ANY_K_RADIUS, k=k,
+                                           knn_window="exact")
+                          if mode == "knn" else
+                          api.SearchParams(radius=ANY_K_RADIUS, k=k,
+                                           mode="range"))
+                opts = api.SearchOpts(use_pallas=True, query_tile=tile)
+                index = api.build_index(pts, params, opts)
+                queries = index.points.clone()
+                torch.cuda.synchronize()
+                knn_mod.knn_tile_anchored.launches = 0
+                res = api.query(index, queries)
+                torch.cuda.synchronize()
+                launches = knn_mod.knn_tile_anchored.launches
+                passes = -(-k // knn_mod.MAX_K)
+                check(launches == passes, f"{tag}: {launches} launches, "
+                      f"expected {passes}")
+                every = torch.arange(queries.shape[0], device="cuda")
+                err = check_oracle(ref, index, queries, res, every, mode,
+                                   tag)
+                plan = api.plan_query(index, queries)
+                args, kw, _ = kernel_inputs(index, plan, queries)
+                per = max(1, ANY_K_TILES_CHECKED
+                          // len(set(args[4].tolist())))
+                kerr, checked = compare_level_tiles(
+                    args, kw, per, tag, limit=ANY_K_TILES_CHECKED)
+                worst = max(worst, kerr)
+                emit("any_k_and_tile", tile=tile, k=k, mode=mode,
+                     n_points=ANY_K_POINTS, n_tiles=int(args[3].shape[0]),
+                     launches=launches,
+                     rows_over_128=int((res.counts > 128).sum()),
+                     max_count=int(res.counts.max()),
+                     brute_force_max_abs_d2_err=(err if mode == "knn"
+                                                 else None),
+                     kernel_tiles_checked=sum(checked.values()),
+                     bitwise=True)
+    return worst
+
+
 def phase_main(api, ref, knn_mod, index, queries, mode: str):
     """One run of the main path, counted and under sync-debug "error",
     then its checks. Returns what the kernel table needs."""
@@ -440,26 +579,7 @@ def phase_main(api, ref, knn_mod, index, queries, mode: str):
     rng = np.random.default_rng(7)
     sample = torch.from_numpy(rng.choice(queries.shape[0], N_SAMPLE,
                                          replace=False)).cuda()
-    oi, od, oc = ref.brute_force_search(index.points, queries[sample],
-                                        params.radius, params.k, chunk=256)
-    check(torch.equal(oc, res.counts[sample]), f"{mode}: counts differ "
-          "from brute force")
-    d2 = res.distances2[sample]
-    check(torch.equal(torch.isinf(od), torch.isinf(d2)),
-          f"{mode}: inf masks differ from brute force")
-    fin = torch.isfinite(d2)
-    err = float((od[fin] - d2[fin]).abs().max()) if fin.any() else 0.0
-    idx = res.indices[sample]
-    valid = idx >= 0
-    pos = index.points[idx.clamp_min(0).long()]
-    rec = ((queries[sample][:, None] - pos) ** 2).sum(-1)
-    check(bool((rec[valid] - d2[valid]).abs().max() <= 1e-5),
-          f"{mode}: an index does not reproduce its distance")
-    if mode == "knn":
-        check(err <= 1e-6, f"knn: d2 off brute force by {err}")
-    else:
-        check(bool((d2[valid] <= np.float32(params.radius) ** 2).all()),
-              "range: an index lies outside the radius")
+    err = check_oracle(ref, index, queries, res, sample, mode, mode)
 
     # kernel vs plain on tiles sampled across every level
     plevel = args[4]
@@ -622,18 +742,26 @@ def phase_layer_vs_plain(ops, tknn, trange, tdist) -> dict:
              np.zeros((10, 3), np.float32),
              np.arange(10, dtype=np.int32)[None], 4, 1.0)
     cases += 3
-    for m in (100, 600):
-        q = rng.random((128, 3)).astype(np.float32)
+    # a tile of 8 rows (a quarter warp, masked) and k = 129 (two passes)
+    p = rng.random((600, 3)).astype(np.float32)
+    p[300:] = p[:300]                   # duplicates: ties across passes
+    wnd = np.broadcast_to(np.arange(600, dtype=np.int32), (3, 600)).copy()
+    wnd[2, 100:] = -1                   # fewer valid candidates than k
+    knn_case("k=129 tile=8", rng.random((24, 3)).astype(np.float32), p,
+             wnd, 129, 0.4 * 0.4, tile=8)
+    cases += 1
+    for m, tile in ((100, 64), (600, 64), (600, 8)):
+        q = rng.random((2 * tile, 3)).astype(np.float32)
         pos = rng.random((2, m, 3)).astype(np.float32)
         wnd = rng.integers(-1, m, (2, m)).astype(np.int32)
         args = (cuda(q), cuda(pos), cuda(wnd))
-        got = ops.range_count(*args, r2=0.25 ** 2, tile=64)
-        want = trange.range_count_plain(*args, r2=0.25 ** 2, tile=64)
+        got = ops.range_count(*args, r2=0.25 ** 2, tile=tile)
+        want = trange.range_count_plain(*args, r2=0.25 ** 2, tile=tile)
         torch.cuda.synchronize()
         worst["range_count"] = max(worst["range_count"],
                                    int((got - want).abs().max()))
         check(torch.equal(got, want), f"range_count differs from its plain "
-              f"version (m={m})")
+              f"version (m={m}, tile={tile})")
         cases += 1
     for nq, npts in ((8, 16), (100, 300), (256, 512), (33, 700), (513, 129)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -1363,13 +1491,16 @@ def lm_small_vs_cpu(M, cfg) -> None:
          tf32_matmul=torch.backends.cuda.matmul.allow_tf32)
 
 
-def phase_lm_serve() -> dict:
+def phase_lm_serve(rwkv_report: str) -> dict:
     """The LM serving path at full ``rwkv6-7b`` width and depth, float32
     weights from a seeded generator, after the smoke-size model on the
     card has been held against the CPU path. The first prefill captures
     layer 0's and the last layer's ``rwkv_scan`` inputs, on which (and on
-    the decode shape, an odd S and hd 8 and 16) the kernel is held against
-    its plain version; then the counted main path (one prefill of LM_PREFILL and one
+    the decode shape, an odd S and hd 8 and 16, and on random inputs at
+    head dims RWKV_HEAD_DIMS and lengths RWKV_SEQS) the kernel is held
+    against its plain version; its prefill-shape and decode launches are
+    timed and its registers read from ``rwkv_report``, nvcc's ptxas
+    report; then the counted main path (one prefill of LM_PREFILL and one
     ``greedy_generate`` at ``serve_lm``'s defaults), the prefill's time and
     profile, a cache-writing prefill against token-by-token decode, the
     greedy runs' tokens and times, per-token decode latency and blocking
@@ -1452,7 +1583,9 @@ def phase_lm_serve() -> dict:
                            + [ins0[4], st0], "S=17 from layer 0's prefill "
                            "state")]
     rng = np.random.default_rng(3)
-    for shape in ((2, 17, 3, 8), (1, 64, 2, 16)):  # tests/test_kernels.py's
+
+    def random_inputs(shape):
+        """tests/test_kernels.py's distributions, drawn with numpy."""
         h, hd = shape[2:]
         r, k, v, x = (rng.standard_normal(shape).astype(np.float32)
                       for _ in range(4))
@@ -1460,9 +1593,15 @@ def phase_lm_serve() -> dict:
         u = (0.1 * rng.standard_normal((h, hd))).astype(np.float32)
         s0 = (0.3 * rng.standard_normal((shape[0], h, hd, hd))
               ).astype(np.float32)
-        cases.append(rwkv_vs_plain(scan, [torch.from_numpy(a).cuda() for a
-                                          in (r, k, v, w, u, s0)],
-                                   f"hd={hd}, random"))
+        return [torch.from_numpy(a).cuda() for a in (r, k, v, w, u, s0)]
+
+    for shape in ((2, 17, 3, 8), (1, 64, 2, 16)):  # tests/test_kernels.py's
+        cases.append(rwkv_vs_plain(scan, random_inputs(shape),
+                                   f"hd={shape[3]}, random"))
+    for hd in RWKV_HEAD_DIMS:
+        for s_len in RWKV_SEQS:
+            cases.append(rwkv_vs_plain(scan, random_inputs((2, s_len, 4, hd)),
+                                       f"hd={hd}, S={s_len}, random"))
     del captured, st0, st_l
 
     # the counted main path: one prefill and one greedy generation (after
@@ -1569,8 +1708,19 @@ def phase_lm_serve() -> dict:
     decode_prof = device_breakdown(prof)
     del prof, cache, step_logits
 
-    # the kernel row: rwkv_scan at the prefill shape (layer 0's inputs)
+    # the kernel row: rwkv_scan at the prefill shape (layer 0's inputs),
+    # and its decode launch (S = 1, the same B, H and hd) by its device
+    # time in torch.profiler: one launch is shorter than the wrapper's host
+    # time, which CUDA events around it would measure
     kernel_ms = cuda_time_ms(lambda: scan.rwkv_scan(*ins0), 10)
+    dec_ins = [t[:, :1] for t in ins0[:4]] + ins0[4:]
+    decode_us = profiled_kernel_us(lambda: scan.rwkv_scan(*dec_ins),
+                                   "rwkv_scan_kernel", RWKV_DECODE_LAUNCHES)
+    layouts = rwkv_layouts(rwkv_report)
+    plan = dict(zip(("groups", "rows", "cols_per_lane", "warps", "cols",
+                     "panels"), scan.scan_plan(ins0[0].shape[3])))
+    main_layout = layouts.get("G{}_R{}_panels0".format(
+        plan["groups"], plan["rows"] // plan["groups"]), {})
     plain_ms = cuda_time_ms(lambda: scan.rwkv_scan_plain(*ins0), 1,
                             warmup=0)
     bb, ss, hh, hd = ins0[0].shape
@@ -1596,6 +1746,17 @@ def phase_lm_serve() -> dict:
          decode_blocking_transfers=syncs, decode_device=decode_prof,
          first_tokens=served[:, :8].tolist(), peak_memory_gb=peak_gb,
          rwkv_scan_ms=kernel_ms, rwkv_scan_plain_ms=plain_ms,
+         rwkv_scan_device_ms=(prefill_prof["ms_by_kind"]["rwkv_scan"]
+                              / prefill_prof["rwkv_scan_launches"]
+                              if prefill_prof.get("rwkv_scan_launches")
+                              else None),
+         rwkv_scan_decode_us=decode_us,
+         rwkv_scan_layout=plan,
+         rwkv_scan_registers=main_layout.get("registers"),
+         rwkv_scan_spill_bytes=(main_layout.get("spill_stores", 0)
+                                + main_layout.get("spill_loads", 0)
+                                if main_layout else None),
+         rwkv_scan_ptxas=layouts,
          rwkv_scan_max_abs_err=err, bytes=nbytes, ops=n_ops,
          bound_bytes_ms=bytes_ms, bound_ops_ms=ops_ms)
     del params, ins0, ins_l
@@ -1627,7 +1788,7 @@ def main() -> int:
 
     smi = smi_line()
     t0 = time.perf_counter()
-    reports = build.build(list(KERNELS))
+    reports = build.build(list(KERNELS), force=True)
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in out.splitlines()
                     if "registers" in ln or "spill" in ln]
@@ -1641,6 +1802,7 @@ def main() -> int:
     worst = phase_bin_edge_cases(upd)
     emit("bin_vs_plain_done", max_abs_err=worst, bitwise=True)
     layer_worst = phase_layer_vs_plain(ops, knn_mod, trange, tdist)
+    any_k_err = phase_any_k_and_tile(api, data, ref, knn_mod)
 
     pts = data.kitti_like_cloud(N_POINTS, seed=1)
     opts = api.SearchOpts(use_pallas=True)
@@ -1679,10 +1841,10 @@ def main() -> int:
 
     d = phase_dynamic(core, ref, knn_mod, upd)
 
-    lm = phase_lm_serve()
+    lm = phase_lm_serve(reports.get("rwkv_scan", ""))
 
     rows = [("knn_tile_anchored", dict(
-        launches=m["launches"], err=max(m["err"], hp_err,
+        launches=m["launches"], err=max(m["err"], hp_err, any_k_err,
                                         d["search_err"]),
         ms=kernel_ms, plain_ms=plain_ms, bound_ms=m["bound_ms"],
         bound_by=m["bound_by"])),

@@ -55,15 +55,15 @@ def _stale(name: str) -> bool:
     return lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 
-def build(names) -> dict[str, str]:
-    """Compile every stale kernel in ``names``, one nvcc process per source,
-    all started together. Returns nvcc's report (``-Xptxas -v``: registers,
-    shared memory, spills) per built kernel. Raises with nvcc's output if
-    any build fails."""
+def build(names, force: bool = False) -> dict[str, str]:
+    """Compile every stale kernel in ``names`` (every one with ``force``),
+    one nvcc process per source, all started together. Returns nvcc's
+    report (``-Xptxas -v``: registers, shared memory, spills) per built
+    kernel. Raises with nvcc's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        if _stale(name):
+        if force or _stale(name):
             tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.tmp"
             procs[name] = (tmp, subprocess.Popen(
                 _command(name, tmp), stdout=subprocess.PIPE,

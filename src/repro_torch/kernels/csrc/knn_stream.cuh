@@ -13,6 +13,15 @@
 // ops. A candidate enters the list only when strictly less than the current
 // k-th best, so ties keep the earlier window position: the reference merge's
 // rule, and the order of a stable sort over the whole window.
+//
+// Beyond the list length the kernels are built for (128) a launch is one
+// pass of several: the list holds stream positions, pass p keeps only the
+// candidates whose key (d2, position) lies after the last key of pass p - 1
+// (lo_d, lo_p, carried per query in scratch), and writes output columns
+// [col0, col0 + k). The key order is total, so the passes compose into the
+// one-stream result. A tile that is not a whole number of warps, or that is
+// split into row blocks, runs masked: threads past the block's rows stage
+// candidates with the others but keep no list and write nothing.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -51,16 +60,24 @@ __device__ __forceinline__ void init(float (&best_d)[KMAX],
   }
 }
 
+// Whether the key (d, p) comes after (lo_d, lo_p): a later pass's filter.
+__device__ __forceinline__ bool after(float d, int p, float lo_d, int lo_p) {
+  return d > lo_d || (d == lo_d && p > lo_p);
+}
+
 // Streams the m candidates of one tile through every thread's fresh best-K
 // (as init leaves it). ``ids(cc)`` is the candidate id at window position cc
 // (-1 = empty); a valid id gathers its position with the id clipped to
 // [0, n_pts - 1], as the reference does. Every thread of the CTA must call
-// this together.
-template <int KMAX, class Ids>
+// this together. kMasked: only ``active`` threads keep a list. kPass: the
+// list keeps window positions (not ids) of the candidates after (lo_d,
+// lo_p).
+template <int KMAX, bool kMasked = false, bool kPass = false, class Ids>
 __device__ __forceinline__ void stream_topk(
     Chunk& s, const Ids& ids, int m, const float* __restrict__ points,
     int n_pts, float qx, float qy, float qz, bool skip, float r2, int k,
-    float (&best_d)[KMAX], int (&best_i)[KMAX]) {
+    float (&best_d)[KMAX], int (&best_i)[KMAX], bool active = true,
+    float lo_d = 0.f, int lo_p = 0) {
   const int t = threadIdx.x;
   const float qn = dot3(qx, qy, qz, qx, qy, qz);
   float worst = kBig;               // best_d[k - 1]
@@ -83,13 +100,17 @@ __device__ __forceinline__ void stream_topk(
       s.n[c] = pn;
     }
     __syncthreads();
-    const int n_here = min(kChunk, m - base);
+    const int n_here = (kMasked && !active) ? 0 : min(kChunk, m - base);
     for (int j = 0; j < n_here; ++j) {
-      const int id = s.id[j];
+      int id = s.id[j];
       if (id < 0) continue;
       const float d =
           sq_dist(qn, s.n[j], dot3(qx, qy, qz, s.x[j], s.y[j], s.z[j]));
       if (!skip && d > r2) continue;
+      if constexpr (kPass) {
+        id = base + j;                    // the list keeps positions
+        if (!after(d, id, lo_d, lo_p)) continue;
+      }
       if (!(d < worst)) continue;
       // insert after every held entry <= d (strictly-less rule)
 #pragma unroll

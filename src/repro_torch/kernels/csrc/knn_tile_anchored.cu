@@ -56,6 +56,17 @@
 // z through __fmul_rn/__fadd_rn), shared with knn_tile.cu, so the two
 // kernels agree bitwise on the same candidates. k <= 8 keeps its list in
 // registers; a longer one lives in local memory.
+//
+// Any k and any tile: a k above 128 runs as passes of the 128 kernel, one
+// launch each (knn_stream.cuh: pass p keeps the keys after the last key of
+// pass p - 1, carried per query in scratch, and writes output columns
+// [128p, 128p + 128)). A tile that is not a whole number of warps, or has
+// more than 1024 rows, runs masked: the wrapper cuts it into row blocks of
+// at most 1024 that share its anchor and level, and the work items are per
+// (tile, row block). Threads past a block's rows stage candidates with the
+// others but keep no list and write nothing. A query's result depends only
+// on its row and its tile's window, so neither changes a result; the
+// unmasked k <= 128 kernels are the code above, unchanged.
 #include "knn_stream.cuh"
 
 namespace {
@@ -127,19 +138,28 @@ struct Args {
   const int* __restrict__ anchors;     // [n_tiles, 3]
   const int* __restrict__ levels;      // [n_tiles]
   const int* __restrict__ table;       // [n_entries, 4] (wx, wy, wz, skip)
-  const int* __restrict__ order;       // [n_tiles] tiles, largest first
+  const int* __restrict__ order;       // [n_tiles] units, largest first
   const int* __restrict__ cum;         // [n_tiles + 1] first item of each
   const unsigned char* __restrict__ occupied;  // [n_flat / cap] cell holds
                                                // an id (0 / 1)
   int* locks;                          // [n_tiles], zeroed
   int* merged;                         // [n_tiles], zeroed
   int* next;                           // [1] items taken, zeroed
-  float* out_d2;                       // [n_tiles * tile, k]
-  int* out_idx;                        // [n_tiles * tile, k]
+  float* out_d2;                       // [rows, ld]
+  int* out_idx;                        // [rows, ld]
   long long n_flat;
-  int n_entries, n_tiles, n_pts, dy, dz, cap, k;
+  int n_entries, n_tiles, n_pts, dy, dz, cap, k;  // n_tiles: units of work
+                                       // (tile, row block); k: list length
   int seg_cells;                       // window cells per work item
   float r2;
+  // masked launch: unit u is rows [r0, r0 + rb_rows) of tile u / n_rb,
+  // r0 = (u % n_rb) * rb_rows, clipped to the tile's tile_rows
+  int tile_rows, rb_rows, n_rb;
+  // pass launch: output columns [col0, col0 + k) of rows of ld entries,
+  // after the key (lo_d, lo_p)[row] of the pass before, which it replaces
+  int ld, col0;
+  float* lo_d;
+  int* lo_p;
 };
 
 __device__ __forceinline__ bool before(float d, int p, float bd, int bp) {
@@ -238,17 +258,24 @@ __device__ __forceinline__ void warp_exclusive_scan(int* v, int n,
   if (lane == 31) *total = incl;
 }
 
-template <int KMAX>
+template <int KMAX, bool kPass = false>
 __device__ __forceinline__ void emit_final(const Best<KMAX>& b, int k,
                                            long long row, const Window& w,
-                                           float* out_d2, int* out_idx) {
+                                           float* out_d2, int* out_idx,
+                                           const Args& a) {
+  const int ld = kPass ? a.ld : k;
+  const int col0 = kPass ? a.col0 : 0;
 #pragma unroll
   for (int e = 0; e < KMAX; ++e) {
     if (e < k) {
       const bool has = b.d[e] < kBig;
-      out_d2[row * k + e] = has ? b.d[e] : CUDART_INF_F;
-      out_idx[row * k + e] = has ? w.id(b.p[e]) : -1;
+      out_d2[row * ld + col0 + e] = has ? b.d[e] : CUDART_INF_F;
+      out_idx[row * ld + col0 + e] = has ? w.id(b.p[e]) : -1;
     }
+  }
+  if constexpr (kPass) {                 // the next pass starts after it
+    a.lo_d[row] = b.d[k - 1];
+    a.lo_p[row] = b.p[k - 1];
   }
 }
 
@@ -260,12 +287,15 @@ __device__ __forceinline__ void emit_final(const Best<KMAX>& b, int k,
 // ``lim`` is what a candidate's d2 must stay under: the lesser of entry
 // k - 1's and ``cap`` (the least float above r2, as d <= r2 iff d < it, or
 // kBig where the level skips the sphere test).
-template <int KMAX>
+// kPass: only keys after (lo_d, lo_p) count, and the cheap test is taken on
+// the clamped distances, at least lo_d and under ``lim``.
+template <int KMAX, bool kPass = false>
 __device__ __forceinline__ void scan_stage(const float4* s_pt,
                                            const int* s_pos, int n, float qx,
                                            float qy, float qz, float qn,
                                            Best<KMAX>& b, int k, float cap,
-                                           float& lim) {
+                                           float& lim, float lo_d = 0.f,
+                                           int lo_p = 0) {
   for (int j = 0; j < n; j += 4) {
     float d[4];
 #pragma unroll
@@ -274,12 +304,24 @@ __device__ __forceinline__ void scan_stage(const float4* s_pt,
       d[u] = __fsub_rn(__fadd_rn(qn, c.w),
                        __fmul_rn(2.f, dot3(qx, qy, qz, c.x, c.y, c.z)));
     }
-    if (fminf(fminf(d[0], d[1]), fminf(d[2], d[3])) < lim) {
+    bool hit;
+    if constexpr (kPass) {
+      hit = false;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float du = fmaxf(d[u], 0.f);
+        hit |= du >= lo_d && du < lim;
+      }
+    } else {
+      hit = fminf(fminf(d[0], d[1]), fminf(d[2], d[3])) < lim;
+    }
+    if (hit) {
 #pragma unroll 1
       for (int u = 0; u < 4; ++u) {
         const float4 c = s_pt[j + u];
         const float du = sq_dist(qn, c.w, dot3(qx, qy, qz, c.x, c.y, c.z));
-        if (du < lim) {
+        if (du < lim &&
+            (!kPass || knn_stream::after(du, s_pos[j + u], lo_d, lo_p))) {
           b.insert(k, du, s_pos[j + u]);
           lim = fminf(b.worst, cap);
         }
@@ -335,18 +377,35 @@ __device__ __forceinline__ const int* rank_round(
 // per query. Then it writes the tile's rows, or merges into them under the
 // tile's lock if other runs cover the rest. Every thread of the CTA calls
 // this together.
-template <int KMAX>
+template <int KMAX, bool kMasked, bool kPass>
 __device__ __forceinline__ void run_tile(const Args& a, Stage& st,
                                          float4* s_pt, int* s_pos,
-                                         int* s_cells, int tile,
+                                         int* s_cells, int unit,
                                          int first_item, int covered,
                                          int nseg) {
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int nthr = blockDim.x, nw = nthr >> 5;
-  const long long row = (long long)tile * nthr + t;
-  const float qx = a.q[row * 3 + 0], qy = a.q[row * 3 + 1],
-              qz = a.q[row * 3 + 2];
+  int tile = unit;                        // the unit's tile
+  long long row = (long long)unit * nthr + t;
+  bool active = true;                     // this thread holds a row
+  if constexpr (kMasked) {
+    tile = unit / a.n_rb;
+    const int r0 = (unit - tile * a.n_rb) * a.rb_rows;
+    active = t < min(a.rb_rows, a.tile_rows - r0);
+    row = (long long)tile * a.tile_rows + r0 + t;
+  }
+  const float qx = active ? a.q[row * 3 + 0] : 0.f,
+              qy = active ? a.q[row * 3 + 1] : 0.f,
+              qz = active ? a.q[row * 3 + 2] : 0.f;
   const float qn = dot3(qx, qy, qz, qx, qy, qz);
+  float lo_d = 0.f;
+  int lo_p = 0;
+  if constexpr (kPass) {
+    if (active) {
+      lo_d = a.lo_d[row];
+      lo_p = a.lo_p[row];
+    }
+  }
   Best<KMAX> best;
   best.reset();
 
@@ -442,8 +501,9 @@ __device__ __forceinline__ void run_tile(const Args& a, Stage& st,
       if (fill > nthr) {                  // room for one more round only
         pad_stage(s_pt, fill);
         __syncthreads();
-        scan_stage(s_pt, s_pos, (fill + 3) & ~3, qx, qy, qz, qn, best, a.k,
-                   cap, lim);
+        if (active)
+          scan_stage<KMAX, kPass>(s_pt, s_pos, (fill + 3) & ~3, qx, qy, qz,
+                                  qn, best, a.k, cap, lim, lo_d, lo_p);
         fill = 0;
       }
     }
@@ -451,27 +511,31 @@ __device__ __forceinline__ void run_tile(const Args& a, Stage& st,
   if (fill > 0) {
     pad_stage(s_pt, fill);
     __syncthreads();
-    scan_stage(s_pt, s_pos, (fill + 3) & ~3, qx, qy, qz, qn, best, a.k, cap,
-               lim);
+    if (active)
+      scan_stage<KMAX, kPass>(s_pt, s_pos, (fill + 3) & ~3, qx, qy, qz, qn,
+                              best, a.k, cap, lim, lo_d, lo_p);
   }
 
   if (covered == nseg) {                  // the whole window: write it
-    emit_final(best, a.k, row, w, a.out_d2, a.out_idx);
+    if (active)
+      emit_final<KMAX, kPass>(best, a.k, row, w, a.out_d2, a.out_idx, a);
     __syncthreads();
     return;
   }
   // merge into the tile's rows under its lock; the run that completes the
   // tile writes the final rows
   if (t == 0) {
-    while (atomicCAS(a.locks + tile, 0, 1) != 0) __nanosleep(64);
+    while (atomicCAS(a.locks + unit, 0, 1) != 0) __nanosleep(64);
     __threadfence();
-    st.merged = *reinterpret_cast<volatile int*>(a.merged + tile);
+    st.merged = *reinterpret_cast<volatile int*>(a.merged + unit);
   }
   __syncthreads();
   const int merged = st.merged;
-  float* rd = a.out_d2 + row * a.k;
-  int* rp = a.out_idx + row * a.k;
-  if (merged > 0) {
+  const int ld = kPass ? a.ld : a.k;
+  const int col0 = kPass ? a.col0 : 0;
+  float* rd = a.out_d2 + row * ld + col0;
+  int* rp = a.out_idx + row * ld + col0;
+  if (active && merged > 0) {
     for (int e = 0; e < a.k; ++e) {       // the held rows, ascending
       const float gd = __ldcg(rd + e);
       const int gp = __ldcg(rp + e);
@@ -479,8 +543,9 @@ __device__ __forceinline__ void run_tile(const Args& a, Stage& st,
       best.insert(a.k, gd, gp);
     }
   }
-  if (merged + covered == nseg) {
-    emit_final(best, a.k, row, w, a.out_d2, a.out_idx);
+  if (!active) {
+  } else if (merged + covered == nseg) {
+    emit_final<KMAX, kPass>(best, a.k, row, w, a.out_d2, a.out_idx, a);
   } else {
 #pragma unroll
     for (int e = 0; e < KMAX; ++e) {
@@ -493,9 +558,9 @@ __device__ __forceinline__ void run_tile(const Args& a, Stage& st,
   __threadfence();
   __syncthreads();
   if (t == 0) {
-    *reinterpret_cast<volatile int*>(a.merged + tile) = merged + covered;
+    *reinterpret_cast<volatile int*>(a.merged + unit) = merged + covered;
     __threadfence();
-    atomicExch(a.locks + tile, 0);
+    atomicExch(a.locks + unit, 0);
   }
   __syncthreads();
 }
@@ -506,7 +571,7 @@ __device__ __forceinline__ void run_tile(const Args& a, Stage& st,
 // that covers part of it, not once per item.
 constexpr int kGuide = 4;
 
-template <int KMAX>
+template <int KMAX, bool kMasked, bool kPass>
 __global__ void __launch_bounds__(1024) knn_tile_anchored_kernel(Args a) {
   extern __shared__ float4 s_pt[];
   __shared__ Stage st;
@@ -554,20 +619,21 @@ __global__ void __launch_bounds__(1024) knn_tile_anchored_kernel(Args a) {
     while (item < end) {                  // uniform across the CTA
       const int c0 = a.cum[j], c1 = a.cum[j + 1];
       const int upto = min(end, c1);
-      run_tile<KMAX>(a, st, s_pt, s_pos, s_cells, a.order[j], item - c0,
-                     upto - item, c1 - c0);
+      run_tile<KMAX, kMasked, kPass>(a, st, s_pt, s_pos, s_cells,
+                                     a.order[j], item - c0, upto - item,
+                                     c1 - c0);
       item = upto;
       ++j;
     }
   }
 }
 
-template <int KMAX>
+template <int KMAX, bool kMasked, bool kPass>
 int launch(const Args& a, int tile, cudaStream_t stream) {
   const size_t smem = (size_t)(kRounds + 1) * tile *
                           (sizeof(float4) + sizeof(int)) +
                       (size_t)kRounds * tile * sizeof(int);
-  auto kernel = knn_tile_anchored_kernel<KMAX>;
+  auto kernel = knn_tile_anchored_kernel<KMAX, kMasked, kPass>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -584,27 +650,44 @@ int launch(const Args& a, int tile, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kMasked>
+int launch_k(const Args& a, int block, cudaStream_t s) {
+  if (a.lo_d != nullptr) return launch<128, kMasked, true>(a, block, s);
+  if (a.k <= 8) return launch<8, kMasked, false>(a, block, s);
+  if (a.k <= 32) return launch<32, kMasked, false>(a, block, s);
+  return launch<128, kMasked, false>(a, block, s);
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Launches on ``stream`` and
 // returns the first CUDA error of the set-up or the launch: 0 on success.
 // ``occupied`` is [n_flat / cap] bytes, whether each cell holds an id;
-// ``sync`` is [2 * n_tiles + 1] int32 zeros: the locks, the merge counts
-// and the item counter.
+// ``sync`` is [2 * n_units + 1] int32 zeros: the locks, the merge counts
+// and the item counter; ``order`` and ``cum`` are per unit. A unit is a
+// row block of ``rb_rows`` rows of a tile of ``tile`` rows (``n_rb`` a
+// tile), run by CTAs of ``block`` threads (a multiple of 32); ``block ==
+// tile`` and ``n_rb == 1`` is the unmasked kernel. ``k`` (at most 128) is
+// this launch's list length and ``ld`` the output row length; with
+// ``lo_d``/``lo_p`` non-null the launch is the pass that writes columns
+// [col0, col0 + k).
 extern "C" int knn_tile_anchored_launch(
     const float* q, const float* points, const int* dense,
     const int* anchors, const int* levels, const int* table, int n_entries,
     const int* order, const int* cum, const unsigned char* occupied,
-    int* sync, int n_tiles, int tile, int n_pts, int n_flat, int dy, int dz,
-    int cap, int k, int seg_cells, float r2, float* out_d2, int* out_idx,
-    void* stream) {
-  if (n_tiles <= 0) return 0;
+    int* sync, int n_units, int tile, int rb_rows, int n_rb, int block,
+    int n_pts, int n_flat, int dy, int dz, int cap, int k, int ld, int col0,
+    int seg_cells, float r2, float* lo_d, int* lo_p, float* out_d2,
+    int* out_idx, void* stream) {
+  if (n_units <= 0) return 0;
+  if (k < 1 || k > 128 || block % 32 || block < rb_rows ||
+      (lo_d == nullptr && (ld != k || col0 != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{q, points, dense, anchors, levels, table, order, cum,
-               occupied, sync, sync + n_tiles, sync + 2 * n_tiles, out_d2,
-               out_idx, n_flat, n_entries, n_tiles, n_pts, dy, dz, cap, k,
-               seg_cells, r2};
-  if (k <= 8) return launch<8>(a, tile, s);
-  if (k <= 32) return launch<32>(a, tile, s);
-  return launch<128>(a, tile, s);
+               occupied, sync, sync + n_units, sync + 2 * n_units, out_d2,
+               out_idx, n_flat, n_entries, n_units, n_pts, dy, dz, cap, k,
+               seg_cells, r2, tile, rb_rows, n_rb, ld, col0, lo_d, lo_p};
+  if (n_rb == 1 && block == tile) return launch_k<false>(a, block, s);
+  return launch_k<true>(a, block, s);
 }

@@ -20,6 +20,16 @@ the same arithmetic in plain PyTorch. There is no fallback from one to the
 other. On the ids of an anchored window, in window order, the two kernels
 agree bitwise, and so do the two plain versions.
 
+Both take any k >= 1 and any query tile that is a positive multiple of 8,
+as the reference does. A launch keeps a list of at most :data:`MAX_K`
+entries; a larger k runs as ``ceil(k / MAX_K)`` passes, pass p keeping the
+candidates whose key (d2, window position) lies after the last key of pass
+p - 1 (carried per query in scratch) and writing output columns
+``[MAX_K * p, MAX_K * p + MAX_K)``. A CTA holds at most :data:`MAX_ROWS`
+rows; a larger tile, or one that is not a whole number of warps, runs in
+row blocks (:func:`row_blocks`) of a whole number of warps, masked past
+the block's rows.
+
 Unlike the reference, which launches once per ladder level with the other
 levels' tiles masked off (a TPU construct), ONE launch of
 ``knn_tile_anchored`` covers every tile: each tile reads its
@@ -39,8 +49,8 @@ from .ref import dot3, topk_select
 
 Tensor = torch.Tensor
 
-MAX_K = 128            # largest k the CUDA kernel takes
-MAX_TILE = 1024        # threads per CTA
+MAX_K = 128            # longest list one launch keeps; more runs in passes
+MAX_ROWS = 1024        # query rows per CTA; a larger tile runs in row blocks
 SEG = 1 << 16          # window slots per work item of knn_tile_anchored's
                        # kernel: a larger window is split across CTAs
 _BIG = 3.4e38          # the reference's "empty" distance sentinel
@@ -61,14 +71,30 @@ def _check_args(name, q, expect):
 
 
 def _check_launch(name, tensors, tile):
-    """The CUDA launch's own limits: a CTA of ``tile`` threads, a whole
-    number of warps, and contiguous tensors."""
-    if tile % 32 or not 32 <= tile <= MAX_TILE:
-        raise ValueError(f"{name}: tile={tile} must be a multiple of 32 in "
-                         f"[32, {MAX_TILE}]")
+    """What the CUDA launch rejects: the reference's own limit, a tile that
+    is not a positive multiple of 8, and tensors that are not contiguous."""
+    if tile < 8 or tile % 8:
+        raise ValueError(f"{name}: tile={tile} must be a positive multiple "
+                         "of 8")
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def row_blocks(tile: int) -> tuple[int, int, int]:
+    """How a query tile of ``tile`` rows runs on the card: ``(n_rb,
+    rb_rows, block)``, its row blocks, the rows of each (the last may hold
+    fewer) and the threads of each block's CTA, a whole number of warps.
+    A tile of 32 to 1024 rows that is a whole number of warps is one block
+    of itself, the unmasked kernel."""
+    n_rb = -(-tile // MAX_ROWS)
+    rb_rows = -(-tile // n_rb)
+    return n_rb, rb_rows, -(-rb_rows // 32) * 32
+
+
+def _passes(k: int) -> list[tuple[int, int]]:
+    """The (first column, list length) of each launch for a top-k."""
+    return [(c, min(MAX_K, k - c)) for c in range(0, k, MAX_K)]
 
 
 def _check(q, points, dense_flat, anchors, levels, table, dims, cap, k,
@@ -121,14 +147,18 @@ def work_items(levels: Tensor, table: Tensor, cap: int,
 
 
 def launch_scratch(levels: Tensor, table: Tensor, dense_flat: Tensor,
-                   cap: int, seg: int = SEG) -> tuple[Tensor, ...]:
-    """Everything one kernel launch gets besides its inputs and outputs:
-    :func:`work_items`' ``order`` and ``cum``; ``occupied`` [cells] bool,
-    whether each grid cell holds any id, so that the kernel reads the slots
-    of occupied cells only; and ``sync`` [2 * n_tiles + 1] i32 zeros (a
-    lock and a merge count per tile, the item counter). In all
-    ``16 * n_tiles + 8`` bytes plus one byte a grid cell, whatever k and
-    the window sizes."""
+                   cap: int, seg: int = SEG,
+                   n_rb: int = 1) -> tuple[Tensor, ...]:
+    """Everything one kernel launch gets besides its inputs and outputs,
+    for tiles of ``n_rb`` row blocks each (:func:`row_blocks`), a unit of
+    work being one row block of one tile: :func:`work_items`' ``order`` and
+    ``cum`` over the units; ``occupied`` [cells] bool, whether each grid
+    cell holds any id, so that the kernel reads the slots of occupied cells
+    only; and ``sync`` [2 * n_units + 1] i32 zeros (a lock and a merge
+    count per unit, the item counter). In all ``16 * n_units + 8`` bytes
+    plus one byte a grid cell, whatever k and the window sizes."""
+    if n_rb > 1:
+        levels = levels.repeat_interleave(n_rb)
     order, cum = work_items(levels, table, cap, seg)
     occupied = (dense_flat.view(-1, cap) >= 0).any(dim=1)
     sync = torch.zeros(2 * levels.shape[0] + 1, dtype=torch.int32,
@@ -143,7 +173,7 @@ def _library():
     fn = lib.knn_tile_anchored_launch
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, p, p, p, p, p, i, p, p, p, p, i, i, i, i, i, i, i, i,
-                   i, ctypes.c_float, p, p, p]
+                   i, i, i, i, i, i, ctypes.c_float, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -178,34 +208,45 @@ def knn_tile_anchored(
         raise ValueError(f"knn_tile_anchored: no kernel for {q.device}")
     _check_launch("knn_tile_anchored",
                   (q, points, dense_flat, anchors, levels, table), tile)
-    if k > MAX_K:
-        raise ValueError(f"knn_tile_anchored: k={k} exceeds {MAX_K}")
     if dense_flat.numel() >= 2 ** 31 or points.shape[0] >= 2 ** 31:
         raise ValueError("knn_tile_anchored: grid or points exceed int32")
     n_tiles = anchors.shape[0]
-    out_d2 = torch.empty((n_tiles * tile, k), dtype=torch.float32,
-                         device=q.device)
-    out_idx = torch.empty((n_tiles * tile, k), dtype=torch.int32,
-                          device=q.device)
+    rows = n_tiles * tile
+    out_d2 = torch.empty((rows, k), dtype=torch.float32, device=q.device)
+    out_idx = torch.empty((rows, k), dtype=torch.int32, device=q.device)
     if n_tiles == 0:
         return out_d2, out_idx
     launch = _library()
     seg = SEG
+    n_rb, rb_rows, block = row_blocks(tile)
     order, cum, occupied, sync = launch_scratch(levels, table, dense_flat,
-                                                cap, seg)
+                                                cap, seg, n_rb)
+    passes = _passes(k)
+    lo_d = lo_p = None
+    if len(passes) > 1:   # each query's last key of the pass before
+        lo_d = torch.full((rows,), -1.0, dtype=torch.float32,
+                          device=q.device)
+        lo_p = torch.full((rows,), -1, dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = launch(q.data_ptr(), points.data_ptr(), dense_flat.data_ptr(),
-                     anchors.data_ptr(), levels.data_ptr(), table.data_ptr(),
-                     table.shape[0], order.data_ptr(), cum.data_ptr(),
-                     occupied.data_ptr(), sync.data_ptr(), n_tiles, tile,
-                     points.shape[0], dense_flat.numel(), dims[1], dims[2],
-                     cap, k, max(1, seg // cap), float(np.float32(r2)),
-                     out_d2.data_ptr(), out_idx.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"knn_tile_anchored: kernel launch failed "
-                           f"(cudaError {err})")
-    knn_tile_anchored.launches += 1
+        for col0, kk in passes:
+            if col0:
+                sync.zero_()
+            err = launch(
+                q.data_ptr(), points.data_ptr(), dense_flat.data_ptr(),
+                anchors.data_ptr(), levels.data_ptr(), table.data_ptr(),
+                table.shape[0], order.data_ptr(), cum.data_ptr(),
+                occupied.data_ptr(), sync.data_ptr(), n_tiles * n_rb, tile,
+                rb_rows, n_rb, block, points.shape[0], dense_flat.numel(),
+                dims[1], dims[2], cap, kk, k, col0, max(1, seg // cap),
+                float(np.float32(r2)),
+                None if lo_d is None else lo_d.data_ptr(),
+                None if lo_p is None else lo_p.data_ptr(),
+                out_d2.data_ptr(), out_idx.data_ptr(), stream)
+            if err != 0:
+                raise RuntimeError(f"knn_tile_anchored: kernel launch "
+                                   f"failed (cudaError {err})")
+            knn_tile_anchored.launches += 1
     return out_d2, out_idx
 
 
@@ -292,7 +333,8 @@ def _stream_library():
     from .build import load
     fn = load("knn_tile").knn_tile_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, i, i, i, i, i, i, ctypes.c_float, p, p, p]
+    fn.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, i, i,
+                   ctypes.c_float, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -329,27 +371,35 @@ def knn_tile(
     if q.device.type != "cuda":
         raise ValueError(f"knn_tile: no kernel for {q.device}")
     _check_launch("knn_tile", (q, points, wnd_idx), tile)
-    if k > MAX_K:
-        raise ValueError(f"knn_tile: k={k} exceeds {MAX_K}")
     if m >= 2 ** 31 or points.shape[0] >= 2 ** 31:
         raise ValueError("knn_tile: stream or points exceed int32")
-    out_d2 = torch.empty((n_tiles * tile, k), dtype=torch.float32,
-                         device=q.device)
-    out_idx = torch.empty((n_tiles * tile, k), dtype=torch.int32,
-                          device=q.device)
+    rows = n_tiles * tile
+    out_d2 = torch.empty((rows, k), dtype=torch.float32, device=q.device)
+    out_idx = torch.empty((rows, k), dtype=torch.int32, device=q.device)
     if n_tiles == 0:
         return out_d2, out_idx
     launch = _stream_library()
+    n_rb, rb_rows, block = row_blocks(tile)
+    passes = _passes(k)
+    lo_d = lo_p = None
+    if len(passes) > 1:   # each query's last key of the pass before
+        lo_d = torch.full((rows,), -1.0, dtype=torch.float32,
+                          device=q.device)
+        lo_p = torch.full((rows,), -1, dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = launch(q.data_ptr(), points.data_ptr(), wnd_idx.data_ptr(),
-                     n_tiles, tile, m, points.shape[0], k, int(skip_test),
-                     float(np.float32(r2)), out_d2.data_ptr(),
-                     out_idx.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"knn_tile: kernel launch failed (cudaError "
-                           f"{err})")
-    knn_tile.launches += 1
+        for col0, kk in passes:
+            err = launch(q.data_ptr(), points.data_ptr(), wnd_idx.data_ptr(),
+                         n_tiles, tile, rb_rows, n_rb, block, m,
+                         points.shape[0], kk, k, col0, int(skip_test),
+                         float(np.float32(r2)),
+                         None if lo_d is None else lo_d.data_ptr(),
+                         None if lo_p is None else lo_p.data_ptr(),
+                         out_d2.data_ptr(), out_idx.data_ptr(), stream)
+            if err != 0:
+                raise RuntimeError(f"knn_tile: kernel launch failed "
+                                   f"(cudaError {err})")
+            knn_tile.launches += 1
     return out_d2, out_idx
 
 

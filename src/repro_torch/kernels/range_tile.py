@@ -18,7 +18,7 @@ import functools
 import numpy as np
 import torch
 
-from .knn_tile import _PLAIN_CHUNK, _check_args, _check_launch
+from .knn_tile import _PLAIN_CHUNK, _check_args, _check_launch, row_blocks
 from .ref import dot3
 
 Tensor = torch.Tensor
@@ -29,7 +29,7 @@ def _library():
     from .build import load
     fn = load("range_count").range_count_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, i, i, i, ctypes.c_float, p, p]
+    fn.argtypes = [p, p, p, i, i, i, i, i, i, ctypes.c_float, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -61,11 +61,12 @@ def range_count(
     if n_tiles == 0:
         return out
     launch = _library()
+    n_rb, rb_rows, block = row_blocks(tile)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(q.data_ptr(), wnd_pos.data_ptr(), wnd_idx.data_ptr(),
-                     n_tiles, tile, m, float(np.float32(r2)),
-                     out.data_ptr(), stream)
+                     n_tiles, tile, rb_rows, n_rb, block, m,
+                     float(np.float32(r2)), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"range_count: kernel launch failed (cudaError "
                            f"{err})")

@@ -8,9 +8,10 @@ name (``src/repro/kernels/rwkv_scan.py``). Per (batch, head), with the
 
 r/k/v/w are [B, S, H, hd], u [H, hd] (broadcast over B), state0
 [B, H, hd, hd]; every input is upcast to float32 and both outputs are
-float32. On a CUDA tensor it launches the hand-written kernel
-``csrc/rwkv_scan.cu`` (built by ``kernels/build.py``), which reads the
-inputs in place through their strides; on a CPU tensor it runs
+float32; any head dim. On a CUDA tensor it launches the hand-written
+kernel ``csrc/rwkv_scan.cu`` (built by ``kernels/build.py``), which reads
+the inputs in place through their strides and splits each head's columns
+over several CTAs (:func:`scan_plan`); on a CPU tensor it runs
 :func:`rwkv_scan_plain`, the reference's ``_rwkv_scan_core``
 (``src/repro/models/layers.py``) as a loop over t. There is no fallback
 from one to the other.
@@ -23,7 +24,30 @@ import functools
 import torch
 
 Tensor = torch.Tensor
-HEAD_DIMS = (8, 16, 32, 64)   # head widths the kernel is compiled for
+PANEL = 128          # most state rows a CTA holds in registers at once
+ROWS_PER_LANE = 8    # state rows a lane holds where 8 row groups allow
+COLS_PER_LANE = 4    # state columns a lane holds (the kernel's kCols)
+WARPS_PER_CTA = 2    # warps a CTA, side by side in columns (kWarps)
+
+
+def scan_plan(hd: int) -> tuple[int, int, int, int, int, int]:
+    """How the kernel lays out a head of width ``hd``: ``(groups, rows,
+    cols_per_lane, warps, cols, panels)``. A warp is ``32 / groups``
+    column groups of ``cols_per_lane`` columns, a CTA ``warps`` warps side
+    by side, ``cols`` columns in all; a lane holds ``rows / groups`` rows of
+    its columns (at most ROWS_PER_LANE where 8 row groups allow, else up
+    to 16), ``rows`` rows of a panel in all (zero past hd); a head runs
+    ``ceil(hd / cols)`` CTAs, each over ``panels`` panels of rows in
+    turn."""
+    want = min(hd, PANEL)
+    groups = 1
+    while groups * ROWS_PER_LANE < want and groups < 8:
+        groups *= 2
+    per_lane = -(-want // groups)
+    rows = groups * (-(-per_lane // 4) * 4)
+    nct, nw = COLS_PER_LANE, WARPS_PER_CTA
+    return (groups, rows, nct, nw, nw * (32 // groups) * nct,
+            -(-hd // rows))
 
 
 @functools.lru_cache(maxsize=None)
@@ -31,7 +55,8 @@ def _library():
     from .build import load
     fn = load("rwkv_scan").rwkv_scan_launch
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, p, p, p, *([ll] * 12), p, p, i, i, i, i, p, p, p]
+    fn.argtypes = [p, p, p, p, *([ll] * 12), p, p, i, i, i, i, i, i, i, i,
+                   p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -59,9 +84,6 @@ def _check(r, k, v, w, u, state0) -> None:
         if t.device != r.device:
             raise ValueError(f"rwkv_scan: {name} is on {t.device}, r on "
                              f"{r.device}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"rwkv_scan: head dim {hd} not supported (one of "
-                         f"{HEAD_DIMS})")
 
 
 def rwkv_scan(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
@@ -89,12 +111,13 @@ def rwkv_scan(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
     if b * h == 0:
         return out, s_t
     strides = [st for t in ins for st in t.stride()[:3]]
+    groups, rows, nct, warps, _, _ = scan_plan(hd)
     launch = _library()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = launch(*(t.data_ptr() for t in ins), *strides, uf.data_ptr(),
-                     s0.data_ptr(), b, s, h, hd, out.data_ptr(),
-                     s_t.data_ptr(), stream)
+                     s0.data_ptr(), b, s, h, hd, groups, rows // groups, nct,
+                     warps, out.data_ptr(), s_t.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"rwkv_scan: kernel launch failed "
                            f"(cudaError {err})")

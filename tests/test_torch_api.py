@@ -203,3 +203,49 @@ def test_validate_queries_same_reasons(rng, bounds):
     assert tapi.validate_queries(clean) is clean
     t = torch.from_numpy(q)
     assert tapi.validate_queries(t) is t        # tensors pass unfetched
+
+
+@pytest.fixture(scope="module")
+def small_tile_runs():
+    """The reference's ``api.query`` at k = 129 (a list longer than one
+    launch of the port's kernel keeps) with query tiles of 8 and 40 (not a
+    whole number of warps), per (mode, use_pallas, tile), on a scene of
+    1500 points and 101 queries (Pallas in interpret mode)."""
+    rng = np.random.default_rng(11)
+    pts, qs = _scene(rng, n=1500, nq=101)
+    qs[::7] = pts[:15]                         # queries on points
+    modes = {"knn": dict(radius=0.3, k=129, knn_window="exact"),
+             "range": dict(radius=0.3, k=129, mode="range")}
+    out = {}
+    for mode, kw in modes.items():
+        for pallas in (True, False):
+            for tile in (8, 40):
+                jp = JParams(**kw)
+                jo = JOpts(use_pallas=pallas, query_tile=tile)
+                res = japi.query(japi.build_index(pts, jp, jo), qs)
+                out[mode, pallas, tile] = (jp, jo, res)
+    return pts, qs, out
+
+
+@pytest.mark.parametrize("tile", [8, 40])
+@pytest.mark.parametrize("pallas", [True, False])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_query_any_k_and_tile_matches_reference(small_tile_runs, mode,
+                                                pallas, tile):
+    """``api.query`` at k = 129 and query tiles of 8 and 40 equals the
+    reference's on both paths: counts and inf masks exact, d2 within 1e-6,
+    indices up to ties; knn distances equal the brute-force oracle, and
+    some row holds more than 128 neighbors."""
+    pts, qs, out = small_tile_runs
+    jp, jo, jres = out[mode, pallas, tile]
+    tp, to = _to_torch(jp, jo)
+    got = tapi.query(tapi.build_index(pts, tp, to, device="cpu"), qs)
+    assert got.distances2.shape == (qs.shape[0], 129)
+    _assert_close(_np(jres), _t(got))
+    assert int(got.counts.max()) > 128
+    if mode == "knn":
+        _, od, oc = brute_force_search(torch.from_numpy(pts),
+                                       torch.from_numpy(qs), tp.radius,
+                                       tp.k)
+        np.testing.assert_array_equal(od.numpy(), got.distances2.numpy())
+        np.testing.assert_array_equal(oc.numpy(), got.counts.numpy())

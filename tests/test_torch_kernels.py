@@ -295,6 +295,34 @@ def test_build_rebuilds_when_a_shared_header_changes(tmp_path, monkeypatch):
     assert build._stale("a") and build._stale("b")
 
 
+def test_build_force_rebuilds_fresh_libraries(tmp_path, monkeypatch):
+    """``build(force=True)`` compiles even a library that is not stale (so
+    that a caller always gets nvcc's register report); without it a fresh
+    library is left alone. nvcc is stood in for by a process that writes
+    its output file."""
+    csrc, out = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", out)
+    monkeypatch.setattr(build, "nvcc_path", lambda: "nvcc")
+    (csrc / "a.cu").write_text("")
+    calls = []
+
+    class FakeNvcc:
+        def __init__(self, cmd, **kw):
+            calls.append(cmd)
+            self.returncode = 0
+            open(cmd[cmd.index("-o") + 1], "wb").close()
+
+        def communicate(self):
+            return "ptxas info    : Used 7 registers", None
+
+    monkeypatch.setattr(build.subprocess, "Popen", FakeNvcc)
+    assert build.build(["a"]) == {"a": "ptxas info    : Used 7 registers"}
+    assert build.build(["a"]) == {} and len(calls) == 1   # fresh: skipped
+    assert "a" in build.build(["a"], force=True) and len(calls) == 2
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels vs their plain versions (on the card)
 # ---------------------------------------------------------------------------
@@ -364,5 +392,53 @@ def test_distance_tile_kernel_matches_plain_on_card(rng, nq, npts, dtype):
     p = t(rng.random((npts, 3)).astype(np.float32)).to("cuda", dtype)
     got = ops.distance_tile(q, p)
     ref = tdist.distance_tile_plain(q, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [8, 40, 2048])
+@pytest.mark.parametrize("k", [129, 300])
+def test_knn_tile_kernel_any_k_and_tile_on_card(rng, k, tile):
+    """A top-k longer than one launch keeps (passes of 128 columns) on
+    tiles that are not a whole number of warps (8, 40) or exceed a CTA's
+    1024 rows (2048, two row blocks): bitwise the plain version. Half the
+    points are duplicated at other ids (ties on d2, by stream position,
+    across the pass boundaries too); tile 1's stream holds 100 valid ids
+    (fewer than k), tile 2's none."""
+    _need_card()
+    q = rng.random((3 * tile, 3)).astype(np.float32)
+    p = rng.random((3000, 3)).astype(np.float32)
+    p[1500:] = p[:1500]
+    q[::5] = p[rng.integers(0, 3000, q[::5].shape[0])]
+    wnd = rng.integers(-1, 3000, (3, 1500)).astype(np.int32)
+    wnd[1, 100:] = -1
+    wnd[2] = -1
+    args = [t(a).cuda() for a in (q, p, wnd)]
+    for skip in (False, True):
+        kw = dict(k=k, r2=0.3 ** 2, skip_test=skip, tile=tile)
+        before = tknn.knn_tile.launches
+        d2_k, idx_k = ops.knn_tile(*args, **kw)
+        d2_p, idx_p = tknn.knn_tile_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert tknn.knn_tile.launches == before + -(-k // tknn.MAX_K)
+        assert torch.equal(d2_k, d2_p) and torch.equal(idx_k, idx_p), skip
+        assert torch.isinf(d2_p[tile:2 * tile, 100:]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [8, 40, 2048])
+@pytest.mark.parametrize("m", [100, 600])
+def test_range_count_kernel_any_tile_on_card(rng, m, tile):
+    """Tiles that are not a whole number of warps, or exceed 1024 rows: the
+    count of every row (and of no row past the tile) equals the plain
+    version's."""
+    _need_card()
+    q = rng.random((3 * tile, 3)).astype(np.float32)
+    pos = rng.random((3, m, 3)).astype(np.float32)
+    wnd = rng.integers(-1, m, (3, m)).astype(np.int32)
+    args = [t(a).cuda() for a in (q, pos, wnd)]
+    got = ops.range_count(*args, r2=0.25 ** 2, tile=tile)
+    ref = trange.range_count_plain(*args, r2=0.25 ** 2, tile=tile)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)

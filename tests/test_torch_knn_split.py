@@ -258,3 +258,39 @@ def test_kernel_split_matches_plain_on_card(rng, monkeypatch, k, tile):
             torch.cuda.synchronize()
             assert torch.equal(got[0], want[0]) and \
                 torch.equal(got[1], want[1]), (seg, skip)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [8, 40, 2048])
+@pytest.mark.parametrize("k", [129, 300])
+def test_kernel_any_k_and_tile_matches_plain_on_card(rng, monkeypatch, k,
+                                                     tile):
+    """A top-k longer than one launch keeps (passes of 128 columns, each
+    after the last key of the one before) on tiles that are not a whole
+    number of warps (8, 40) or exceed a CTA's 1024 rows (2048: two row
+    blocks sharing the tile's window): bitwise the plain version, with
+    items of one cell and with the kernel's own SEG, both skip flags,
+    off-level tiles, duplicated points (ties) and queries on them. With
+    the sphere test on, every row holds fewer valid candidates than k; the
+    27-cell window holds fewer than k even without it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the card")
+    pts, spec, dense = _scene(rng, n=3000, r=0.1, dup=True)
+    qs, anchors, levels = _tiles(rng, spec, tile, [2, 0, 1, -1, 2],
+                                 dup_queries=pts)
+    for skip in (False, True):
+        args = [torch.from_numpy(a).cuda() for a in
+                (qs, pts, dense, anchors, levels)] + [_table(skip).cuda()]
+        kw = dict(dims=spec.dims, cap=spec.capacity, k=k, r2=0.1 ** 2,
+                  tile=tile)
+        want = tknn.knn_tile_anchored_plain(*args, **kw)
+        assert torch.isinf(want[0][tile:2 * tile, -1]).all()
+        for seg in (1, tknn.SEG):
+            monkeypatch.setattr(tknn, "SEG", seg)
+            before = tknn.knn_tile_anchored.launches
+            got = tknn.knn_tile_anchored(*args, **kw)
+            torch.cuda.synchronize()
+            assert tknn.knn_tile_anchored.launches == \
+                before + -(-k // tknn.MAX_K)
+            assert torch.equal(got[0], want[0]) and \
+                torch.equal(got[1], want[1]), (seg, skip)
