@@ -23,7 +23,9 @@ and checks each against the brute-force oracle or against itself:
   columns), knn and range, each against the oracle on every query and
   ``knn_tile_anchored`` bitwise against its plain version (phase
   ``any_k_and_tile``); ``knn_tile`` and ``range_count`` at tile 8 and
-  k = 129 in phase ``layer_vs_plain``;
+  k = 129, and on streams that their split cuts into several work items
+  a tile (ties across item boundaries, tiles 8 and 2048 at k = 129,
+  streams 8 % valid), in phase ``layer_vs_plain``;
 - the host-planned path: ``NeighborSearch.query`` (partition plan,
   bundling, ``QueryExecutor``) on the same scene in knn and range mode,
   with two blocking transfers per query (the plan fetch and the result
@@ -33,6 +35,9 @@ and checks each against the brute-force oracle or against itself:
   ``distance_tile``) at the static plan's shapes: 64 of its tiles' windows
   materialised as id streams, ``knn_tile`` bitwise equal to
   ``knn_tile_anchored`` on them, ``range_count`` equal to brute force;
+  how the two id-stream kernels split them into work items, their
+  registers and spills, and the two timed again at 4 x the SM count
+  tiles;
 - the dynamic path: ``SimulationSession.step`` on 1M particles moving by
   ``benchmarks/fig_dynamic.py``'s trajectory model (8 steps, then one
   that forces a respec, then one more), with one blocking transfer per
@@ -698,8 +703,12 @@ def phase_bin_edge_cases(upd) -> float:
 
 def phase_layer_vs_plain(ops, tknn, trange, tdist) -> dict:
     """Bitwise kernel-vs-plain of ``knn_tile``, ``range_count`` and
-    ``distance_tile`` on the cases of ``tests/test_kernels.py``. Returns
-    the largest difference per kernel (0 when equal)."""
+    ``distance_tile`` on the cases of ``tests/test_kernels.py``, and of the
+    two id-stream kernels on streams that their own split cuts into
+    several work items a tile (ties across segment boundaries, k = 129 at
+    tiles 8 and 2048, streams about 8 % valid, range counts at the kernel
+    layer's stream length). Returns the largest difference per kernel (0
+    when equal)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(0)
@@ -750,18 +759,78 @@ def phase_layer_vs_plain(ops, tknn, trange, tdist) -> dict:
     knn_case("k=129 tile=8", rng.random((24, 3)).astype(np.float32), p,
              wnd, 129, 0.4 * 0.4, tile=8)
     cases += 1
-    for m, tile in ((100, 64), (600, 64), (600, 8)):
-        q = rng.random((2 * tile, 3)).astype(np.float32)
-        pos = rng.random((2, m, 3)).astype(np.float32)
-        wnd = rng.integers(-1, m, (2, m)).astype(np.int32)
+    def range_case(tag, q, pos, wnd, r2, tile):
         args = (cuda(q), cuda(pos), cuda(wnd))
-        got = ops.range_count(*args, r2=0.25 ** 2, tile=tile)
-        want = trange.range_count_plain(*args, r2=0.25 ** 2, tile=tile)
+        got = ops.range_count(*args, r2=r2, tile=tile)
+        want = trange.range_count_plain(*args, r2=r2, tile=tile)
         torch.cuda.synchronize()
         worst["range_count"] = max(worst["range_count"],
                                    int((got - want).abs().max()))
         check(torch.equal(got, want), f"range_count differs from its plain "
-              f"version (m={m}, tile={tile})")
+              f"version ({tag})")
+
+    for m, tile in ((100, 64), (600, 64), (600, 8)):
+        range_case(f"m={m}, tile={tile}",
+                   rng.random((2 * tile, 3)).astype(np.float32),
+                   rng.random((2, m, 3)).astype(np.float32),
+                   rng.integers(-1, m, (2, m)).astype(np.int32),
+                   0.25 ** 2, tile)
+        cases += 1
+
+    # streams of several work items each, at the kernels' own split:
+    # twins (every point at two ids, adjacent in the stream, tile 0's pairs
+    # shifted by one) so that segment boundaries fall between equal
+    # distances, queries on points, and mostly invalid streams
+    split = []
+
+    def twin_streams(n_tiles, m, n, valid=1.0):
+        p = rng.random((n, 3)).astype(np.float32)
+        pts = np.concatenate([p, p])
+        wnd = np.empty((n_tiles, m + 1), np.int32)
+        for i in range(n_tiles):
+            first = rng.integers(0, n, (m + 1) // 2 + 1)
+            pair = np.stack([first, first + n], 1).reshape(-1)
+            wnd[i] = pair[1:m + 2] if i == 0 else pair[:m + 1]
+        wnd = np.ascontiguousarray(wnd[:, :m])
+        wnd[rng.random(wnd.shape) >= valid] = -1
+        return pts, wnd
+
+    def on_points(q, pts):
+        q[::3] = pts[rng.integers(0, len(pts), q[::3].shape[0])]
+        return q
+
+    for tag, n_tiles, tile, m, n, valid, ks, r in (
+            ("several items, twins", 3, 64, 40_000, 20_000, 1.0, (8, 32),
+             0.05),
+            ("k=129 tile=8, twins", 3, 8, 30_000, 15_000, 1.0, (129,), 0.15),
+            ("k=129 tile=2048, twins", 2, 2048, 30_000, 15_000, 1.0, (129,),
+             0.15),
+            ("8 % valid", 4, 256, 198_550, 100_000, 0.08, (8, 100), 0.05)):
+        pts, wnd = twin_streams(n_tiles, m, n, valid)
+        q = on_points(rng.random((n_tiles * tile, 3)).astype(np.float32),
+                      pts)
+        for k in ks:
+            units, seg, nseg = tknn.knn_tile_items(m, n_tiles, tile, k)
+            check(nseg > 1, f"knn_tile: {tag} does not split")
+            knn_case(f"{tag}, k={k}", q, pts, wnd, k, r * r, tile=tile)
+            split.append(dict(case=tag, kernel="knn_tile", k=k, m=m,
+                              tile=tile, units=units, seg=seg, nseg=nseg,
+                              valid_ids=int((wnd >= 0).sum())))
+            cases += 1
+    for tile, valid in ((256, 0.08), (8, 1.0), (2048, 0.08)):
+        n_tiles, m = 4 if tile < 2048 else 2, 198_550
+        pts, wnd = twin_streams(n_tiles, m, 100_000, valid)
+        pos = pts[np.clip(wnd, 0, None)]
+        pos[wnd < 0] = np.nan           # an invalid id's slot is never read
+        q = on_points(rng.random((n_tiles * tile, 3)).astype(np.float32),
+                      pts)
+        units, seg, nseg = trange.range_count_items(m, n_tiles, tile)
+        check(nseg > 1, f"range_count: m={m} tile={tile} does not split")
+        range_case(f"m={m}, tile={tile}, {valid:.0%} valid", q, pos, wnd,
+                   0.05 ** 2, tile)
+        split.append(dict(case=f"{valid:.0%} valid", kernel="range_count",
+                          m=m, tile=tile, units=units, seg=seg, nseg=nseg,
+                          valid_ids=int((wnd >= 0).sum())))
         cases += 1
     for nq, npts in ((8, 16), (100, 300), (256, 512), (33, 700), (513, 129)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -775,7 +844,8 @@ def phase_layer_vs_plain(ops, tknn, trange, tdist) -> dict:
             check(torch.equal(got, want), f"distance_tile differs from its "
                   f"plain version ({nq}x{npts} {dtype}): max err {err}")
             cases += 1
-    emit("layer_vs_plain", cases=cases, max_abs_err=worst, bitwise=True)
+    emit("layer_vs_plain", cases=cases, max_abs_err=worst, split=split,
+         bitwise=True)
     return worst
 
 
@@ -795,7 +865,70 @@ def window_ids(dense_flat, anchors, ws, cap, dims):
     return dense_flat[flat].contiguous()
 
 
-def phase_kernel_layer(api, ops, tknn, trange, tdist, ref, index, queries):
+def layer_tiles(plan, args, kw, entries, index, n_tiles: int) -> dict:
+    """``n_tiles`` tiles of the static knn plan that take LAYER_WINDOW, as
+    the kernel layer runs them: those at the full-radius level first
+    (their window covers every member's r-ball, which the brute-force
+    check of range_count needs), the level's tiles taken again in turn
+    where it holds fewer. Returns the tile ids, how many are distinct,
+    their queries and anchors, and their windows as id streams (``wnd``)
+    with the ids' positions (``wnd_pos``)."""
+    import torch
+    spec, tile = index.spec, kw["tile"]
+    lvl = entries.index((LAYER_WINDOW, False))
+    full = plan.ladder.index((index.statics.w_full, False))
+    ids = torch.nonzero(args[4] == lvl).flatten()
+    ids = torch.cat([ids[plan.tile_levels[ids] == full],
+                     ids[plan.tile_levels[ids] != full]])
+    distinct = min(ids.numel(), n_tiles)
+    ids = ids.repeat(-(-n_tiles // max(ids.numel(), 1)))[:n_tiles]
+    rows = (ids[:, None] * tile + torch.arange(tile, device=ids.device)
+            ).flatten()
+    anchors = args[3][ids].contiguous()
+    wnd = window_ids(args[2], anchors, LAYER_WINDOW, spec.capacity,
+                     tuple(spec.dims))
+    return dict(ids=ids, distinct=distinct, full=full,
+                q=args[0][rows].contiguous(), anchors=anchors, wnd=wnd,
+                wnd_pos=index.points[wnd.clamp_min(0).long()].contiguous())
+
+
+def stream_bounds(q, wnd, k: int, tile: int, n_points: int) -> dict:
+    """What ``knn_tile`` and ``range_count`` must do on these id streams:
+    the valid ids and (query, valid id) pairs, and per kernel the bytes it
+    must move (each input read once, each output written once; for
+    range_count every id but only the valid ids' positions, and beside it
+    every position, what the old kernel read), its operations, and the
+    bound: the larger of bytes over the card's memory rate and operations
+    over its FP32 rate."""
+    n_valid = int((wnd >= 0).sum())
+    pairs = n_valid * tile
+    ops_count = pairs * OPS_PER_PAIR
+    knn_bytes = ((q.numel() + n_points * 3 + wnd.numel()) * 4
+                 + q.shape[0] * k * 8)
+    rc_bytes = (q.numel() + n_valid * 3 + wnd.numel() + q.shape[0]) * 4
+    rc_all_bytes = (q.numel() + wnd.numel() * 4 + q.shape[0]) * 4
+
+    def bound(nbytes):
+        bytes_ms = nbytes / PEAK_BYTES * 1e3
+        ops_ms = ops_count / PEAK_FP32 * 1e3
+        return dict(bound_ms=max(bytes_ms, ops_ms), bytes=nbytes,
+                    ops=ops_count,
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+    return dict(valid_ids=n_valid, valid_pairs=pairs,
+                knn_tile=bound(knn_bytes), range_count=bound(rc_bytes),
+                range_count_all_positions=bound(rc_all_bytes))
+
+
+def ptxas_of(report: str, pattern: str) -> dict:
+    """Registers and spills of the kernel entries of a ptxas report whose
+    mangled name contains ``pattern`` (one instantiation)."""
+    return {name: info for name, info in ptxas_entries(report).items()
+            if pattern in name}
+
+
+def phase_kernel_layer(api, ops, tknn, trange, tdist, ref, index, queries,
+                       reports):
     """The kernel layer at the static knn plan's shapes. Takes 64 tiles of
     the plan's most common window, materialises each window as an id
     stream and runs ``knn_tile`` and ``range_count`` on it (counted), and
@@ -803,28 +936,21 @@ def phase_kernel_layer(api, ops, tknn, trange, tdist, ref, index, queries):
     holds each against its plain version, ``knn_tile`` against
     ``knn_tile_anchored`` on the same tiles, ``range_count`` against brute
     force on every query whose r-ball its window covers, and times them.
+    Records how the two id-stream kernels split (units, segment length,
+    items: more items than units) and their registers and spills, and
+    times them again at 4 x the SM count tiles of the same window.
     Returns the kernel table's rows for the three."""
     import numpy as np
     import torch
     plan = api.plan_query(index, queries)
     args, kw, entries = kernel_inputs(index, plan, queries)
     spec, params, tile = index.spec, index.params, kw["tile"]
-    dims, cap = tuple(spec.dims), spec.capacity
-    lvl = entries.index((LAYER_WINDOW, False))
-    # prefer tiles at the full-radius level: their window covers every
-    # member's r-ball, which the brute-force check of range_count needs
-    full = plan.ladder.index((index.statics.w_full, False))
-    ids = torch.nonzero(args[4] == lvl).flatten()
-    ids = torch.cat([ids[plan.tile_levels[ids] == full],
-                     ids[plan.tile_levels[ids] != full]])[:N_KERNEL_TILES]
-    check(ids.numel() == N_KERNEL_TILES,
-          f"kernel_layer: only {ids.numel()} tiles take {LAYER_WINDOW}")
-    rows = (ids[:, None] * tile + torch.arange(tile, device=ids.device)
-            ).flatten()
-    q = args[0][rows].contiguous()
-    anchors = args[3][ids].contiguous()
-    wnd = window_ids(args[2], anchors, LAYER_WINDOW, cap, dims)
-    wnd_pos = index.points[wnd.clamp_min(0).long()].contiguous()
+    dims = tuple(spec.dims)
+    lt = layer_tiles(plan, args, kw, entries, index, N_KERNEL_TILES)
+    check(lt["distinct"] == N_KERNEL_TILES,
+          f"kernel_layer: only {lt['distinct']} tiles take {LAYER_WINDOW}")
+    ids, full, q, anchors = lt["ids"], lt["full"], lt["q"], lt["anchors"]
+    wnd, wnd_pos = lt["wnd"], lt["wnd_pos"]
     r2 = float(np.float32(params.radius) * np.float32(params.radius))
     gen = torch.Generator().manual_seed(5)
     pick = torch.randperm(index.points.shape[0], generator=gen)
@@ -914,14 +1040,63 @@ def phase_kernel_layer(api, ops, tknn, trange, tdist, ref, index, queries):
     t["cdist"] = cuda_time_ms(lambda: torch.cdist(
         dq, dp, compute_mode="use_mm_for_euclid_dist"), 5)
 
+    # how the id-stream kernels split these tiles, and what holds them
+    knn_split = dict(zip(("units", "seg", "nseg"), tknn.knn_tile_items(
+        wnd.shape[1], N_KERNEL_TILES, tile, params.k)))
+    rc_split = dict(zip(("units", "seg", "nseg"), trange.range_count_items(
+        wnd.shape[1], N_KERNEL_TILES, tile)))
+    for name, sp in (("knn_tile", knn_split), ("range_count", rc_split)):
+        sp["items"] = sp["units"] * sp["nseg"]
+        check(sp["items"] > sp["units"],
+              f"kernel_layer: {name} does not split ({sp})")
+    ptxas = {"knn_tile": ptxas_of(reports.get("knn_tile", ""),
+                                  "knn_tile_kernelILi8ELb0ELb0E"),
+             "range_count": ptxas_of(reports.get("range_count", ""),
+                                     "range_count_kernelILb0E")}
+
+    # the two at 4 x the SM count tiles of the same window: the many-tile
+    # case, which one CTA a tile already filled, must not be lost
+    n_many = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    mt = layer_tiles(plan, args, kw, entries, index, n_many)
+    sub_m = [mt["q"], args[1], args[2], mt["anchors"],
+             args[4][mt["ids"]].contiguous(), args[5]]
+    d2_m, idx_m = ops.knn_tile(mt["q"], index.points, mt["wnd"], k=params.k,
+                               r2=r2, tile=tile)
+    d2_ma, idx_ma = ops.knn_tile_anchored(*sub_m, **kw)
+    check(torch.equal(d2_m, d2_ma) and torch.equal(idx_m, idx_ma),
+          "kernel_layer: knn_tile differs from knn_tile_anchored on "
+          f"{n_many} tiles")
+    cnt_m = ops.range_count(mt["q"], mt["wnd_pos"], mt["wnd"], r2=r2,
+                            tile=tile)
+    check(torch.equal(cnt_m, trange.range_count_plain(
+        mt["q"], mt["wnd_pos"], mt["wnd"], r2=r2, tile=tile)),
+          f"kernel_layer: range_count differs from its plain version on "
+          f"{n_many} tiles")
+    del d2_m, idx_m, d2_ma, idx_ma, cnt_m
+    many = dict(
+        n_tiles=n_many, distinct_tiles=mt["distinct"],
+        knn_tile_split=dict(zip(("units", "seg", "nseg"),
+                                tknn.knn_tile_items(
+                                    mt["wnd"].shape[1], n_many, tile,
+                                    params.k))),
+        range_count_split=dict(zip(("units", "seg", "nseg"),
+                                   trange.range_count_items(
+                                       mt["wnd"].shape[1], n_many, tile))),
+        knn_tile_ms=cuda_time_ms(lambda: ops.knn_tile(
+            mt["q"], index.points, mt["wnd"], k=params.k, r2=r2,
+            tile=tile), 10),
+        range_count_ms=cuda_time_ms(lambda: ops.range_count(
+            mt["q"], mt["wnd_pos"], mt["wnd"], r2=r2, tile=tile), 10),
+        bounds=stream_bounds(mt["q"], mt["wnd"], params.k, tile,
+                             index.points.shape[0]))
+    del mt, sub_m
+
     # bounds from this run's inputs: bytes each input read once and each
     # output written once; operations over the valid (query, id) pairs
-    n_valid = int((wnd >= 0).sum())
-    pairs = n_valid * tile
-    out_b = q.shape[0] * params.k * 8
-    knn_bytes = (q.numel() + index.points.numel() + wnd.numel()) * 4 + out_b
-    rc_bytes = (q.numel() + wnd_pos.numel() + wnd.numel()
-                + q.shape[0]) * 4
+    sb = stream_bounds(q, wnd, params.k, tile, index.points.shape[0])
+    n_valid, pairs = sb["valid_ids"], sb["valid_pairs"]
+    knn_bytes = sb["knn_tile"]["bytes"]
+    rc_bytes = sb["range_count"]["bytes"]
     dist_bytes = (dq.numel() + dp.numel() + dq.shape[0] * dp.shape[0]) * 4
 
     def row(name, nbytes, ops_count, err, ms, plain_ms, library_ms):
@@ -952,6 +1127,9 @@ def phase_kernel_layer(api, ops, tknn, trange, tdist, ref, index, queries):
              cnt.float().mean()), distance_shape=list(DIST_SHAPE),
          distance_out_gb=dist_bytes / 1e9, launches=launches, times_ms=t,
          knn_tile_anchored_split=anchored_split,
+         knn_tile_split=knn_split, range_count_split=rc_split,
+         ptxas=ptxas, many_tiles=many,
+         range_count_all_positions_bound=sb["range_count_all_positions"],
          bitwise=True, bounds={k: {"bound_ms": v["bound_ms"],
                                    "bound_by": v["bound_by"],
                                    "bytes": v["bytes"], "ops": v["ops"]}
@@ -1818,7 +1996,7 @@ def main() -> int:
             query_ms = cuda_time_ms(lambda: api.query(index, queries), 5)
             knn_index, knn_queries = index, queries
             layer = phase_kernel_layer(api, ops, knn_mod, trange, tdist, ref,
-                                       index, queries)
+                                       index, queries, reports)
 
     # kernel and plain-version times at the main path's shapes (the plain
     # version takes about a minute a run, so it is timed once)

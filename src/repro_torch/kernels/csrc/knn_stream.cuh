@@ -1,27 +1,26 @@
-// The streaming top-K of knn_tile.cu: the staging of a chunk of candidates
-// in shared memory, the squared distance, the merge into a per-query
-// ascending best-K and the emit. knn_tile_anchored.cu stages, splits and
-// merges its own way but shares the distance (dot3, sq_dist), the sentinel
-// and the insertion rule, so on the same ids the two agree bitwise: the
-// reference's contract between its knn_tile_anchored and knn_tile
-// (src/repro/kernels/knn_tile.py, _stream_candidates, _merge_topk and
-// _emit_best).
+// What the knn kernels share: the distance, the per-query best-K, the
+// compaction of a round of candidates into shared memory, the scan of the
+// compacted candidates, and the order-free merge of partial top-Ks. Used by
+// knn_tile_anchored.cu (ids derived from a window anchor), knn_tile.cu (a
+// caller-supplied id stream) and, for the distance and the compaction,
+// range_count.cu. On the same candidates in the same order the knn kernels
+// agree bitwise: the reference's contract between its knn_tile_anchored
+// and knn_tile (src/repro/kernels/knn_tile.py, _stream_candidates,
+// _merge_topk and _emit_best).
 //
 // Exactness: d2 = max(qn + pn - 2*cross, 0) with each sum taken x, y, z in
 // that order through __fmul_rn/__fadd_rn, so nvcc cannot contract it into
-// FMAs; the plain PyTorch versions in knn_tile.py do the same elementwise
-// ops. A candidate enters the list only when strictly less than the current
-// k-th best, so ties keep the earlier window position: the reference merge's
-// rule, and the order of a stable sort over the whole window.
+// FMAs; the plain PyTorch versions do the same elementwise ops. A list is
+// ordered by the key (d2, stream position): streamed in position order,
+// a candidate enters only when strictly less than entry k - 1 (ties keep
+// the earlier position, the reference merge's rule and the order of a
+// stable sort), and two partial lists merge by the same key in any order.
 //
 // Beyond the list length the kernels are built for (128) a launch is one
-// pass of several: the list holds stream positions, pass p keeps only the
-// candidates whose key (d2, position) lies after the last key of pass p - 1
-// (lo_d, lo_p, carried per query in scratch), and writes output columns
-// [col0, col0 + k). The key order is total, so the passes compose into the
-// one-stream result. A tile that is not a whole number of warps, or that is
-// split into row blocks, runs masked: threads past the block's rows stage
-// candidates with the others but keep no list and write nothing.
+// pass of several: pass p keeps only the candidates whose key lies after
+// the last key of pass p - 1 (lo_d, lo_p, carried per query in scratch),
+// and writes output columns [col0, col0 + k). The key order is total, so
+// the passes compose into the one-stream result.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,8 +28,9 @@
 
 namespace knn_stream {
 
-constexpr int kChunk = 512;       // candidates staged per shared-memory pass
-constexpr float kBig = 3.4e38f;   // "empty" distance; emitted as +inf
+constexpr float kBig = 3.4e38f;     // "empty" distance; emitted as +inf
+constexpr int kRounds = 4;          // ids per thread per compaction round
+constexpr unsigned kAll = 0xffffffffu;
 
 __device__ __forceinline__ float dot3(float ax, float ay, float az,
                                       float bx, float by, float bz) {
@@ -44,113 +44,296 @@ __device__ __forceinline__ float sq_dist(float qn, float pn, float cross) {
   return d > 0.f ? d : 0.f;
 }
 
-// One chunk of candidates, staged once per CTA and read by every thread.
-struct Chunk {
-  int id[kChunk];
-  float x[kChunk], y[kChunk], z[kChunk], n[kChunk];
-};
-
-template <int KMAX>
-__device__ __forceinline__ void init(float (&best_d)[KMAX],
-                                     int (&best_i)[KMAX]) {
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    best_d[j] = kBig;
-    best_i[j] = -1;
-  }
-}
-
 // Whether the key (d, p) comes after (lo_d, lo_p): a later pass's filter.
 __device__ __forceinline__ bool after(float d, int p, float lo_d, int lo_p) {
   return d > lo_d || (d == lo_d && p > lo_p);
 }
 
-// Streams the m candidates of one tile through every thread's fresh best-K
-// (as init leaves it). ``ids(cc)`` is the candidate id at window position cc
-// (-1 = empty); a valid id gathers its position with the id clipped to
-// [0, n_pts - 1], as the reference does. Every thread of the CTA must call
-// this together. kMasked: only ``active`` threads keep a list. kPass: the
-// list keeps window positions (not ids) of the candidates after (lo_d,
-// lo_p).
-template <int KMAX, bool kMasked = false, bool kPass = false, class Ids>
-__device__ __forceinline__ void stream_topk(
-    Chunk& s, const Ids& ids, int m, const float* __restrict__ points,
-    int n_pts, float qx, float qy, float qz, bool skip, float r2, int k,
-    float (&best_d)[KMAX], int (&best_i)[KMAX], bool active = true,
-    float lo_d = 0.f, int lo_p = 0) {
-  const int t = threadIdx.x;
-  const float qn = dot3(qx, qy, qz, qx, qy, qz);
-  float worst = kBig;               // best_d[k - 1]
-  for (int base = 0; base < m; base += kChunk) {
-    for (int c = t; c < kChunk; c += blockDim.x) {
-      const int cc = base + c;
-      const int id = cc < m ? ids(cc) : -1;
-      float px = 0.f, py = 0.f, pz = 0.f, pn = 0.f;
-      if (id >= 0) {
-        const long long p = id < n_pts ? id : n_pts - 1;
-        px = points[p * 3 + 0];
-        py = points[p * 3 + 1];
-        pz = points[p * 3 + 2];
-        pn = dot3(px, py, pz, px, py, pz);
-      }
-      s.id[c] = id;
-      s.x[c] = px;
-      s.y[c] = py;
-      s.z[c] = pz;
-      s.n[c] = pn;
+__device__ __forceinline__ bool before(float d, int p, float bd, int bp) {
+  return d < bd || (d == bd && p < bp);
+}
+
+// One query's best-K, ascending by the key (d2, stream position), with the
+// entry k - 1 that a new candidate must go before. Up to 8 entries stay in
+// registers (unrolled, constant indices); a longer list lives in local
+// memory, and `held` (the entries that are not empty) bounds its shifts.
+template <int KMAX>
+struct Best {
+  float d[KMAX];
+  int p[KMAX];
+  int held;
+  float worst;
+  int worst_p;
+
+  __device__ __forceinline__ void reset() {
+#pragma unroll
+    for (int e = 0; e < KMAX; ++e) {
+      d[e] = kBig;
+      p[e] = -1;
     }
-    __syncthreads();
-    const int n_here = (kMasked && !active) ? 0 : min(kChunk, m - base);
-    for (int j = 0; j < n_here; ++j) {
-      int id = s.id[j];
-      if (id < 0) continue;
-      const float d =
-          sq_dist(qn, s.n[j], dot3(qx, qy, qz, s.x[j], s.y[j], s.z[j]));
-      if (!skip && d > r2) continue;
-      if constexpr (kPass) {
-        id = base + j;                    // the list keeps positions
-        if (!after(d, id, lo_d, lo_p)) continue;
-      }
-      if (!(d < worst)) continue;
-      // insert after every held entry <= d (strictly-less rule)
+    held = 0;
+    worst = kBig;
+    worst_p = -1;
+  }
+
+  // Inserts (nd, np), which the caller has checked goes before entry
+  // k - 1; that entry drops out. Streamed in position order this is the
+  // strictly-less rule, and it merges two partial lists as well.
+  __device__ __forceinline__ void insert(int k, float nd, int np) {
+    if constexpr (KMAX <= 8) {
 #pragma unroll
       for (int e = KMAX - 1; e > 0; --e) {
         if (e < k) {
-          if (d < best_d[e - 1]) {
-            best_d[e] = best_d[e - 1];
-            best_i[e] = best_i[e - 1];
-          } else if (d < best_d[e]) {
-            best_d[e] = d;
-            best_i[e] = id;
+          if (before(nd, np, d[e - 1], p[e - 1])) {
+            d[e] = d[e - 1];
+            p[e] = p[e - 1];
+          } else if (before(nd, np, d[e], p[e])) {
+            d[e] = nd;
+            p[e] = np;
           }
         }
       }
-      if (d < best_d[0]) {
-        best_d[0] = d;
-        best_i[0] = id;
+      if (before(nd, np, d[0], p[0])) {
+        d[0] = nd;
+        p[0] = np;
       }
 #pragma unroll
       for (int e = 0; e < KMAX; ++e) {
-        if (e == k - 1) worst = best_d[e];
+        if (e == k - 1) {
+          worst = d[e];
+          worst_p = p[e];
+        }
+      }
+    } else {
+      int e = held < k ? held : k - 1;  // entries from `held` on are empty
+      for (; e > 0 && before(nd, np, d[e - 1], p[e - 1]); --e) {
+        d[e] = d[e - 1];
+        p[e] = p[e - 1];
+      }
+      d[e] = nd;
+      p[e] = np;
+      held += held < k;
+      if (held == k) {
+        worst = d[k - 1];
+        worst_p = p[k - 1];
       }
     }
-    __syncthreads();
+  }
+};
+
+// Warp 0 turns v[0..n) into its exclusive prefix sums, in place, and
+// writes the sum to *total.
+__device__ __forceinline__ void warp_exclusive_scan(int* v, int n,
+                                                    int* total) {
+  const int lane = threadIdx.x & 31;
+  const int per = (n + 31) / 32;
+  const int lo = min(lane * per, n), hi = min(lo + per, n);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += v[i];
+  int incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kAll, incl, o);
+    if (lane >= o) incl += y;
+  }
+  int run = incl - sum;
+  for (int i = lo; i < hi; ++i) {
+    const int x = v[i];
+    v[i] = run;
+    run += x;
+  }
+  if (lane == 31) *total = incl;
+}
+
+// The shared-memory counts of a compaction round: per (round, warp), two
+// rounds in flight, and the round's total.
+struct Ranks {
+  int cnt[2][kRounds * 32];
+  int total;
+};
+
+// Warp ballots of a round's flags, then warp 0 scans the per-warp counts:
+// a flagged thread's rank in stream order is cnt[r * nw + warp] plus its
+// lane's rank in mk[r], and rk.total is the round's count. Rounds take the
+// two count buffers in turn, so a round may start while the threads of
+// the one before still read theirs.
+__device__ __forceinline__ const int* rank_round(
+    Ranks& rk, int& parity, const bool (&flag)[kRounds],
+    unsigned (&mk)[kRounds]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  int* cnt = rk.cnt[parity];
+  parity ^= 1;
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    mk[r] = __ballot_sync(kAll, flag[r]);
+    if (lane == 0) cnt[r * nw + warp] = __popc(mk[r]);
+  }
+  __syncthreads();
+  if (warp == 0) warp_exclusive_scan(cnt, kRounds * nw, &rk.total);
+  __syncthreads();
+  return cnt;
+}
+
+// Fills the stage up to a multiple of 4 with candidates no query takes:
+// at |p|^2 = +inf the distance is +inf. (The stage holds a multiple of 4.)
+__device__ __forceinline__ void pad_stage(float4* s_pt, int fill) {
+  const int t = threadIdx.x;
+  if (t < ((fill + 3) & ~3) - fill)
+    s_pt[fill + t] = make_float4(0.f, 0.f, 0.f, CUDART_INF_F);
+}
+
+// Every query against the n staged candidates (n a multiple of 4), in
+// stream order, four at a time: independent distances and one test on
+// their unclamped minimum (clamping at 0 only raises a value); on the rare
+// hit the four are taken again one by one, so the list is inserted into
+// at one place in the code (more copies push the list out of registers).
+// ``lim`` is what a candidate's d2 must stay under: the lesser of entry
+// k - 1's and ``cap`` (the least float above r2, as d <= r2 iff d < it, or
+// kBig where the sphere test is skipped).
+// kPass: only keys after (lo_d, lo_p) count, and the cheap test is taken on
+// the clamped distances, at least lo_d and under ``lim``.
+template <int KMAX, bool kPass = false>
+__device__ __forceinline__ void scan_stage(const float4* s_pt,
+                                           const int* s_pos, int n, float qx,
+                                           float qy, float qz, float qn,
+                                           Best<KMAX>& b, int k, float cap,
+                                           float& lim, float lo_d = 0.f,
+                                           int lo_p = 0) {
+  for (int j = 0; j < n; j += 4) {
+    float d[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 c = s_pt[j + u];
+      d[u] = __fsub_rn(__fadd_rn(qn, c.w),
+                       __fmul_rn(2.f, dot3(qx, qy, qz, c.x, c.y, c.z)));
+    }
+    bool hit;
+    if constexpr (kPass) {
+      hit = false;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float du = fmaxf(d[u], 0.f);
+        hit |= du >= lo_d && du < lim;
+      }
+    } else {
+      hit = fminf(fminf(d[0], d[1]), fminf(d[2], d[3])) < lim;
+    }
+    if (hit) {
+#pragma unroll 1
+      for (int u = 0; u < 4; ++u) {
+        const float4 c = s_pt[j + u];
+        const float du = sq_dist(qn, c.w, dot3(qx, qy, qz, c.x, c.y, c.z));
+        if (du < lim && (!kPass || after(du, s_pos[j + u], lo_d, lo_p))) {
+          b.insert(k, du, s_pos[j + u]);
+          lim = fminf(b.worst, cap);
+        }
+      }
+    }
   }
 }
 
-// Writes one query's row: ascending d2 (+inf where empty) and ids (-1).
-template <int KMAX>
-__device__ __forceinline__ void emit(const float (&best_d)[KMAX],
-                                     const int (&best_i)[KMAX], int k,
-                                     long long row, float* __restrict__ out_d2,
-                                     int* __restrict__ out_idx) {
+// Writes one query's final row: ascending d2 (+inf where empty) and the
+// ids ``id_of(position)`` (-1 where empty). A pass also leaves its last
+// key, where the next pass starts. ``A`` holds the launch's outputs: k
+// (this launch's list length), ld and col0 (a pass writes columns
+// [col0, col0 + k) of rows of ld), out_d2, out_idx, lo_d and lo_p.
+template <int KMAX, bool kPass, class A, class Ids>
+__device__ __forceinline__ void emit_final(const Best<KMAX>& b,
+                                           long long row, const Ids& id_of,
+                                           const A& a) {
+  const int k = a.k;
+  const int ld = kPass ? a.ld : k;
+  const int col0 = kPass ? a.col0 : 0;
 #pragma unroll
   for (int e = 0; e < KMAX; ++e) {
     if (e < k) {
-      out_d2[row * k + e] = best_d[e] >= kBig ? CUDART_INF_F : best_d[e];
-      out_idx[row * k + e] = best_i[e];
+      const bool has = b.d[e] < kBig;
+      a.out_d2[row * ld + col0 + e] = has ? b.d[e] : CUDART_INF_F;
+      a.out_idx[row * ld + col0 + e] = has ? id_of(b.p[e]) : -1;
     }
   }
+  if constexpr (kPass) {                 // the next pass starts after it
+    a.lo_d[row] = b.d[k - 1];
+    a.lo_p[row] = b.p[k - 1];
+  }
+}
+
+// Ends a run that streamed ``covered`` of its unit's ``nseg`` work items
+// into ``best``. A run that covers the whole unit writes its rows. Else,
+// under the unit's lock (a.locks[unit], with a.merged[unit] the items
+// merged so far, both zeroed before the launch), it merges its list by
+// the key (d2, position) into the unit's rows of the outputs themselves
+// (d2, and the position in place of the id), and the run that completes
+// the unit writes the final rows. The result is bitwise the one-stream
+// result, ties included, in whatever order runs finish. Every thread of
+// the CTA calls this together; ``s_merged`` is a shared int.
+template <int KMAX, bool kPass, class A, class Ids>
+__device__ __forceinline__ void finish_unit(const A& a, Best<KMAX>& best,
+                                            int unit, long long row,
+                                            bool active, int covered,
+                                            int nseg, const Ids& id_of,
+                                            int& s_merged) {
+  if (covered == nseg) {                  // the whole stream: write it
+    if (active) emit_final<KMAX, kPass>(best, row, id_of, a);
+    __syncthreads();
+    return;
+  }
+  if (threadIdx.x == 0) {
+    while (atomicCAS(a.locks + unit, 0, 1) != 0) __nanosleep(64);
+    __threadfence();
+    s_merged = *reinterpret_cast<volatile int*>(a.merged + unit);
+  }
+  __syncthreads();
+  const int merged = s_merged;
+  const int ld = kPass ? a.ld : a.k;
+  const int col0 = kPass ? a.col0 : 0;
+  float* rd = a.out_d2 + row * ld + col0;
+  int* rp = a.out_idx + row * ld + col0;
+  if (active && merged > 0) {
+    for (int e = 0; e < a.k; ++e) {       // the held rows, ascending
+      const float gd = __ldcg(rd + e);
+      const int gp = __ldcg(rp + e);
+      if (!before(gd, gp, best.worst, best.worst_p)) break;
+      best.insert(a.k, gd, gp);
+    }
+  }
+  if (!active) {
+  } else if (merged + covered == nseg) {
+    emit_final<KMAX, kPass>(best, row, id_of, a);
+  } else {
+#pragma unroll
+    for (int e = 0; e < KMAX; ++e) {
+      if (e < a.k) {
+        __stcg(rd + e, best.d[e]);
+        __stcg(rp + e, best.p[e]);
+      }
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    *reinterpret_cast<volatile int*>(a.merged + unit) = merged + covered;
+    __threadfence();
+    atomicExch(a.locks + unit, 0);
+  }
+  __syncthreads();
+}
+
+// Host side: how many CTAs of ``block`` threads and ``smem`` bytes of
+// dynamic shared memory of ``kernel`` the current card holds at once (its
+// SM count times the kernel's occupancy), into *out.
+template <class Kernel>
+cudaError_t resident_ctas(Kernel kernel, int block, size_t smem, int* out) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        block, smem);
+  *out = sms * per_sm;
+  return err;
 }
 
 }  // namespace knn_stream

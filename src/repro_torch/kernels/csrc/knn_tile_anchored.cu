@@ -52,7 +52,8 @@
 // issues this one kernel after a few small PyTorch operations that build
 // the item list and the occupancy and zero the locks.
 //
-// Exactness and ties: the arithmetic is that of knn_stream.cuh (sums x, y,
+// Exactness and ties: the arithmetic, the list, the compaction round, the
+// scan of the stage and the merge are those of knn_stream.cuh (sums x, y,
 // z through __fmul_rn/__fadd_rn), shared with knn_tile.cu, so the two
 // kernels agree bitwise on the same candidates. k <= 8 keeps its list in
 // registers; a longer one lives in local memory.
@@ -71,12 +72,11 @@
 
 namespace {
 
+using knn_stream::Best;
 using knn_stream::dot3;
+using knn_stream::kAll;
 using knn_stream::kBig;
-using knn_stream::sq_dist;
-
-constexpr int kRounds = 4;          // cells or slots per thread per round
-constexpr unsigned kAll = 0xffffffffu;
+using knn_stream::kRounds;          // cells or slots per thread per round
 
 // n / d by multiply and shift, exact for 0 <= n < 2^31 and 1 <= d < 2^31
 // (Granlund and Montgomery): the window's divisors are fixed per item.
@@ -162,215 +162,16 @@ struct Args {
   int* lo_p;
 };
 
-__device__ __forceinline__ bool before(float d, int p, float bd, int bp) {
-  return d < bd || (d == bd && p < bp);
-}
-
-// One query's best-K, ascending by the key (d2, window position), with the
-// entry k - 1 that a new candidate must go before. Up to 8 entries stay in
-// registers (unrolled, constant indices); a longer list lives in local
-// memory, and `held` (the entries that are not empty) bounds its shifts.
-template <int KMAX>
-struct Best {
-  float d[KMAX];
-  int p[KMAX];
-  int held;
-  float worst;
-  int worst_p;
-
-  __device__ __forceinline__ void reset() {
-#pragma unroll
-    for (int e = 0; e < KMAX; ++e) {
-      d[e] = kBig;
-      p[e] = -1;
-    }
-    held = 0;
-    worst = kBig;
-    worst_p = -1;
-  }
-
-  // Inserts (nd, np), which the caller has checked goes before entry
-  // k - 1; that entry drops out. Streamed in window order this is the
-  // strictly-less rule, and it merges two partial lists as well.
-  __device__ __forceinline__ void insert(int k, float nd, int np) {
-    if constexpr (KMAX <= 8) {
-#pragma unroll
-      for (int e = KMAX - 1; e > 0; --e) {
-        if (e < k) {
-          if (before(nd, np, d[e - 1], p[e - 1])) {
-            d[e] = d[e - 1];
-            p[e] = p[e - 1];
-          } else if (before(nd, np, d[e], p[e])) {
-            d[e] = nd;
-            p[e] = np;
-          }
-        }
-      }
-      if (before(nd, np, d[0], p[0])) {
-        d[0] = nd;
-        p[0] = np;
-      }
-#pragma unroll
-      for (int e = 0; e < KMAX; ++e) {
-        if (e == k - 1) {
-          worst = d[e];
-          worst_p = p[e];
-        }
-      }
-    } else {
-      int e = held < k ? held : k - 1;  // entries from `held` on are empty
-      for (; e > 0 && before(nd, np, d[e - 1], p[e - 1]); --e) {
-        d[e] = d[e - 1];
-        p[e] = p[e - 1];
-      }
-      d[e] = nd;
-      p[e] = np;
-      held += held < k;
-      if (held == k) {
-        worst = d[k - 1];
-        worst_p = p[k - 1];
-      }
-    }
-  }
-};
-
-// Warp 0 turns v[0..n) into its exclusive prefix sums, in place, and
-// writes the sum to *total.
-__device__ __forceinline__ void warp_exclusive_scan(int* v, int n,
-                                                    int* total) {
-  const int lane = threadIdx.x & 31;
-  const int per = (n + 31) / 32;
-  const int lo = min(lane * per, n), hi = min(lo + per, n);
-  int sum = 0;
-  for (int i = lo; i < hi; ++i) sum += v[i];
-  int incl = sum;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(kAll, incl, o);
-    if (lane >= o) incl += y;
-  }
-  int run = incl - sum;
-  for (int i = lo; i < hi; ++i) {
-    const int x = v[i];
-    v[i] = run;
-    run += x;
-  }
-  if (lane == 31) *total = incl;
-}
-
-template <int KMAX, bool kPass = false>
-__device__ __forceinline__ void emit_final(const Best<KMAX>& b, int k,
-                                           long long row, const Window& w,
-                                           float* out_d2, int* out_idx,
-                                           const Args& a) {
-  const int ld = kPass ? a.ld : k;
-  const int col0 = kPass ? a.col0 : 0;
-#pragma unroll
-  for (int e = 0; e < KMAX; ++e) {
-    if (e < k) {
-      const bool has = b.d[e] < kBig;
-      out_d2[row * ld + col0 + e] = has ? b.d[e] : CUDART_INF_F;
-      out_idx[row * ld + col0 + e] = has ? w.id(b.p[e]) : -1;
-    }
-  }
-  if constexpr (kPass) {                 // the next pass starts after it
-    a.lo_d[row] = b.d[k - 1];
-    a.lo_p[row] = b.p[k - 1];
-  }
-}
-
-// Every query against the n staged candidates (n a multiple of 4), in
-// window order, four at a time: independent distances and one test on
-// their unclamped minimum (clamping at 0 only raises a value); on the rare
-// hit the four are taken again one by one, so the list is inserted into
-// at one place in the code (more copies push the list out of registers).
-// ``lim`` is what a candidate's d2 must stay under: the lesser of entry
-// k - 1's and ``cap`` (the least float above r2, as d <= r2 iff d < it, or
-// kBig where the level skips the sphere test).
-// kPass: only keys after (lo_d, lo_p) count, and the cheap test is taken on
-// the clamped distances, at least lo_d and under ``lim``.
-template <int KMAX, bool kPass = false>
-__device__ __forceinline__ void scan_stage(const float4* s_pt,
-                                           const int* s_pos, int n, float qx,
-                                           float qy, float qz, float qn,
-                                           Best<KMAX>& b, int k, float cap,
-                                           float& lim, float lo_d = 0.f,
-                                           int lo_p = 0) {
-  for (int j = 0; j < n; j += 4) {
-    float d[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float4 c = s_pt[j + u];
-      d[u] = __fsub_rn(__fadd_rn(qn, c.w),
-                       __fmul_rn(2.f, dot3(qx, qy, qz, c.x, c.y, c.z)));
-    }
-    bool hit;
-    if constexpr (kPass) {
-      hit = false;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float du = fmaxf(d[u], 0.f);
-        hit |= du >= lo_d && du < lim;
-      }
-    } else {
-      hit = fminf(fminf(d[0], d[1]), fminf(d[2], d[3])) < lim;
-    }
-    if (hit) {
-#pragma unroll 1
-      for (int u = 0; u < 4; ++u) {
-        const float4 c = s_pt[j + u];
-        const float du = sq_dist(qn, c.w, dot3(qx, qy, qz, c.x, c.y, c.z));
-        if (du < lim &&
-            (!kPass || knn_stream::after(du, s_pos[j + u], lo_d, lo_p))) {
-          b.insert(k, du, s_pos[j + u]);
-          lim = fminf(b.worst, cap);
-        }
-      }
-    }
-  }
-}
-
 // A CTA's static shared memory: the bookkeeping of a round, a merge and a
 // chunk, and the window of the tile being run. (The dynamic part: the
 // compacted candidates, (kRounds + 1) * blockDim.x positions with |p|^2
 // and as many window positions, then kRounds * blockDim.x listed cells.)
 struct Stage {
-  int cnt[2][kRounds * 32];   // per (round, warp); two rounds in flight
-  int total, merged;
+  knn_stream::Ranks rk;       // a round's counts
+  int merged;
   int chunk[3];               // tile index j (-1: no work left), items
   Window w;                   // the window of the tile being run
 };
-
-// Fills the stage up to a multiple of 4 with candidates no query takes:
-// at |p|^2 = +inf the distance is +inf. (The stage holds a multiple of 4.)
-__device__ __forceinline__ void pad_stage(float4* s_pt, int fill) {
-  const int t = threadIdx.x;
-  if (t < ((fill + 3) & ~3) - fill)
-    s_pt[fill + t] = make_float4(0.f, 0.f, 0.f, CUDART_INF_F);
-}
-
-// Warp ballots of a round's flags, then warp 0 scans the per-warp counts:
-// a flagged thread's rank in window order is cnt[r * nw + warp] plus its
-// lane's rank in mk[r], and st.total is the round's count. Rounds take the
-// two count buffers in turn, so a round may start while the threads of
-// the one before still read theirs.
-__device__ __forceinline__ const int* rank_round(
-    Stage& st, int& parity, const bool (&flag)[kRounds],
-    unsigned (&mk)[kRounds]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  int* cnt = st.cnt[parity];
-  parity ^= 1;
-#pragma unroll
-  for (int r = 0; r < kRounds; ++r) {
-    mk[r] = __ballot_sync(kAll, flag[r]);
-    if (lane == 0) cnt[r * nw + warp] = __popc(mk[r]);
-  }
-  __syncthreads();
-  if (warp == 0) warp_exclusive_scan(cnt, kRounds * nw, &st.total);
-  __syncthreads();
-  return cnt;
-}
 
 // One run of a tile's work items: items first_item .. first_item + covered
 // of its nseg, one stream over their window slots through a fresh best-K
@@ -462,14 +263,14 @@ __device__ __forceinline__ void run_tile(const Args& a, Stage& st,
       const long long c = cb + (long long)r * nthr + t;
       on[r] = c < c_last && w.occupied_at(static_cast<int>(c));
     }
-    const int* cnt = rank_round(st, parity, on, mk);
+    const int* cnt = knn_stream::rank_round(st.rk, parity, on, mk);
 #pragma unroll
     for (int r = 0; r < kRounds; ++r) {
       if (on[r])
         s_cells[cnt[r * nw + warp] + __popc(mk[r] & below)] =
             static_cast<int>(cb + (long long)r * nthr + t);
     }
-    const int n_slots = st.total * w.cap;
+    const int n_slots = st.rk.total * w.cap;
     __syncthreads();                      // s_cells is complete
     for (int sb = 0; sb < n_slots; sb += kRounds * nthr) {
       int id[kRounds], pos[kRounds];
@@ -485,7 +286,7 @@ __device__ __forceinline__ void run_tile(const Args& a, Stage& st,
         }
         valid[r] = id[r] >= 0;
       }
-      const int* scnt = rank_round(st, parity, valid, mk);
+      const int* scnt = knn_stream::rank_round(st.rk, parity, valid, mk);
 #pragma unroll
       for (int r = 0; r < kRounds; ++r) {
         if (valid[r]) {
@@ -497,72 +298,31 @@ __device__ __forceinline__ void run_tile(const Args& a, Stage& st,
           s_pos[at] = pos[r];
         }
       }
-      fill += st.total;
+      fill += st.rk.total;
       if (fill > nthr) {                  // room for one more round only
-        pad_stage(s_pt, fill);
+        knn_stream::pad_stage(s_pt, fill);
         __syncthreads();
         if (active)
-          scan_stage<KMAX, kPass>(s_pt, s_pos, (fill + 3) & ~3, qx, qy, qz,
-                                  qn, best, a.k, cap, lim, lo_d, lo_p);
+          knn_stream::scan_stage<KMAX, kPass>(
+              s_pt, s_pos, (fill + 3) & ~3, qx, qy, qz, qn, best, a.k, cap,
+              lim, lo_d, lo_p);
         fill = 0;
       }
     }
   }
   if (fill > 0) {
-    pad_stage(s_pt, fill);
+    knn_stream::pad_stage(s_pt, fill);
     __syncthreads();
     if (active)
-      scan_stage<KMAX, kPass>(s_pt, s_pos, (fill + 3) & ~3, qx, qy, qz, qn,
-                              best, a.k, cap, lim, lo_d, lo_p);
+      knn_stream::scan_stage<KMAX, kPass>(s_pt, s_pos, (fill + 3) & ~3, qx,
+                                          qy, qz, qn, best, a.k, cap, lim,
+                                          lo_d, lo_p);
   }
 
-  if (covered == nseg) {                  // the whole window: write it
-    if (active)
-      emit_final<KMAX, kPass>(best, a.k, row, w, a.out_d2, a.out_idx, a);
-    __syncthreads();
-    return;
-  }
-  // merge into the tile's rows under its lock; the run that completes the
-  // tile writes the final rows
-  if (t == 0) {
-    while (atomicCAS(a.locks + unit, 0, 1) != 0) __nanosleep(64);
-    __threadfence();
-    st.merged = *reinterpret_cast<volatile int*>(a.merged + unit);
-  }
-  __syncthreads();
-  const int merged = st.merged;
-  const int ld = kPass ? a.ld : a.k;
-  const int col0 = kPass ? a.col0 : 0;
-  float* rd = a.out_d2 + row * ld + col0;
-  int* rp = a.out_idx + row * ld + col0;
-  if (active && merged > 0) {
-    for (int e = 0; e < a.k; ++e) {       // the held rows, ascending
-      const float gd = __ldcg(rd + e);
-      const int gp = __ldcg(rp + e);
-      if (!before(gd, gp, best.worst, best.worst_p)) break;
-      best.insert(a.k, gd, gp);
-    }
-  }
-  if (!active) {
-  } else if (merged + covered == nseg) {
-    emit_final<KMAX, kPass>(best, a.k, row, w, a.out_d2, a.out_idx, a);
-  } else {
-#pragma unroll
-    for (int e = 0; e < KMAX; ++e) {
-      if (e < a.k) {
-        __stcg(rd + e, best.d[e]);
-        __stcg(rp + e, best.p[e]);
-      }
-    }
-  }
-  __threadfence();
-  __syncthreads();
-  if (t == 0) {
-    *reinterpret_cast<volatile int*>(a.merged + unit) = merged + covered;
-    __threadfence();
-    atomicExch(a.locks + unit, 0);
-  }
-  __syncthreads();
+  // write the tile's rows, or merge into them under its lock
+  knn_stream::finish_unit<KMAX, kPass>(
+      a, best, unit, row, active, covered, nseg,
+      [&w](int pos) { return w.id(pos); }, st.merged);
 }
 
 // Persistent: each CTA takes chunks of consecutive work items (guided: a
@@ -637,16 +397,12 @@ int launch(const Args& a, int tile, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  int resident = 0;
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, tile,
-                                                        smem);
+    err = knn_stream::resident_ctas(kernel, tile, smem, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  kernel<<<sms * per_sm, tile, smem, stream>>>(a);
+  if (resident < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  kernel<<<resident, tile, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

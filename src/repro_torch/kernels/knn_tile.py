@@ -11,8 +11,12 @@ the same names (``src/repro/kernels/knn_tile.py``) share their stream:
   (:func:`work_items`), and merges their partial top-Ks by (d2, window
   position), in any order;
 * :func:`knn_tile` streams a caller-supplied candidate-id stream
-  ``[n_tiles, M]`` (-1 = invalid), the kernel layer's public entry point,
-  one CTA per tile.
+  ``[n_tiles, M]`` (-1 = invalid), the kernel layer's public entry point.
+  Its kernel cuts each stream into work items of consecutive positions
+  across a grid that fills the card (:func:`stream_split`, shared with
+  ``range_count``), compacts the valid ids, and merges the items' partial
+  top-Ks by (d2, stream position), in any order. Its CTAs hold at most
+  256 query rows.
 
 On a CUDA tensor each launches its hand-written kernel (``csrc/<name>.cu``,
 built by ``kernels/build.py``); on a CPU tensor it runs its plain version,
@@ -51,8 +55,13 @@ Tensor = torch.Tensor
 
 MAX_K = 128            # longest list one launch keeps; more runs in passes
 MAX_ROWS = 1024        # query rows per CTA; a larger tile runs in row blocks
+_STREAM_ROWS = 256     # ... of knn_tile's kernel, two CTAs an SM: room for
+                       # ptxas to keep the k <= 8 list in registers
 SEG = 1 << 16          # window slots per work item of knn_tile_anchored's
                        # kernel: a larger window is split across CTAs
+STREAM_SEG = 4096      # fewest ids per work item of knn_tile's and
+                       # range_count's kernels (unless the stream is shorter)
+_ITEMS_PER_CTA = 2     # work items per resident CTA that the split aims at
 _BIG = 3.4e38          # the reference's "empty" distance sentinel
 _PLAIN_CHUNK = 65536   # candidates per merge step of the plain version
 
@@ -81,13 +90,13 @@ def _check_launch(name, tensors, tile):
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
-def row_blocks(tile: int) -> tuple[int, int, int]:
+def row_blocks(tile: int, max_rows: int = MAX_ROWS) -> tuple[int, int, int]:
     """How a query tile of ``tile`` rows runs on the card: ``(n_rb,
-    rb_rows, block)``, its row blocks, the rows of each (the last may hold
-    fewer) and the threads of each block's CTA, a whole number of warps.
-    A tile of 32 to 1024 rows that is a whole number of warps is one block
-    of itself, the unmasked kernel."""
-    n_rb = -(-tile // MAX_ROWS)
+    rb_rows, block)``, its row blocks of at most ``max_rows``, the rows of
+    each (the last may hold fewer) and the threads of each block's CTA, a
+    whole number of warps. A tile of 32 to ``max_rows`` rows that is a
+    whole number of warps is one block of itself, the unmasked kernel."""
+    n_rb = -(-tile // max_rows)
     rb_rows = -(-tile // n_rb)
     return n_rb, rb_rows, -(-rb_rows // 32) * 32
 
@@ -328,15 +337,68 @@ def knn_tile_anchored_plain(q, points, dense_flat, anchors, levels, table,
     return out_d2, out_idx
 
 
+def stream_split(m: int, n_units: int, resident: int) -> tuple[int, int]:
+    """How the id-stream kernels (``knn_tile``, ``range_count``) cut each
+    unit's stream of ``m`` ids: ``(seg, nseg)``, segment s of a unit being
+    positions ``[s * seg, min((s + 1) * seg, m))``, every segment holding at
+    least one id where ``m > 0`` (one empty segment where ``m == 0``).
+
+    A unit is one row block of one tile (:func:`row_blocks`). There are
+    enough segments that the launch's ``n_units * nseg`` work items number
+    about ``_ITEMS_PER_CTA`` per CTA the card holds at once (``resident``),
+    but none shorter than :data:`STREAM_SEG` unless the whole stream is,
+    and one per unit where the units alone fill the card."""
+    want = -(-_ITEMS_PER_CTA * resident // n_units)
+    nseg = max(1, min(m // STREAM_SEG, want))
+    seg = max(1, -(-m // nseg))
+    return seg, max(1, -(-m // seg))
+
+
+_RESIDENT: dict[tuple, int] = {}
+
+
+def resident_ctas(fn, *args) -> int:
+    """CTAs of one kernel launch configuration that the current card holds
+    at once (its SM count times the kernel's occupancy), as the library's
+    ``<name>_resident(*args, &out)`` entry point ``fn`` reports it; asked
+    once per device and arguments."""
+    key = (fn.__name__, torch.cuda.current_device(), args)
+    if key not in _RESIDENT:
+        out = ctypes.c_int(0)
+        err = fn(*args, ctypes.byref(out))
+        if err != 0 or out.value < 1:
+            raise RuntimeError(f"{fn.__name__}: no resident CTA "
+                               f"(cudaError {err})")
+        _RESIDENT[key] = out.value
+    return _RESIDENT[key]
+
+
 @functools.lru_cache(maxsize=None)
 def _stream_library():
     from .build import load
-    fn = load("knn_tile").knn_tile_launch
+    lib = load("knn_tile")
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, i, i,
-                   ctypes.c_float, p, p, p, p, p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.knn_tile_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i,
+                                    i, i, i, i, ctypes.c_float, p, p, p, p,
+                                    p]
+    lib.knn_tile_launch.restype = ctypes.c_int
+    lib.knn_tile_resident.argtypes = [i, i, i, i, i, i,
+                                      ctypes.POINTER(ctypes.c_int)]
+    lib.knn_tile_resident.restype = ctypes.c_int
+    return lib
+
+
+def knn_tile_items(m: int, n_tiles: int, tile: int, k: int
+                   ) -> tuple[int, int, int]:
+    """How a :func:`knn_tile` call with these shapes splits on the current
+    card: ``(n_units, seg, nseg)``, its units (tile, row block), and each
+    unit's segments (:func:`stream_split`); ``n_units * nseg`` work items a
+    launch."""
+    n_rb, rb_rows, block = row_blocks(tile, _STREAM_ROWS)
+    kk = min(k, MAX_K)
+    resident = resident_ctas(_stream_library().knn_tile_resident, tile,
+                             rb_rows, n_rb, block, kk, int(k > MAX_K))
+    return (n_tiles * n_rb, *stream_split(m, n_tiles * n_rb, resident))
 
 
 def knn_tile(
@@ -378,8 +440,8 @@ def knn_tile(
     out_idx = torch.empty((rows, k), dtype=torch.int32, device=q.device)
     if n_tiles == 0:
         return out_d2, out_idx
-    launch = _stream_library()
-    n_rb, rb_rows, block = row_blocks(tile)
+    lib = _stream_library()
+    n_rb, rb_rows, block = row_blocks(tile, _STREAM_ROWS)
     passes = _passes(k)
     lo_d = lo_p = None
     if len(passes) > 1:   # each query's last key of the pass before
@@ -387,15 +449,20 @@ def knn_tile(
                           device=q.device)
         lo_p = torch.full((rows,), -1, dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
+        n_units, seg, nseg = knn_tile_items(m, n_tiles, tile, k)
+        sync = torch.zeros(2 * n_units, dtype=torch.int32, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         for col0, kk in passes:
-            err = launch(q.data_ptr(), points.data_ptr(), wnd_idx.data_ptr(),
-                         n_tiles, tile, rb_rows, n_rb, block, m,
-                         points.shape[0], kk, k, col0, int(skip_test),
-                         float(np.float32(r2)),
-                         None if lo_d is None else lo_d.data_ptr(),
-                         None if lo_p is None else lo_p.data_ptr(),
-                         out_d2.data_ptr(), out_idx.data_ptr(), stream)
+            if col0:
+                sync.zero_()
+            err = lib.knn_tile_launch(
+                q.data_ptr(), points.data_ptr(), wnd_idx.data_ptr(),
+                sync.data_ptr(), n_tiles, tile, rb_rows, n_rb, block, m, seg,
+                nseg, points.shape[0], kk, k, col0, int(skip_test),
+                float(np.float32(r2)),
+                None if lo_d is None else lo_d.data_ptr(),
+                None if lo_p is None else lo_p.data_ptr(),
+                out_d2.data_ptr(), out_idx.data_ptr(), stream)
             if err != 0:
                 raise RuntimeError(f"knn_tile: kernel launch failed "
                                    f"(cudaError {err})")

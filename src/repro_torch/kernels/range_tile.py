@@ -8,7 +8,10 @@ the counting half of bounded range search). On a CUDA tensor it launches
 the hand-written kernel ``csrc/range_count.cu`` (built by
 ``kernels/build.py``); on a CPU tensor it runs :func:`range_count_plain`,
 the same arithmetic in plain PyTorch. There is no fallback from one to the
-other.
+other. The kernel cuts each tile's stream into work items across a grid
+that fills the card (``knn_tile.stream_split``), reads the position of a
+valid id only, and adds each item's integer partial counts into a zeroed
+output, exact in any order.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ import functools
 import numpy as np
 import torch
 
-from .knn_tile import _PLAIN_CHUNK, _check_args, _check_launch, row_blocks
+from .knn_tile import (_PLAIN_CHUNK, _check_args, _check_launch,
+                       resident_ctas, row_blocks, stream_split)
 from .ref import dot3
 
 Tensor = torch.Tensor
@@ -27,11 +31,27 @@ Tensor = torch.Tensor
 @functools.lru_cache(maxsize=None)
 def _library():
     from .build import load
-    fn = load("range_count").range_count_launch
+    lib = load("range_count")
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, i, i, i, i, i, i, ctypes.c_float, p, p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.range_count_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, i,
+                                       ctypes.c_float, p, p]
+    lib.range_count_launch.restype = ctypes.c_int
+    lib.range_count_resident.argtypes = [i, i, i, i,
+                                         ctypes.POINTER(ctypes.c_int)]
+    lib.range_count_resident.restype = ctypes.c_int
+    return lib
+
+
+def range_count_items(m: int, n_tiles: int, tile: int
+                      ) -> tuple[int, int, int]:
+    """How a :func:`range_count` call with these shapes splits on the
+    current card: ``(n_units, seg, nseg)``, its units (tile, row block),
+    and each unit's segments (``knn_tile.stream_split``); ``n_units *
+    nseg`` work items a launch."""
+    n_rb, rb_rows, block = row_blocks(tile)
+    resident = resident_ctas(_library().range_count_resident, tile,
+                             rb_rows, n_rb, block)
+    return (n_tiles * n_rb, *stream_split(m, n_tiles * n_rb, resident))
 
 
 def range_count(
@@ -57,16 +77,18 @@ def range_count(
     _check_launch("range_count", (q, wnd_pos, wnd_idx), tile)
     if m >= 2 ** 31:
         raise ValueError("range_count: window exceeds int32")
-    out = torch.empty((n_tiles * tile,), dtype=torch.int32, device=q.device)
+    out = torch.zeros((n_tiles * tile,), dtype=torch.int32, device=q.device)
     if n_tiles == 0:
         return out
-    launch = _library()
+    lib = _library()
     n_rb, rb_rows, block = row_blocks(tile)
     with torch.cuda.device(q.device):
+        _, seg, nseg = range_count_items(m, n_tiles, tile)
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = launch(q.data_ptr(), wnd_pos.data_ptr(), wnd_idx.data_ptr(),
-                     n_tiles, tile, rb_rows, n_rb, block, m,
-                     float(np.float32(r2)), out.data_ptr(), stream)
+        err = lib.range_count_launch(
+            q.data_ptr(), wnd_pos.data_ptr(), wnd_idx.data_ptr(), n_tiles,
+            tile, rb_rows, n_rb, block, m, seg, nseg, float(np.float32(r2)),
+            out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"range_count: kernel launch failed (cudaError "
                            f"{err})")
