@@ -50,7 +50,18 @@ and checks each against the brute-force oracle or against itself:
   launch's device time and its registers from nvcc's report;
   ``make_prefill_step`` timed and profiled; a cache-writing prefill of 64
   tokens against 64 single-token ``decode_step`` calls; ``greedy_generate``
-  at ``serve_lm``'s defaults, run three times with identical tokens.
+  at ``serve_lm``'s defaults, run three times with identical tokens;
+- the neighbor-query service (phase ``serve``, run before ``lm_serve``):
+  ``repro_torch.serve`` on three 1M-point KITTI-like scenes, knn and
+  range, 256 requests of 1,024-16,384 rows on a simulated 2,000
+  requests/s clock, each request against ``api.query`` on its rows
+  alone, one blocking sync (counted by ``torch.cuda.set_sync_debug_mode``)
+  and one ``knn_tile_anchored`` launch per drained batch, and the device's
+  idle share; a request-size launch timed and split; a session-backed
+  scene on the dynamic trajectory,
+  stepped and drained in turn (bitwise equal to ``api.query``) and
+  concurrently; and the chaos gate, ``launch/serve.py --trace short`` under
+  ``REPRO_FAULTS`` in a subprocess.
 
 Phases print one JSON line each. The last three lines are the kernel
 table, the card's name and power limit as ``nvidia-smi`` reports them,
@@ -147,6 +158,24 @@ RWKV_DECODE_LAUNCHES = 100           # S = 1 launches profiled
 # k_i*v_j. The bonus term r_t (u (x) k_t^T v_t) = (r_t . (u (x) k_t)) v_t is
 # O(hd) per step and left out.
 RWKV_OPS_PER_CELL = 5
+
+# the serving path (phase ``serve``): three resident KITTI-like scenes (the
+# static cell's and two more), the static cell's two signatures, a trace on
+# launch/serve.py's simulated arrival clock (Poisson arrivals, scene
+# popularity 1/(i+1)), each request's rows drawn from its scene's points
+SERVE_SCENE_SEEDS = (1, 2, 3)
+SERVE_REQUESTS, SERVE_RATE, SERVE_SEED = 256, 2000.0, 0
+SERVE_ROWS = (1024, 16384)            # rows a request, drawn uniformly
+SERVE_OPTS = dict(max_batch=65536, max_pending=1 << 20, pipeline=1)
+SERVE_BUCKETS = (1024, 65536)         # launch buckets warmed, powers of 2
+SERVE_PROFILED = 64                   # requests of the trace replayed under
+                                      # torch.profiler (its parse of every
+                                      # kernel event costs seconds a 10k)
+# a session-backed scene: the dynamic cell's trajectory, stepped and drained
+SERVE_SESSION_ITERS, SERVE_SESSION_ROWS = 20, 4096
+SERVE_THREAD_STEPS, SERVE_THREAD_REQUESTS = 20, 30
+SERVE_FUTURE_TIMEOUT_S = 60.0
+SERVE_CHAOS = "launch:0.2,straggler:0.1"   # the chaos gate's fault plan
 
 
 def ptxas_entries(report: str) -> dict:
@@ -1599,21 +1628,24 @@ def rwkv_vs_plain(scan, ins, tag: str) -> dict:
     return row
 
 
-def device_breakdown(prof) -> dict:
+def device_breakdown(prof, kernel: str = "rwkv_scan") -> dict:
     """Device time of a finished ``torch.profiler`` run by kind of kernel
-    (``rwkv_scan``, matmuls, everything else), the busy time, the span from
+    (``kernel``, matmuls, everything else), the busy time, the span from
     the first kernel's start to the last one's end, the idle share of that
-    span, and the five kernels that took the most time."""
+    span, and the five kernels that took the most time. The device-side
+    ranges of ``record_function`` annotations are not kernels and are left
+    out."""
     import torch
     evts = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     if not evts:
         return {"recorded": False}
-    kinds, by_name = {"rwkv_scan": 0.0, "matmul": 0.0, "other": 0.0}, {}
+    kinds, by_name = {kernel: 0.0, "matmul": 0.0, "other": 0.0}, {}
     for e in evts:
         us = e.time_range.elapsed_us()
         low = e.name.lower()
-        kind = ("rwkv_scan" if "rwkv_scan" in low else "matmul" if any(
+        kind = (kernel if kernel in low else "matmul" if any(
             m in low for m in ("gemm", "gemv", "cutlass", "xmma")) else
             "other")
         kinds[kind] += us / 1e3
@@ -1625,7 +1657,7 @@ def device_breakdown(prof) -> dict:
     return {"recorded": True, "kernels": len(evts), "busy_ms": busy,
             "span_ms": span, "idle_share": 1.0 - busy / span if span else 0.0,
             "ms_by_kind": kinds, "top_ms": [[n[:80], ms] for n, ms in top],
-            "rwkv_scan_launches": sum("rwkv_scan" in e.name for e in evts)}
+            f"{kernel}_launches": sum(kernel in e.name for e in evts)}
 
 
 def allclose_gap(got, want, tol: float):
@@ -1945,6 +1977,380 @@ def phase_lm_serve(rwkv_report: str) -> dict:
                 library_ms=None)
 
 
+def serve_trace(scenes: dict, signatures: list, rng):
+    """The serve phase's request trace: (arrival gap, scene id, signature,
+    rows) per request, the rows drawn from the scene's own points."""
+    import numpy as np
+    ids = list(scenes)
+    weights = np.array([1.0 / (i + 1) for i in range(len(ids))])
+    weights /= weights.sum()
+    trace = []
+    for _ in range(SERVE_REQUESTS):
+        dt = float(rng.exponential(1.0 / SERVE_RATE))
+        sid = ids[int(rng.choice(len(ids), p=weights))]
+        params = signatures[int(rng.integers(len(signatures)))]
+        nq = int(rng.integers(SERVE_ROWS[0], SERVE_ROWS[1] + 1))
+        pts = scenes[sid]
+        trace.append((dt, sid, params, pts[rng.integers(0, len(pts), nq)]))
+    return trace
+
+
+def drive_trace(svc, trace, opts):
+    """Submit the trace on its simulated arrival clock, pumping after each
+    arrival as ``launch/serve.py`` does, then drain; returns the futures
+    and the batch reports."""
+    futures, reports, now = [], [], 0.0
+    for dt, sid, params, rows in trace:
+        now += dt
+        futures.append(svc.submit(sid, rows, params, opts, now=now))
+        reports += svc.pump(now=now)
+    reports += svc.drain(now=now)
+    return futures, reports
+
+
+def serve_vs_alone(res, alone, points, rows, params) -> dict:
+    """A served request against ``api.query`` on its rows alone (on the
+    card): counts equal; where both return the same index its d2 is
+    bitwise equal. knn: d2 bitwise (inf masked) and indices equal except
+    at tied distances, each such index reproducing its distance. Range mode
+    returns a bounded in-radius subset that depends on the tile a row
+    shares (a tile searches the largest window of its rows, and a batch
+    groups rows into other tiles than the request alone), so there every
+    returned index must lie within the radius and reproduce its
+    distance. Returns the largest d2 gap on equal indices and the rows
+    whose results differ."""
+    import numpy as np
+    import torch
+    check(torch.equal(res.counts, alone.counts), "serve: counts differ "
+          "from api.query on the request alone")
+    same = (res.indices == alone.indices) & (res.indices >= 0)
+    gap = (float((res.distances2[same] - alone.distances2[same]).abs().max())
+           if same.any() else 0.0)
+    check(gap == 0.0, f"serve: d2 of one (query, point) pair differs from "
+          f"api.query alone by {gap}")
+    valid = res.indices >= 0
+    q = torch.as_tensor(rows, device=res.indices.device)
+    pos = points[res.indices.clamp_min(0).long()]
+    rec = ((q[:, None] - pos) ** 2).sum(-1)
+    check(bool(((rec - res.distances2).abs() <= 1e-5)[valid].all()),
+          "serve: an index does not reproduce its distance")
+    d_res = torch.where(torch.isinf(res.distances2), -1.0, res.distances2)
+    d_alone = torch.where(torch.isinf(alone.distances2), -1.0,
+                          alone.distances2)
+    if params.mode == "knn":
+        check(torch.equal(d_res, d_alone), "serve: knn d2 not bitwise equal "
+              "to api.query on the request alone")
+        for r, c in torch.nonzero(res.indices != alone.indices).tolist():
+            row = res.distances2[r]
+            check(bool(((row - row[c]).abs() <= 1e-6).sum() >= 2),
+                  f"serve: row {r} differs from api.query alone at an "
+                  "untied distance")
+    else:
+        r2 = np.float32(params.radius) ** 2
+        check(bool((res.distances2[valid] <= r2).all()),
+              "serve: a range index lies outside the radius")
+    return {"gap": gap, "rows_differ": int(
+        (d_res != d_alone).any(-1).sum())}
+
+
+def phase_serve(api, core, data, knn_mod, upd) -> dict:
+    """The neighbor-query service on the card (``repro_torch.serve``): a
+    256-request trace over three 1M-point scenes and two signatures on the
+    fused path, checked per request against ``api.query`` alone, with one
+    blocking sync and one ``knn_tile_anchored`` launch per drained batch;
+    its first requests again under ``torch.profiler`` for the device's
+    busy share; one request-size launch timed and split
+    (``serve_launch_probe``); a session-backed scene stepped and drained in
+    turn and then concurrently (donation on); the chaos gate
+    (``launch/serve.py --trace short`` under a fault plan) in a subprocess.
+    Returns the worst d2 gap on equal indices."""
+    import dataclasses
+    import os
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import NeighborService, ServeOpts
+
+    opts = core.SearchOpts(use_pallas=True)
+    signatures = [core.SearchParams(radius=RADIUS, k=K, knn_window="exact"),
+                  core.SearchParams(radius=RADIUS, k=K, mode="range")]
+    t0 = time.perf_counter()
+    scenes = {f"scene{s}": data.kitti_like_cloud(N_POINTS, seed=s)
+              for s in SERVE_SCENE_SEEDS}
+    svc = NeighborService(ServeOpts(**SERVE_OPTS))
+    buckets = []
+    b = SERVE_BUCKETS[0]
+    while b <= SERVE_BUCKETS[1]:
+        buckets.append(b)
+        b *= 2
+    for sid, pts in scenes.items():
+        svc.register_scene(sid, pts)
+        for params in signatures:
+            variant = svc.registry.get(sid).variant(params, opts)
+            for b in buckets:
+                variant.warm(b)
+            variant.quality_counters()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    trace = serve_trace(scenes, signatures, np.random.default_rng(SERVE_SEED))
+
+    # the checked, timed run: counts set to 0 just before, read just after
+    torch.cuda.synchronize()
+    knn_mod.knn_tile_anchored.launches = 0
+    upd.bin_disp_tile.launches = 0
+    torch.cuda.set_sync_debug_mode("warn")
+    t0 = time.perf_counter()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            futures, reports = drive_trace(svc, trace, opts)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    wall_s = time.perf_counter() - t0
+    launches = knn_mod.knn_tile_anchored.launches
+    bin_launches = upd.bin_disp_tile.launches
+    syncs = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+             if "synchronizing CUDA operation" in str(w.message)]
+    st = svc.stats()
+    lat = svc._metrics.snapshot()["request_s"]
+    batch_s = svc._metrics.snapshot()["batch_s"]
+    hung = 0
+    for f in futures:
+        try:
+            f.result(timeout=SERVE_FUTURE_TIMEOUT_S)
+        except TimeoutError:
+            hung += 1
+    check(hung == 0, f"serve: {hung} futures hung")
+    check(st["resolved"] == len(futures) == len(trace) and
+          all(f.exception() is None for f in futures),
+          "serve: not every request resolved with a result")
+    batches = len(reports)
+    check(st["host_syncs"] == st["batches"] == batches,
+          f"serve: {st['host_syncs']} host syncs for {batches} batches")
+    check(len(syncs) == batches, f"serve: {len(syncs)} synchronising calls "
+          f"for {batches} drained batches ({sorted(set(syncs))})")
+    check(launches == batches and bin_launches == 0,
+          f"serve: {launches} knn_tile_anchored launches for {batches} "
+          "batches")
+    check(batches < len(trace), "serve: no request was coalesced")
+
+    # every request against api.query on its rows alone
+    t0 = time.perf_counter()
+    gap, rows_differ = 0.0, {"knn": 0, "range": 0}
+    for (_dt, sid, params, rows), f in zip(trace, futures):
+        index = svc.registry.resolve(sid, params, opts).index
+        got = serve_vs_alone(f.result(), api.query(index, rows),
+                             index.points, rows, params)
+        gap = max(gap, got["gap"])
+        rows_differ[params.mode] += got["rows_differ"]
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t0
+
+    # the trace's first requests again under the profiler (device activity
+    # only): the device's busy share
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again, _ = drive_trace(svc, trace[:SERVE_PROFILED], opts)
+        for f in again:
+            f.result(timeout=SERVE_FUTURE_TIMEOUT_S)
+        torch.cuda.synchronize()
+    profiled_wall_s = time.perf_counter() - t0
+    device = device_breakdown(prof, "knn_tile_anchored")
+    profile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    probe = serve_launch_probe(api, core, knn_mod, scenes["scene1"],
+                               signatures[0])
+    probe_s = time.perf_counter() - t0
+    rows_total = sum(len(t[3]) for t in trace)
+    emit("serve", n_points=N_POINTS, scenes=len(scenes),
+         signatures=[dataclasses.asdict(p) for p in signatures],
+         serve_opts=SERVE_OPTS, requests=len(trace), rows=rows_total,
+         setup_s=setup_s, warmed_buckets=buckets, wall_s=wall_s,
+         requests_per_s=len(trace) / wall_s, rows_per_s=rows_total / wall_s,
+         latency_ms={k: lat[k] * 1e3 for k in ("p50", "p95", "p99")},
+         batches=batches, mean_batch_rows=rows_total / batches,
+         occupancy=sum(r.nq for r in reports) / sum(r.pad_n
+                                                    for r in reports),
+         batch_ms={k: batch_s[k] * 1e3 for k in ("p50", "p95", "p99")},
+         knn_tile_anchored_launches=launches, host_syncs=st["host_syncs"],
+         synchronising_calls=len(syncs), hung=hung,
+         d2_gap_on_equal_indices=gap, rows_differing_from_alone=rows_differ,
+         profiled_requests=SERVE_PROFILED, profiled_wall_s=profiled_wall_s,
+         device=device, launch_probe=probe,
+         check_s=check_s, profile_s=profile_s, probe_s=probe_s)
+    del svc, futures, again, prof
+    torch.cuda.empty_cache()
+
+    sess_row = phase_serve_session(api, core, knn_mod, upd)
+
+    # the chaos gate on the card, in its own process
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_FAULTS=SERVE_CHAOS)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--trace",
+         "short", "--device", "cuda"], env=env, capture_output=True,
+        text=True, timeout=600)
+    chaos_s = time.perf_counter() - t0
+    out = [ln for ln in proc.stdout.splitlines() if ln.startswith("serve:")]
+    check(proc.returncode == 0, f"serve: chaos gate exited "
+          f"{proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    check(any("(accounted 64/64)" in ln for ln in out) and
+          "HUNG" not in proc.stdout, "serve: chaos gate lost a request")
+    emit("serve_chaos", faults=SERVE_CHAOS, exit_code=proc.returncode,
+         seconds=chaos_s, lines=out, **sess_row)
+    return {"d2_gap": gap}
+
+
+def serve_launch_probe(api, core, knn_mod, pts, params) -> dict:
+    """One request-size ``knn_tile_anchored`` launch (``SERVE_ROWS[1]``
+    rows of a static scene), timed by CUDA events (median of 5, kernel and
+    whole ``api.query``), with its work and split: rows drawn at random
+    from the scene, as a request holds them, and as many rows adjacent in
+    x (a dense strip); the random rows again at query tile 64."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SERVE_SEED)
+    n = SERVE_ROWS[1]
+    cases = {"random": pts[rng.integers(0, len(pts), n)],
+             "x_strip": pts[np.argsort(pts[:, 0], kind="stable")[:n]]}
+    out = {}
+    for tile in (256, 64):
+        index = api.build_index(pts, params, core.SearchOpts(
+            use_pallas=True, query_tile=tile))
+        for name, rows in cases.items():
+            if tile != 256 and name != "random":
+                continue
+            q = torch.as_tensor(rows, device=index.device)
+            plan = api.plan_query(index, q)
+            args, kw, entries = kernel_inputs(index, plan, q)
+            kernel_ms = cuda_time_ms(
+                lambda: knn_mod.knn_tile_anchored(*args, **kw), 5)
+            query_ms = cuda_time_ms(lambda: api.query(index, q), 5)
+            pairs, slot_pairs, _nbytes, ops_ms, bytes_ms, tiles = knn_work(
+                index, args, entries)
+            out[f"{name}_tile{tile}"] = dict(
+                kernel_ms=kernel_ms, query_ms=query_ms,
+                bound_ms=max(ops_ms, bytes_ms), valid_pairs=pairs,
+                slot_pairs=slot_pairs, tiles_per_window=tiles,
+                split=split_work(index, args, kw))
+        del index
+    return out
+
+
+def phase_serve_session(api, core, knn_mod, upd) -> dict:
+    """A session-backed scene on the card: the dynamic cell's trajectory
+    (donation on, as on a card by default), first 20 rounds of (step,
+    submit, drain), each drained result bitwise what ``api.query`` returns
+    on the current frame; then 20 steps on a thread while the background
+    pump serves 30 requests, no future hanging, and once stopped a drain
+    bitwise equal to ``api.query`` again."""
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch.serve import NeighborService, ServeOpts
+
+    frames, _vel = trajectory(DYN_N, SERVE_SESSION_ITERS
+                              + SERVE_THREAD_STEPS + 1, DYN_SEED,
+                              0.03 * DYN_RADIUS / 4.0)
+    params = core.SearchParams(radius=DYN_RADIUS, k=DYN_K, mode="range")
+    sess = core.SimulationSession(frames[0], params,
+                                  core.SearchOpts(use_pallas=True))
+    check(sess._donate, "serve: the session does not donate on the card")
+    svc = NeighborService(ServeOpts(**SERVE_OPTS))
+    svc.register_session("sim", sess)
+    rng = np.random.default_rng(SERVE_SEED)
+
+    def rows(frame):
+        return frame[rng.integers(0, len(frame), SERVE_SESSION_ROWS)]
+
+    def assert_alone(res, q, tag):
+        alone = api.query(sess.index, q)
+        d_res = torch.where(torch.isinf(res.distances2), -1.0,
+                            res.distances2)
+        d_alone = torch.where(torch.isinf(alone.distances2), -1.0,
+                              alone.distances2)
+        check(torch.equal(res.indices, alone.indices) and
+              torch.equal(res.counts, alone.counts) and
+              torch.equal(d_res, d_alone),
+              f"serve: session {tag} not bitwise equal to api.query")
+
+    torch.cuda.synchronize()
+    knn_mod.knn_tile_anchored.launches = 0
+    upd.bin_disp_tile.launches = 0
+    ref_launches = 0
+    t0 = time.perf_counter()
+    for i in range(1, SERVE_SESSION_ITERS + 1):
+        sess.step(frames[i])
+        q = rows(frames[i])
+        fut = svc.submit("sim", q, params)
+        svc.drain()
+        k0 = knn_mod.knn_tile_anchored.launches
+        assert_alone(fut.result(timeout=SERVE_FUTURE_TIMEOUT_S), q,
+                     f"round {i}")
+        ref_launches += knn_mod.knn_tile_anchored.launches - k0
+    torch.cuda.synchronize()
+    rounds_s = time.perf_counter() - t0
+    knn_launches = knn_mod.knn_tile_anchored.launches - ref_launches
+    bin_launches = upd.bin_disp_tile.launches
+    check(bin_launches == SERVE_SESSION_ITERS and
+          knn_launches == 2 * SERVE_SESSION_ITERS,
+          f"serve: session rounds launched bin_disp_tile {bin_launches} and "
+          f"knn_tile_anchored {knn_launches} times")
+
+    # steps on a thread while the background pump serves
+    stop, steps = threading.Event(), {"n": 0}
+
+    def stepper():
+        for frame in frames[SERVE_SESSION_ITERS + 1:]:
+            if stop.is_set():
+                return
+            sess.step(frame)
+            steps["n"] += 1
+
+    hung = 0
+    th = threading.Thread(target=stepper, name="serve-session-stepper")
+    t0 = time.perf_counter()
+    svc.start()
+    th.start()
+    try:
+        for _ in range(SERVE_THREAD_REQUESTS):
+            fut = svc.submit("sim", rows(frames[SERVE_SESSION_ITERS]),
+                             params)
+            try:
+                fut.result(timeout=SERVE_FUTURE_TIMEOUT_S)
+            except TimeoutError:
+                hung += 1
+    finally:
+        stop.set()
+        th.join(timeout=600.0)
+        svc.stop()
+    torch.cuda.synchronize()
+    threaded_s = time.perf_counter() - t0
+    check(not th.is_alive() and hung == 0,
+          f"serve: {hung} session futures hung")
+    q = rows(frames[-1])
+    fut = svc.submit("sim", q, params)
+    svc.drain()
+    assert_alone(fut.result(timeout=SERVE_FUTURE_TIMEOUT_S), q,
+                 "drain after the threaded steps")
+    st = svc.stats()
+    check(st["host_syncs"] == st["batches"],
+          "serve: session batches and host syncs differ")
+    row = dict(session_rounds=SERVE_SESSION_ITERS, session_rounds_s=rounds_s,
+               session_round_launches={"bin_disp_tile": bin_launches,
+                                       "knn_tile_anchored": knn_launches},
+               session_threaded_steps=steps["n"],
+               session_threaded_requests=SERVE_THREAD_REQUESTS,
+               session_threaded_s=threaded_s, session_hung=hung,
+               session_batches=st["batches"])
+    del svc, sess, frames
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2019,11 +2425,16 @@ def main() -> int:
 
     d = phase_dynamic(core, ref, knn_mod, upd)
 
+    t0 = time.perf_counter()
+    serve = phase_serve(api, core, data, knn_mod, upd)
+    emit("serve_done", seconds=time.perf_counter() - t0,
+         d2_gap=serve["d2_gap"])
+
     lm = phase_lm_serve(reports.get("rwkv_scan", ""))
 
     rows = [("knn_tile_anchored", dict(
         launches=m["launches"], err=max(m["err"], hp_err, any_k_err,
-                                        d["search_err"]),
+                                        d["search_err"], serve["d2_gap"]),
         ms=kernel_ms, plain_ms=plain_ms, bound_ms=m["bound_ms"],
         bound_by=m["bound_by"])),
         ("bin_disp_tile", d)]

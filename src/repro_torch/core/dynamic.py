@@ -27,12 +27,18 @@ keeps the index resident across steps:
   counters) are the same. Respecs carry the reference's hysteresis
   (``SessionOpts.respec_growth``);
 * **self-query**: ``step(points)`` uses one device buffer for points and
-  queries.
+  queries;
+* **step lock**: ``step`` holds ``sess.lock`` from before its first device
+  write through the swap of ``sess.index``. A reader that launches work on
+  ``sess.index`` from another thread (the serve pump) holds it through its
+  last launch, so, in stream order, its launches read one whole frame even
+  while a donated re-bin writes the next frame into the same storage.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 import time
 
 import numpy as np
@@ -203,6 +209,7 @@ class SimulationSession:
 
     def _setup(self, index, sopts, plan=None, anchor_queries=None):
         self.sopts = sopts
+        self.lock = threading.Lock()
         self._index = index
         self._plan = plan
         self._anchor_queries = anchor_queries
@@ -319,14 +326,14 @@ class SimulationSession:
         every particle queries its own neighborhood over one device buffer.
         Results are in query order, exact for the current positions. The
         packed telemetry fetch is the step's one blocking transfer (two on
-        a respec step). The caller may move its tensors in place between
-        steps (``pos += vel * dt``): a replan snapshots the positions it
-        anchors the plan at, so the staleness statistic still sees the
-        move.
+        a respec step). The whole step holds ``self.lock``. The caller may
+        move its tensors in place between steps (``pos += vel * dt``): a
+        replan snapshots the positions it anchors the plan at, so the
+        staleness statistic still sees the move.
         """
         rep = StepReport()
         m = self._metrics
-        with obs.span("step") as sp_step:
+        with self.lock, obs.span("step") as sp_step:
             dev = self._index.device
             self_query = queries is None or queries is points
             pts = api._as_points(points, dev)

@@ -9,20 +9,24 @@ cross-site coupling, thread-safe.
 
 Injection sites (each a named seam the production code already owns):
 
-* ``launch``     - raise :class:`~.errors.InjectedFault` where a query
-                   is dispatched to the device
-                   (``core.executor.QueryExecutor.execute_async``);
+* ``launch``     - raise :class:`~.errors.InjectedFault` where a batch
+                   or a query is dispatched to the device (the
+                   ``serve.service`` drain,
+                   ``core.executor.QueryExecutor.execute_async``);
 * ``compile``    - raise at the build seam (``executor._get_launcher``
                    on a launcher-cache miss);
 * ``straggler``  - sleep ``delay_s`` before the blocking result wait
-                   (``PendingResult.wait``);
-* ``poison``     - corrupt query rows with NaN (what input validation
-                   must catch before launch).
+                   (the serve batch's sync, ``PendingResult.wait``), a
+                   straggler the serve pump's ``StragglerMonitor`` must
+                   flag, not hang on;
+* ``poison``     - corrupt admitted query rows with NaN (what input
+                   validation must catch before launch).
 
 Activation: ``install(plan)`` for tests, ``scoped(plan)`` as a context
 manager, or the ``REPRO_FAULTS`` knob for whole-process chaos runs::
 
-    REPRO_FAULTS="launch:0.2,straggler:0.1,seed:7" python my_search.py
+    REPRO_FAULTS="launch:0.2,straggler:0.1,seed:7" \\
+        python -m repro_torch.launch.serve --trace short
 
 Spec grammar: comma-separated ``site:rate`` pairs plus the optional
 modifiers ``seed:<int>``, ``delay_ms:<float>`` (straggler sleep),
