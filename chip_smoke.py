@@ -42,6 +42,17 @@ and checks each against the brute-force oracle or against itself:
   ``benchmarks/fig_dynamic.py``'s trajectory model (8 steps, then one
   that forces a respec, then one more), with one blocking transfer per
   step and both kernels launched on every step;
+- the sharded paths (phase ``sharded``, after ``dynamic``):
+  ``distributed_neighbor_search`` on the static cell's scene over a (4, 2)
+  mesh of slabs sharing the card, knn and range, against ``api.query`` on
+  the whole scene, one blocking transfer and 8 launches a query, one
+  slab's launch split and held against the plain version (its tile of
+  real and parked rows included); then a 4-slab ``ShardedSession`` on the
+  dynamic trajectory in range (k = 32) and knn (k = 8) mode beside
+  ``SimulationSession``: every row against it, one blocking transfer a
+  step (two on the one re-route), 4 launches of each kernel a step, fast
+  steps under y/z drift, ``bin_disp_tile`` bitwise on a slab's parked
+  rows and shifted origin, step times and the device's idle share;
 - the LM serving path (phase ``lm_serve``): full-width, full-depth
   ``rwkv6-7b`` with float32 weights from a seed; ``rwkv_scan`` against its
   plain version on layer 0's and the last layer's inputs of a 4 x 2048
@@ -70,6 +81,7 @@ exits non-zero; without a CUDA device it exits non-zero at once.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -177,6 +189,18 @@ SERVE_THREAD_STEPS, SERVE_THREAD_REQUESTS = 20, 30
 SERVE_FUTURE_TIMEOUT_S = 60.0
 SERVE_CHAOS = "launch:0.2,straggler:0.1"   # the chaos gate's fault plan
 
+# the sharded paths (phase ``sharded``): the static cell's scene on a
+# (4, 2) mesh of slabs sharing the card, and the dynamic cell's trajectory
+# stepped by a 4-slab ShardedSession beside the single-device session
+SHARD_MESH = (4, 2)          # slabs x query columns (make_mesh_compat)
+SHARD_SLABS = 4
+SHARD_TIMED = 3              # sharded and whole-scene queries timed, median
+SHARD_TILES_PER_LEVEL = 2    # tiles per window of a slab launch held
+                             # against the plain version
+SHARD_YZ_STEPS, SHARD_YZ_SIGMA = 4, 5e-5   # y/z-only drift: fast steps
+SHARD_PROBE_SLAB = 1         # the session's slab whose launches are split
+                             # and checked
+
 
 def ptxas_entries(report: str) -> dict:
     """Each kernel entry of an ``nvcc -Xptxas -v`` report, by mangled
@@ -250,7 +274,8 @@ def kernel_inputs(index, plan, queries):
     params = index.params
     args, kw = ops.launch_inputs(
         index.grid, index.points, queries[plan.perm.long()], index.spec,
-        plan.ladder, plan.tile_levels, params.radius, params.k, plan.tile)
+        plan.ladder, plan.tile_levels, params.radius, params.k, plan.tile,
+        origin=index.origin)
     return args, kw, ops.segment_levels(plan.ladder, tuple(index.spec.dims))
 
 
@@ -306,6 +331,22 @@ def phase_kernel_vs_plain(api, data) -> float:
     return worst
 
 
+def tile_subset(args, tiles, tile: int) -> list:
+    """The launch ``args`` restricted to the query tiles ``tiles``."""
+    import torch
+    rows = (tiles[:, None] * tile + torch.arange(tile, device=tiles.device)
+            ).flatten()
+    return [args[0][rows].contiguous(), args[1], args[2],
+            args[3][tiles].contiguous(), args[4][tiles].contiguous(),
+            args[5]]
+
+
+def compare_tiles(args, kw, tiles, tag: str) -> float:
+    """Kernel vs plain version on the query tiles ``tiles`` of the launch
+    ``args``, at the shapes that launch gives the kernel."""
+    return compare_kernel(tile_subset(args, tiles, kw["tile"]), kw, tag)
+
+
 def compare_level_tiles(args, kw, per_level: int, tag: str,
                         limit: int | None = None):
     """Kernel vs plain version on up to ``per_level`` tiles drawn at random
@@ -321,12 +362,7 @@ def compare_level_tiles(args, kw, per_level: int, tag: str,
         pick = torch.randperm(ids.numel(), generator=gen)[:per_level]
         picks.append(ids[pick.to(ids.device)])
     tiles = torch.cat(picks)[:limit]
-    tile = kw["tile"]
-    rows = (tiles[:, None] * tile + torch.arange(tile, device=tiles.device)
-            ).flatten()
-    sub = [args[0][rows].contiguous(), args[1], args[2],
-           args[3][tiles].contiguous(), args[4][tiles].contiguous(), args[5]]
-    err = compare_kernel(sub, kw, tag)
+    err = compare_tiles(args, kw, tiles, tag)
     checked = plevel[tiles].tolist()
     return err, {lvl: checked.count(lvl) for lvl in sorted(set(checked))}
 
@@ -405,14 +441,9 @@ def phase_whole_grid(knn_mod, args, kw, entries, dims) -> dict:
     WHOLE_GRID_TILES whole-grid-window tiles of the static plan, at the
     plan's k and at k = 100, where every tile splits into the most items
     and each merge carries 100 entries a row."""
-    import torch
     from repro_torch.kernels.knn_tile import launch_scratch
     tiles = whole_grid_tiles(args, entries, dims, WHOLE_GRID_TILES)
-    tile = kw["tile"]
-    rows = (tiles[:, None] * tile + torch.arange(tile, device=tiles.device)
-            ).flatten()
-    sub = [args[0][rows].contiguous(), args[1], args[2],
-           args[3][tiles].contiguous(), args[4][tiles].contiguous(), args[5]]
+    sub = tile_subset(args, tiles, kw["tile"])
     out = dict(tiles=int(tiles.numel()), window=list(dims), per_k={})
     for k in (kw["k"], WHOLE_GRID_K):
         kk = dict(kw, k=k)
@@ -443,11 +474,7 @@ def level_breakdown(knn_mod, index, args, kw, entries) -> list:
     out = []
     for lvl in sorted(set(plevel.tolist())):
         tiles = torch.nonzero(plevel == lvl).flatten()
-        rows = (tiles[:, None] * tile
-                + torch.arange(tile, device=tiles.device)).flatten()
-        sub = [args[0][rows].contiguous(), args[1], args[2],
-               args[3][tiles].contiguous(), plevel[tiles].contiguous(),
-               args[5]]
+        sub = tile_subset(args, tiles, tile)
         pairs, slot_pairs, _b, ops_ms, _bm, _t = knn_work(index, sub,
                                                           entries)
         ms = cuda_time_ms(lambda: knn_mod.knn_tile_anchored(*sub, **kw), 3)
@@ -1354,10 +1381,10 @@ def profiled_kernel_us(fn, name: str, runs: int = 20):
     return device_us(prof, name)[0]
 
 
-def step_counted(sess, upd, knn_mod, cur):
-    """One session step with the launch counts set to 0 just before and
-    read just after, every synchronising CUDA call recorded (sync debug
-    mode "warn"). Returns the result, the wall time in ms (ending in a
+def counted(fn, upd, knn_mod):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after, every synchronising CUDA call recorded (sync debug mode
+    "warn"). Returns the result, the wall time in ms (ending in a
     synchronise), the sync call sites and the two launch counts."""
     import torch
     torch.cuda.synchronize()
@@ -1368,7 +1395,7 @@ def step_counted(sess, upd, knn_mod, cur):
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            res = sess.step(cur)
+            res = fn()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -1379,7 +1406,13 @@ def step_counted(sess, upd, knn_mod, cur):
             knn_mod.knn_tile_anchored.launches)
 
 
-def check_step_exact(ref, res, cur, rng, n_sample: int, tag: str):
+def step_counted(sess, upd, knn_mod, cur):
+    """One session step, counted as :func:`counted` does."""
+    return counted(lambda: sess.step(cur), upd, knn_mod)
+
+
+def check_step_exact(ref, res, cur, rng, n_sample: int, tag: str,
+                     radius: float = DYN_RADIUS, k: int = DYN_K):
     """Brute force on sampled queries: counts exact, every returned index
     within the radius, and its distance recomputes. Returns the largest
     recomputation error."""
@@ -1389,14 +1422,13 @@ def check_step_exact(ref, res, cur, rng, n_sample: int, tag: str):
     sample = torch.from_numpy(rng.choice(n, min(n_sample, n),
                                          replace=False)).cuda()
     q = cur[sample]
-    _oi, _od, oc = ref.brute_force_search(cur, q, DYN_RADIUS, DYN_K,
-                                          chunk=256)
+    _oi, _od, oc = ref.brute_force_search(cur, q, radius, k, chunk=256)
     check(torch.equal(oc, res.counts[sample]),
           f"{tag}: counts differ from brute force")
     idx, d2 = res.indices[sample], res.distances2[sample]
     valid = idx >= 0
     check(torch.equal(valid, torch.isfinite(d2)), f"{tag}: inf mask")
-    check(bool((d2[valid] <= np.float32(DYN_RADIUS) ** 2).all()),
+    check(bool((d2[valid] <= np.float32(radius) ** 2).all()),
           f"{tag}: an index lies outside the radius")
     pos = cur[idx.clamp_min(0).long()]
     rec = ((q[:, None] - pos) ** 2).sum(-1)
@@ -1605,6 +1637,350 @@ def phase_dynamic(core, ref, knn_mod, upd, n: int = DYN_N,
                 ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def same_results(res, want, mode: str, queries, points, radius: float,
+                 tag: str) -> dict:
+    """``res`` against ``want`` on every row: counts and inf masks equal,
+    every index within the radius and its distance reproduced from the
+    points; knn: d2 within 1e-6, and where an index differs the point it
+    names lies at ``want``'s distance for that slot (a tie). Returns the
+    largest d2 gap, whether d2 is bitwise equal, and the count of
+    differing indices."""
+    import numpy as np
+    import torch
+    check(torch.equal(res.counts, want.counts), f"{tag}: counts differ")
+    d2, wd2 = res.distances2, want.distances2
+    check(torch.equal(torch.isinf(d2), torch.isinf(wd2)),
+          f"{tag}: inf masks differ")
+    fin = torch.isfinite(wd2)
+    gap = float((d2[fin] - wd2[fin]).abs().max()) if fin.any() else 0.0
+    valid = res.indices >= 0
+    check(bool((d2[valid] <= np.float32(radius) ** 2).all()),
+          f"{tag}: an index lies outside the radius")
+    pos = points[res.indices.clamp_min(0).long()]
+    rec = ((queries[:, None] - pos) ** 2).sum(-1)
+    rec_err = float((rec[valid] - d2[valid]).abs().max()) if valid.any() \
+        else 0.0
+    check(rec_err <= 1e-5, f"{tag}: an index does not reproduce its "
+          f"distance ({rec_err})")
+    differ = (res.indices != want.indices) & valid
+    if mode == "knn":
+        check(gap <= 1e-6, f"{tag}: d2 off by {gap}")
+        tie_err = float((rec[differ] - wd2[differ]).abs().max()) \
+            if differ.any() else 0.0
+        check(tie_err <= 1e-5, f"{tag}: an index differs off a tie "
+              f"({tie_err})")
+    return dict(d2_gap=gap, d2_bitwise=bool(torch.equal(d2, wd2)),
+                index_differences=int(differ.sum()))
+
+
+def slab_launch(api, knn_mod, index, queries, tag: str, plan=None):
+    """One slab's ``knn_tile_anchored`` launch as its path gives it (on
+    ``plan``, or on a fresh plan as ``api.query`` makes): its work and
+    split, its parked rows, the tiles that mix real and parked rows, and
+    the kernel bitwise against its plain version on sampled tiles of every
+    window and on the mixed tiles. Returns the summary and the largest
+    error."""
+    import torch
+    if plan is None:
+        plan = api.plan_query(index, queries)
+    args, kw, entries = kernel_inputs(index, plan, queries)
+    pairs, slot_pairs, nbytes, ops_ms, bytes_ms, tiles = knn_work(
+        index, args, entries)
+    tile = kw["tile"]
+    parked = (args[0].abs() >= 1e29).any(-1).reshape(-1, tile).sum(-1)
+    mixed = torch.nonzero((parked > 0) & (parked < tile)).flatten()
+    err, checked = compare_level_tiles(args, kw, SHARD_TILES_PER_LEVEL, tag)
+    if mixed.numel():
+        err = max(err, compare_tiles(args, kw, mixed, f"{tag}, mixed tile"))
+    rows = args[0].shape[0]
+    n_parked = int(parked.sum())
+    ms = cuda_time_ms(lambda: knn_mod.knn_tile_anchored(*args, **kw), 3)
+    # what the padding costs: the launch restricted to the mixed tiles and
+    # to the all-parked tiles
+    pad_ms = {}
+    for name, sel in (("mixed", mixed),
+                      ("all_parked", torch.nonzero(parked == tile).flatten())):
+        if sel.numel():
+            sub = tile_subset(args, sel, tile)
+            pad_ms[name] = cuda_time_ms(
+                lambda: knn_mod.knn_tile_anchored(*sub, **kw), 3)
+    return dict(
+        rows=rows, real_rows=rows - n_parked, parked_rows=n_parked,
+        tiles=int(parked.numel()), mixed_tiles=int(mixed.numel()),
+        mixed_tile_windows=[list(entries[int(lvl)][0])
+                            for lvl in args[4][mixed].tolist()],
+        all_parked_tiles=int((parked == tile).sum()),
+        valid_pairs=pairs, valid_pairs_per_row=pairs / max(rows, 1),
+        valid_pairs_per_real_row=pairs / max(rows - n_parked, 1),
+        slot_pairs=slot_pairs, tiles_per_window=tiles,
+        bound_ms=max(ops_ms, bytes_ms), kernel_ms=ms,
+        kernel_ms_of_padded_tiles=pad_ms,
+        split=split_work(index, args, kw),
+        kernel_vs_plain_tiles={str(entries[lvl]): c
+                               for lvl, c in checked.items()},
+        max_abs_err=err, bitwise=True), err
+
+
+def sharded_query(api, core, data, ref, knn_mod, upd, n: int,
+                  n_sample: int, device: str) -> float:
+    """``distributed_neighbor_search`` on a (4, 2) mesh of slabs sharing
+    the card, knn (upgraded to the exact window) and range, against
+    ``api.query`` on the whole scene; one blocking transfer and S x C
+    launches a call; the query timed; one slab's launch split and checked.
+    Returns the largest kernel error."""
+    import numpy as np
+    import torch
+    from repro_torch.core import shards
+    from repro_torch.core.distributed import distributed_neighbor_search
+    from repro_torch.launch.mesh import make_mesh_compat
+    pts = data.kitti_like_cloud(n, seed=1)
+    mesh = make_mesh_compat(SHARD_MESH, ("data", "model"), device=device)
+    n_launch = SHARD_MESH[0] * SHARD_MESH[1]
+    opts = api.SearchOpts(use_pallas=True)
+    rng = np.random.default_rng(1)
+    worst = 0.0
+    for mode in ("knn", "range"):
+        params = (api.SearchParams(radius=RADIUS, k=K) if mode == "knn" else
+                  api.SearchParams(radius=RADIUS, k=K, mode="range"))
+        res, call_ms, syncs, nb, nk = counted(
+            lambda: distributed_neighbor_search(mesh, pts, pts, params,
+                                                opts=opts), upd, knn_mod)
+        check(len(syncs) == 1, f"sharded query {mode}: {len(syncs)} "
+              f"blocking transfers, expected 1: {syncs}")
+        check(nk == n_launch and nb == 0, f"sharded query {mode}: "
+              f"{nk} knn_tile_anchored launches, expected {n_launch}")
+        if mode == "knn":
+            params = dataclasses.replace(params, knn_window="exact")
+        index = api.build_index(pts, params, opts, device=device)
+        q = index.points
+        alone = api.query(index, q)
+        cmp = same_results(res, alone, mode, q, q, RADIUS,
+                           f"sharded query {mode}")
+        oracle_err = check_step_exact(ref, res, q, rng, n_sample,
+                                      f"sharded query {mode}", RADIUS, K)
+        sindex = core.shard_scene(pts, params, mesh=mesh, opts=opts,
+                                  shopts=shards.STATIC_SCENE_OPTS,
+                                  queries=pts, query_axis="model")
+        query_ms = cuda_time_ms(lambda: sindex.query(q), SHARD_TIMED)
+        whole_ms = cuda_time_ms(lambda: api.query(index, q), SHARD_TIMED)
+        layout = sindex.layout
+        qs, qid, _ovf = shards.route_queries(layout, q)
+        all_p, _all_i, _hovf = shards._with_halo(layout, sindex.pts,
+                                                 sindex.ids)
+        # the (slab, column) buffer with the most parked rows
+        real = (qid >= 0).sum(-1)
+        ps, pc = divmod(int(real.argmin()), SHARD_MESH[1])
+        slab = shards._slab_indexes(layout, params, sindex.opts, all_p)[ps]
+        probe, err = slab_launch(api, knn_mod, slab, qs[ps, pc].contiguous(),
+                                 f"sharded query {mode}, slab {ps} "
+                                 f"column {pc}")
+        probe.update(slab=ps, column=pc)
+        worst = max(worst, err)
+        emit("sharded_query", mode=mode, mesh=list(SHARD_MESH),
+             n_points=n, call_ms=call_ms, query_ms=query_ms,
+             whole_scene_query_ms=whole_ms, blocking_transfers=syncs,
+             knn_tile_anchored_launches=nk,
+             layout=dict(point_cap=layout.point_cap,
+                         halo_cap=layout.halo_cap,
+                         query_cap=layout.query_cap,
+                         slab_width=layout.slab_width,
+                         dims=list(layout.spec.dims),
+                         cell_size=layout.spec.cell_size,
+                         capacity=layout.spec.capacity),
+             whole_scene_dims=list(index.spec.dims),
+             whole_scene_capacity=index.spec.capacity,
+             real_rows_per_slab_column=real.tolist(),
+             vs_whole_scene=cmp, oracle_sampled=n_sample,
+             oracle_d2_recompute_err=oracle_err, probe=probe)
+        del index, q, alone, res, sindex, all_p, qs, qid, slab
+    torch.cuda.empty_cache()
+    return worst
+
+
+def sharded_session(api, core, ref, knn_mod, upd, mode: str, n: int,
+                    steps: int, n_sample: int, device: str) -> dict:
+    """A 4-slab ``ShardedSession`` on the dynamic cell's trajectory (8
+    steps, the escape step, which must re-route once, one more), beside
+    the single-device ``SimulationSession`` on the same frames; then y/z
+    drift, which must give fast steps with nothing migrating; timed fast
+    and replan steps of both, the device's idle share, and one slab's two
+    launches against their plain versions."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    frames, vel = trajectory(n, steps, DYN_SEED, 0.03 * DYN_RADIUS / 4.0)
+    escape = frames[-1].copy()
+    escape[:DYN_ESCAPEES, 0] = np.float32(1.1)
+    seq = frames + [escape, (escape + vel).astype(np.float32)]
+    params = (core.SearchParams(radius=DYN_RADIUS, k=DYN_K, mode="range")
+              if mode == "range" else
+              core.SearchParams(radius=DYN_RADIUS, k=8, knn_window="exact"))
+    opts = core.SearchOpts(use_pallas=True)
+    t0 = time.perf_counter()
+    sess = core.ShardedSession(frames[0], params, opts, n_slabs=SHARD_SLABS,
+                               device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    single = core.SimulationSession(frames[0], params, opts, device=device)
+    lay = sess.layout
+    emit("sharded_session_setup", mode=mode, n_points=n, k=params.k,
+         slabs=SHARD_SLABS, point_cap=lay.point_cap, halo_cap=lay.halo_cap,
+         migrate_cap=lay.migrate_cap, slab_width=lay.slab_width,
+         dims=list(lay.spec.dims), cell_size=lay.spec.cell_size,
+         capacity=lay.spec.capacity, single_dims=list(single.spec.dims),
+         single_cell_size=single.spec.cell_size,
+         single_capacity=single.spec.capacity, setup_s=setup_s)
+    rng = np.random.default_rng(DYN_SEED)
+    kinds = []
+
+    def checked(i, frame, expect_reroute: bool):
+        cur = torch.from_numpy(frame).to(device)
+        before = sess.stats()
+        res, wall_ms, syncs, nb, nk = step_counted(sess, upd, knn_mod, cur)
+        after = sess.stats()
+        rerouted = after["reroutes"] - before["reroutes"]
+        check(rerouted == int(expect_reroute),
+              f"sharded {mode} step {i}: {rerouted} re-routes")
+        want = 2 if rerouted else 1
+        check(len(syncs) == want, f"sharded {mode} step {i}: {len(syncs)} "
+              f"blocking transfers, expected {want}: {syncs}")
+        check(nb == SHARD_SLABS and nk == SHARD_SLABS,
+              f"sharded {mode} step {i}: launches bin_disp_tile={nb} "
+              f"knn_tile_anchored={nk}, expected {SHARD_SLABS} each")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        alone = single.step(cur)
+        torch.cuda.synchronize()
+        single_ms = (time.perf_counter() - t1) * 1e3
+        cmp = same_results(res, alone, params.mode, cur, cur, DYN_RADIUS,
+                           f"sharded {mode} step {i}")
+        err = check_step_exact(ref, res, cur, rng, n_sample,
+                               f"sharded {mode} step {i}", DYN_RADIUS,
+                               params.k)
+        kinds.append("reroute" if rerouted else
+                     "replan" if sess.last_flags & 1 else "fast")
+        emit("sharded_step", mode=mode, step=i, kind=kinds[-1],
+             blocking_transfers=syncs, bin_disp_tile_launches=nb,
+             knn_tile_anchored_launches=nk, wall_ms=wall_ms,
+             single_ms=single_ms,
+             single_kind=("respec" if single.report.respecced else
+                          "fast" if single.report.fast else "replan"),
+             migrated=after.get("migrated_rows", 0)
+             - before.get("migrated_rows", 0),
+             halo_rows=after.get("halo_rows", 0) - before.get("halo_rows", 0),
+             vs_single=cmp, sampled=n_sample, d2_recompute_err=err)
+        return cur
+
+    for i, frame in enumerate(seq):
+        cur = checked(i, frame, i == steps)
+    st = sess.stats()
+    check(st["host_routings"] == 2 and st["reroutes"] == 1,
+          f"sharded {mode}: host_routings={st['host_routings']} "
+          f"reroutes={st['reroutes']}")
+    check(st["migrated_rows"] > 0, f"sharded {mode}: nothing migrated")
+    check("fast" in kinds and "replan" in kinds,
+          f"sharded {mode}: expected fast and replan steps, got {kinds}")
+
+    # y/z-only drift: slab and halo membership stay, every slab replays
+    frame = seq[-1]
+    drng = np.random.default_rng(DYN_SEED + 1)
+    for j in range(SHARD_YZ_STEPS):
+        frame = frame.copy()
+        frame[:, 1:] = np.clip(frame[:, 1:] + drng.normal(
+            0, SHARD_YZ_SIGMA, (n, 2)), 0.0, 1.0).astype(np.float32)
+        cur = checked(len(seq) + j, frame, False)
+        check(kinds[-1] == "fast", f"sharded {mode}: y/z drift step {j} "
+              f"was a {kinds[-1]} step")
+    check(sess.stats()["migrated_rows"] == st["migrated_rows"],
+          f"sharded {mode}: rows migrated under y/z drift")
+
+    # one slab's launches on the session's inputs: its self-query (owned
+    # rows, the parked ones included) and its update over the
+    # halo-extended rows with their shifted origin
+    s = SHARD_PROBE_SLAB
+    ix = sess._index[s]
+    probe, kerr = slab_launch(api, knn_mod, ix, sess._pts[s],
+                              f"sharded {mode} session, slab {s}",
+                              plan=sess._plan[s])
+    launch_ms = [slab_launch_ms(knn_mod, sess, t) for t in
+                 range(SHARD_SLABS)]
+    bin_err = bin_vs_plain(upd, ix.points, ix.anchor_points, sess.spec,
+                           f"sharded {mode}, slab {s}", origin=ix.origin,
+                           mask_parked=True)
+    n_parked_bin = int((ix.points.abs() >= 1e29).any(-1).sum())
+
+    # timed steps: a point moved by a cell and back makes replan steps,
+    # the steps between them replays; the sharded ones profiled
+    a = cur
+    b = a.clone()
+    b[DYN_ESCAPEES, 0] += max(sess.spec.cell_size, single.spec.cell_size)
+    targets = [b, b, a, a] * ((N_TIMED_STEPS + 1) // 2)
+    times = {"sharded": {"fast": [], "replan": []},
+             "single": {"fast": [], "replan": []}}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for target in targets:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess.step(target)
+            torch.cuda.synchronize()
+            times["sharded"]["replan" if sess.last_flags & 1 else
+                             "fast"].append((time.perf_counter() - t0) * 1e3)
+    busy = device_breakdown(prof, "knn_tile_anchored")
+    del prof
+    for target in targets:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single.step(target)
+        torch.cuda.synchronize()
+        times["single"]["fast" if single.report.fast else "replan"].append(
+            (time.perf_counter() - t0) * 1e3)
+    med = {who: {kind: (sorted(v)[len(v) // 2] if v else None)
+                 for kind, v in d.items()} for who, d in times.items()}
+    ratio = {kind: (med["single"][kind] / med["sharded"][kind]
+                    if med["single"][kind] and med["sharded"][kind]
+                    else None) for kind in ("fast", "replan")}
+    stats = sess.stats()
+    emit("sharded_session", mode=mode, n_points=n, slabs=SHARD_SLABS,
+         kinds=kinds, counters={k: v for k, v in stats.items()
+                                if not k.startswith("level_occ_")},
+         step_ms=med, steps_ms=times, single_over_sharded=ratio,
+         device=busy, slab_launch_ms=launch_ms,
+         slab_launch_ms_sum=sum(launch_ms), probe=probe,
+         bin_disp_tile_rows=int(ix.points.shape[0]),
+         bin_disp_tile_parked_rows=n_parked_bin,
+         bin_disp_tile_bitwise=bin_err == 0.0)
+    del sess, single, ix
+    torch.cuda.empty_cache()
+    return dict(knn_err=kerr, bin_err=bin_err)
+
+
+def slab_launch_ms(knn_mod, sess, s: int) -> float:
+    """CUDA-event time of slab ``s``'s search launch on the session's
+    current plan."""
+    index = sess._index[s]
+    args, kw, _entries = kernel_inputs(index, sess._plan[s], sess._pts[s])
+    return cuda_time_ms(lambda: knn_mod.knn_tile_anchored(*args, **kw), 3)
+
+
+def phase_sharded(api, core, data, ref, knn_mod, upd, n_query: int = N_POINTS,
+                  n: int = DYN_N, steps: int = DYN_STEPS,
+                  n_sample: int = N_SAMPLE, device: str = "cuda") -> dict:
+    """The sharded paths on the card: the one-shot sharded query, then the
+    4-slab session in the dynamic cell's range mode and in knn at k = 8.
+    Returns the largest kernel errors of the two kernels."""
+    t0 = time.perf_counter()
+    knn_err = sharded_query(api, core, data, ref, knn_mod, upd, n_query,
+                            n_sample, device)
+    bin_err = 0.0
+    for mode in ("range", "knn"):
+        r = sharded_session(api, core, ref, knn_mod, upd, mode, n, steps,
+                            n_sample, device)
+        knn_err = max(knn_err, r["knn_err"])
+        bin_err = max(bin_err, r["bin_err"])
+    emit("sharded_done", seconds=time.perf_counter() - t0)
+    return dict(knn_err=knn_err, bin_err=bin_err)
 
 
 def rwkv_vs_plain(scan, ins, tag: str) -> dict:
@@ -2425,6 +2801,9 @@ def main() -> int:
 
     d = phase_dynamic(core, ref, knn_mod, upd)
 
+    sharded = phase_sharded(api, core, data, ref, knn_mod, upd)
+    d["err"] = max(d["err"], sharded["bin_err"])
+
     t0 = time.perf_counter()
     serve = phase_serve(api, core, data, knn_mod, upd)
     emit("serve_done", seconds=time.perf_counter() - t0,
@@ -2434,7 +2813,8 @@ def main() -> int:
 
     rows = [("knn_tile_anchored", dict(
         launches=m["launches"], err=max(m["err"], hp_err, any_k_err,
-                                        d["search_err"], serve["d2_gap"]),
+                                        d["search_err"], serve["d2_gap"],
+                                        sharded["knn_err"]),
         ms=kernel_ms, plain_ms=plain_ms, bound_ms=m["bound_ms"],
         bound_by=m["bound_by"])),
         ("bin_disp_tile", d)]

@@ -7,6 +7,9 @@ host-planned search and the dynamic session.
     NeighborSearch, neighbor_search          eager host-planned search
     QueryExecutor, PlanHandle, PendingResult (core/search.py, core/executor.py)
     SimulationSession, SessionOpts           dynamic scenes (core/dynamic.py)
+    ShardedSession, ShardedIndex,            sharded scenes (core/shards.py)
+    shard_scene, plan_layout, SlabLayout,
+    ShardOpts
     SearchParams, SearchOpts, SearchResult, GridSpec
     build_cell_grid, choose_grid_spec        acceleration structure
     schedule_queries, schedule_by_level      section 4 query scheduling
@@ -33,6 +36,8 @@ from .api import (NeighborIndex, QueryPlan, build_index, cached_searcher,
 from .executor import PendingResult, PlanHandle, QueryExecutor
 from .dynamic import (SessionOpts, SimulationSession, StepReport,
                       session_grid_spec)
+from .shards import (ShardOpts, ShardedIndex, ShardedSession, SlabLayout,
+                     plan_layout, shard_scene)
 
 __all__ = [
     "NeighborIndex", "QueryPlan", "build_index", "cached_searcher",
@@ -48,5 +53,6 @@ __all__ = [
     "megacell_statics", "plan_partitions", "signature_levels",
     "trivial_plan", "Bundle", "CostModel", "calibrate", "exhaustive_best",
     "plan_bundles", "NeighborSearch", "neighbor_search", "window_search",
-    "window_tile_search",
+    "window_tile_search", "ShardOpts", "ShardedIndex", "ShardedSession",
+    "SlabLayout", "plan_layout", "shard_scene",
 ]

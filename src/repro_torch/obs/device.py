@@ -4,17 +4,17 @@ tensors).
 A session step's one blocking host transfer is a small packed int32
 vector
 
-    [flags, overflow, oob, disp_bits, occ_0, ..., occ_{L-1}]
+    [flags, overflow, oob, disp_bits, migrated, halo, occ_0, ..., occ_{L-1}]
 
 where ``disp_bits`` is the f32 max-squared-displacement viewed as int32
-(lossless; unpacked host-side with a view), and ``occ_i`` counts query
-tiles on ladder level ``i`` (the escalation-occupancy histogram). The
-reference's header has two more slots, ``migrated`` and ``halo``, which
-only its sharded session fills; that session is not ported, so neither
-are they.
-The port's session fetches the header before it plans, so it packs no
-occupancy tail; the plan's histogram reaches the host later without a
-sync of its own (``core/dynamic.py``).
+(lossless; unpacked host-side with a view), ``migrated`` and ``halo`` are
+the rows that crossed a slab face and the halo rows received (filled by
+the sharded session, zero for a single-device one), and ``occ_i`` counts
+query tiles on ladder level ``i`` (the escalation-occupancy histogram).
+The port's sessions fetch the header before they plan, so they pack no
+occupancy tail (the sharded session packs its per-slab stale flags
+there); a plan's histogram reaches the host later without a sync of its
+own (``core/dynamic.py``, ``core/shards.py``).
 """
 from __future__ import annotations
 
@@ -28,7 +28,9 @@ TELEM_FLAGS = 0
 TELEM_OVERFLOW = 1
 TELEM_OOB = 2
 TELEM_DISP_BITS = 3
-TELEM_HEADER = 4
+TELEM_MIGRATED = 4
+TELEM_HALO = 5
+TELEM_HEADER = 6
 
 
 def level_occupancy(tile_levels: Tensor, n_levels: int) -> Tensor:
@@ -49,15 +51,21 @@ def level_occupancy(tile_levels: Tensor, n_levels: int) -> Tensor:
 
 def pack_step_telemetry(flags: Tensor, *, overflow: Tensor, oob: Tensor,
                         max_disp2: Tensor,
-                        occupancy: Tensor | None = None) -> Tensor:
+                        occupancy: Tensor | None = None,
+                        migrated: Tensor | None = None,
+                        halo: Tensor | None = None) -> Tensor:
     """Pack per-step counters into one int32 vector [TELEM_HEADER + L] on
     the counters' device, without a sync. Every argument is a 0-d int32 or
-    f32 tensor except ``occupancy`` [L] int32 (None packs no tail)."""
+    f32 tensor except ``occupancy`` [L] int32 (None packs no tail);
+    ``migrated`` and ``halo`` None pack zeros."""
     def i32(x):
+        if x is None:
+            return torch.zeros((), dtype=torch.int32, device=flags.device)
         return x.to(torch.int32).reshape(())
 
     disp_bits = max_disp2.to(torch.float32).reshape(()).view(torch.int32)
-    head = torch.stack([i32(flags), i32(overflow), i32(oob), disp_bits])
+    head = torch.stack([i32(flags), i32(overflow), i32(oob), disp_bits,
+                        i32(migrated), i32(halo)])
     if occupancy is None:
         return head
     return torch.cat([head, occupancy.to(torch.int32).reshape(-1)])
@@ -66,8 +74,8 @@ def pack_step_telemetry(flags: Tensor, *, overflow: Tensor, oob: Tensor,
 def unpack_step_telemetry(vec) -> dict:
     """Host-side unpack of a fetched telemetry vector (a CPU tensor or a
     numpy array). Returns plain Python numbers: flags, overflow, oob,
-    max_disp2 (f32 recovered from its bit pattern), and the occupancy
-    list."""
+    max_disp2 (f32 recovered from its bit pattern), migrated, halo, and
+    the occupancy list."""
     v = np.asarray(vec, np.int32).reshape(-1)
     return {
         "flags": int(v[TELEM_FLAGS]),
@@ -75,5 +83,7 @@ def unpack_step_telemetry(vec) -> dict:
         "oob": int(v[TELEM_OOB]),
         "max_disp2": float(v[TELEM_DISP_BITS:TELEM_DISP_BITS + 1]
                            .view(np.float32)[0]),
+        "migrated": int(v[TELEM_MIGRATED]),
+        "halo": int(v[TELEM_HALO]),
         "occupancy": [int(x) for x in v[TELEM_HEADER:]],
     }

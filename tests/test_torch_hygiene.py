@@ -34,7 +34,9 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.models.layers", "repro_torch.models.model",
             "repro_torch.configs", "repro_torch.kernels.rwkv_scan",
             "repro_torch.train.serve_step",
-            "repro_torch.launch.serve_lm"} <= set(names)
+            "repro_torch.launch.serve_lm", "repro_torch.core.shards",
+            "repro_torch.core.distributed",
+            "repro_torch.launch.mesh"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"
@@ -99,3 +101,26 @@ def test_lm_entry_points_default_to_cuda():
         init_params(cfg)
     assert next(init_params(cfg, device="cpu").parameters()).device.type \
         == "cpu"
+
+
+def test_sharded_entry_points_default_to_cuda():
+    """Without a CUDA device, ``make_slab_mesh``, ``shard_scene`` and
+    ``ShardedSession`` raise unless the caller passes ``device="cpu"``
+    (``make_mesh_compat`` too, which ``distributed_neighbor_search``
+    takes its device from)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device works")
+    from repro_torch.core import SearchParams, ShardedSession, shard_scene
+    from repro_torch.launch.mesh import make_mesh_compat, make_slab_mesh
+    pts = np.random.default_rng(0).random((80, 3)).astype(np.float32)
+    params = SearchParams(radius=0.2, k=4)
+    for call in (lambda: make_slab_mesh(2),
+                 lambda: make_mesh_compat((2, 2), ("data", "model")),
+                 lambda: shard_scene(pts, params, n_slabs=2),
+                 lambda: ShardedSession(pts, params, n_slabs=2)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    index = shard_scene(pts, params, n_slabs=2, device="cpu")
+    assert index.pts.device.type == "cpu"
+    sess = ShardedSession(pts, params, n_slabs=2, device="cpu")
+    assert sess.step(pts).counts.device.type == "cpu"

@@ -147,28 +147,30 @@ def test_reset_runs_registered_hooks():
 
 @pytest.mark.parametrize("disp2", [0.0, 1.5e-5, 3.0e38, float("inf")])
 @pytest.mark.parametrize("tail", [False, True])
-def test_pack_unpack_matches_reference(disp2, tail):
+@pytest.mark.parametrize("sharded", [False, True])
+def test_pack_unpack_matches_reference(disp2, tail, sharded):
     """The packed vector and its unpacked dict equal the reference's on the
-    same counters, header-only and with the occupancy tail. The
-    reference's sharded-session slots (``migrated``, ``halo``) are not
-    ported: the port's vector is the reference's without them."""
+    same counters, header-only and with the occupancy tail, with the
+    sharded session's ``migrated`` / ``halo`` slots filled or left to
+    their zeros."""
     occ = np.array([3, 0, 7, 1] if tail else [], np.int32)
+    extra = dict(migrated=5, halo=1234) if sharded else {}
     jvec = np.asarray(jobs.pack_step_telemetry(
         jnp.int32(3), overflow=jnp.int32(2), oob=jnp.int32(11),
-        max_disp2=jnp.float32(disp2), occupancy=jnp.asarray(occ)))
+        max_disp2=jnp.float32(disp2), occupancy=jnp.asarray(occ),
+        **{k: jnp.int32(v) for k, v in extra.items()}))
     tvec = obs.pack_step_telemetry(
         torch.tensor(3, dtype=torch.int32),
         overflow=torch.tensor(2, dtype=torch.int32),
         oob=torch.tensor(11, dtype=torch.int32),
         max_disp2=torch.tensor(disp2, dtype=torch.float32),
-        occupancy=torch.from_numpy(occ) if tail else None)
+        occupancy=torch.from_numpy(occ) if tail else None,
+        **{k: torch.tensor(v, dtype=torch.int32) for k, v in extra.items()})
     assert tvec.dtype == torch.int32
+    assert obs.TELEM_HEADER == jdev.TELEM_HEADER
     assert tvec.shape == (obs.TELEM_HEADER + occ.size,)
-    np.testing.assert_array_equal(
-        np.delete(jvec, [jdev.TELEM_MIGRATED, jdev.TELEM_HALO]), tvec.numpy())
-    want = jobs.unpack_step_telemetry(jvec)
-    assert want.pop("migrated") == 0 and want.pop("halo") == 0
-    assert obs.unpack_step_telemetry(tvec) == want
+    np.testing.assert_array_equal(jvec, tvec.numpy())
+    assert obs.unpack_step_telemetry(tvec) == jobs.unpack_step_telemetry(jvec)
 
 
 def test_level_occupancy_matches_reference(rng):
@@ -232,3 +234,108 @@ def test_session_results_and_syncs_identical_on_off(rng):
         assert torch.equal(a.distances2, b.distances2)
     assert st_off["host_syncs"] == st_on["host_syncs"] == len(traj)
     assert st_off["stats_fetches"] == st_on["stats_fetches"] == 0
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for a test of many small tensor operations,
+    which stall on thread barriers when the test workers share the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_sharded_session_step_emits_jsonl_telemetry(rng, tmp_path,
+                                                    one_thread):
+    """The sharded step's spans and its ``sharded_session`` metric rows, as
+    the reference's (``tests/test_obs.py:202``), less its ``compile``
+    span: the port has no jit."""
+    out = str(tmp_path / "shard.jsonl")
+    obs.configure(mode="jsonl", path=out)
+    pts = rng.random((600, 3)).astype(np.float32)
+    sess = tc.ShardedSession(pts, PARAMS, n_slabs=2, device="cpu")
+    sess.step(pts)
+    sess.step(_jitter(rng, pts))
+    st = sess.stats()
+    obs.export_jsonl(out)
+    recs = _read_jsonl(out)
+    paths = {r["path"] for r in recs if r["type"] == "span"}
+    assert {"step", "step/plan", "step/launch", "step/sync"} <= paths
+    assert not any(p.endswith("compile") for p in paths)
+    rows = {(r["component"], r["name"]): r for r in recs
+            if r["type"] == "metric"}
+    hist = rows[("sharded_session", "step_s")]
+    assert hist["count"] == 2 and "p50" in hist and "p99" in hist
+    for name in ("halo_rows", "migrated_rows", "steps", "host_syncs",
+                 "staleness_disp2", "boost"):
+        assert ("sharded_session", name) in rows, name
+    assert any(c == "sharded_session" and n.startswith("level_occ_")
+               for c, n in rows)
+    assert st["host_syncs"] == 2 and st["host_routings"] == 1
+    assert "sharded_session" in obs.summary()
+
+
+def _record_kernel_calls(monkeypatch):
+    """Log every call of the modules that launch kernels, as the
+    functional core reaches them: the fused search, the per-tile search
+    and the grid update (which launches ``bin_disp_tile``)."""
+    from repro_torch.core import api as core_api
+    from repro_torch.kernels import ops
+    calls = []
+
+    def wrap(mod, name):
+        fn = getattr(mod, name)
+
+        def logged(*args, **kw):
+            calls.append((name, tuple(
+                tuple(a.shape) if isinstance(a, torch.Tensor) else
+                type(a).__name__ for a in args)))
+            return fn(*args, **kw)
+
+        monkeypatch.setattr(mod, name, logged)
+
+    wrap(ops, "window_search_segmented")
+    wrap(core_api, "update_cell_grid")
+    wrap(core_api, "window_tile_search")
+    return calls
+
+
+@pytest.mark.parametrize("pallas", [False, True])
+def test_sharded_session_identical_on_off(rng, monkeypatch, pallas,
+                                         one_thread):
+    """Telemetry on vs off (``tests/test_obs.py:266``'s counterpart): the
+    same bitwise results, host syncs and counters, and the same sequence
+    of kernel-module calls."""
+    # a box of half the unit side: a quarter of the cells a slab face, so
+    # the plain version's tile of real and parked rows stays cheap
+    pts0 = (rng.random((300, 3)) * 0.5).astype(np.float32)
+    traj = [pts0]
+    for _ in range(2):
+        traj.append(np.clip(_jitter(rng, traj[-1], 0.02), 0, 0.5))
+    calls = _record_kernel_calls(monkeypatch)
+    opts = tc.SearchOpts(use_pallas=pallas, query_tile=64)
+
+    def run(mode):
+        obs.reset()
+        obs.configure(mode=mode)
+        del calls[:]
+        sess = tc.ShardedSession(pts0, PARAMS, opts, n_slabs=2,
+                                 device="cpu")
+        outs = [sess.step(p) for p in traj]
+        st = sess.stats()
+        del st["t_step"]
+        return outs, st, list(calls)
+
+    outs_off, st_off, calls_off = run("off")
+    outs_on, st_on, calls_on = run("log")
+    for a, b in zip(outs_off, outs_on):
+        assert torch.equal(a.indices, b.indices)
+        assert torch.equal(a.counts, b.counts)
+        assert torch.equal(a.distances2, b.distances2)
+    assert st_off == st_on and st_on["host_syncs"] == len(traj)
+    assert st_on["migrated"] > 0
+    assert calls_off == calls_on and calls_off
+    assert {c[0] for c in calls_on} == {"update_cell_grid", (
+        "window_search_segmented" if pallas else "window_tile_search")}
