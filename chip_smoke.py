@@ -62,6 +62,18 @@ and checks each against the brute-force oracle or against itself:
   ``make_prefill_step`` timed and profiled; a cache-writing prefill of 64
   tokens against 64 single-token ``decode_step`` calls; ``greedy_generate``
   at ``serve_lm``'s defaults, run three times with identical tokens;
+- the LM training path (phase ``lm_train``, after ``lm_serve``):
+  ``rwkv6-7b`` at full width with its depth cut to 8 layers, float32
+  weights, gradients and AdamW moments, ``make_train_step`` with remat on
+  8 x 512 tokens in 2 microbatches: the smoke model's step on the card
+  against the CPU's, the chunked core against ``rwkv_scan`` on layer 0's
+  inputs, a finite non-zero gradient for every parameter, the loss
+  falling over 6 steps on one batch, no blocking transfer in a step and
+  one a step in ``ResilientLoop``, a smoke ``ResilientLoop`` resuming
+  from its checkpoint after an injected failure, one step with int8
+  moments; the step's time, tokens/s, peak memory, profile and FLOP
+  share. It launches none of the hand-written kernels (as the
+  reference's training runs none of its Pallas kernels);
 - the neighbor-query service (phase ``serve``, run before ``lm_serve``):
   ``repro_torch.serve`` on three 1M-point KITTI-like scenes, knn and
   range, 256 requests of 1,024-16,384 rows on a simulated 2,000
@@ -83,6 +95,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -165,6 +178,27 @@ RWKV_RTOL = 1e-5           # kernel vs plain: max|diff| <= RWKV_RTOL*max(1, max|
 RWKV_HEAD_DIMS = (12, 48, 96, 128)   # head dims off the model's, held
 RWKV_SEQS = (1, 17, 256)             # ... against the plain version at these S
 RWKV_DECODE_LAUNCHES = 100           # S = 1 launches profiled
+# the LM training path (phase ``lm_train``): rwkv6-7b at full width, float32
+# weights, gradients and AdamW moments. Depth cut from 32 to 8 layers: 2.29e9
+# parameters x 16 bytes (weight, gradient, m, v) = 36.6 GB; all 32 layers
+# (7.53e9) would need 120.5 GB, 75 GB even with int8 moments, before
+# activations, on an 80 GB card
+LM_TRAIN_LAYERS = 8
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_MICRO = 8, 512, 2
+LM_TRAIN_TIMED = 5          # steps timed by CUDA events after one warm-up,
+                            # all on one batch: the loss must fall over the 6
+LM_TRAIN_LOOP_STEPS = 2     # ResilientLoop steps counted for transfers
+LM_CORE_TOL = 1e-4          # chunked core vs rwkv_scan on layer 0's inputs:
+                            # max|diff| <= tol * max(1, max|scan|) (the CPU
+                            # tests' tolerance on the reference's cores)
+LM_STEP_LOSS_RTOL = 1e-5    # card vs CPU train step at smoke size: the CPU
+LM_STEP_PARAM_ATOL = 2e-3   # tests' tolerances against the reference's step
+LM_RESUME_STEPS, LM_RESUME_FAIL_AT = 6, 5   # smoke ResilientLoop: steps, and
+                            # the call that fails (after the step-4 save)
+LM_RESUME_RTOL = 1e-3       # resumed vs uninterrupted losses on the card
+                            # (embedding backward accumulates with atomics,
+                            # so not bitwise; Adam's 1/sqrt(v) amplifies)
+
 # FP32 operations per (b, h, t) and state cell that rwkv_scan needs at
 # least: r_i*S_ij and its add to out_j, k_i*v_j, w_i*S_ij and the add of
 # k_i*v_j. The bonus term r_t (u (x) k_t^T v_t) = (r_t . (u (x) k_t)) v_t is
@@ -2277,17 +2311,9 @@ def phase_lm_serve(rwkv_report: str) -> dict:
         lat.append(start.elapsed_time(end))
         tok = torch.argmax(step_logits[:, -1], dim=-1)[:, None].to(
             torch.int32)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            step_logits, cache = decode(params, cache, tok)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    syncs = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
-             if "synchronizing CUDA operation" in str(w.message)]
+    res = []
+    syncs = sync_warnings(lambda: res.append(decode(params, cache, tok)))
+    step_logits, cache = res.pop()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         decode(params, cache, tok)
         torch.cuda.synchronize()
@@ -2351,6 +2377,352 @@ def phase_lm_serve(rwkv_report: str) -> dict:
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 library_ms=None)
+
+
+def sync_warnings(fn) -> list:
+    """Run ``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``; the
+    source lines of the blocking transfers it made."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+            if "synchronizing CUDA operation" in str(w.message)]
+
+
+def train_small_vs_cpu(small) -> dict:
+    """One train step of the smoke model on the card and on the CPU (the
+    path the CPU tests hold against the JAX reference) from the same
+    weights and batch (2 microbatches): loss, gradient norm and every
+    parameter."""
+    import torch
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    opt_cfg = OptConfig(lr=1e-2, warmup_steps=1)
+    gen = torch.Generator().manual_seed(LM_SEED)
+    batch = make_batch(small, 4, 37, gen, device="cpu")
+    batch = {k: v.reshape((2, 2) + v.shape[1:]) for k, v in batch.items()}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = M.init_params(small, LM_SEED, device="cpu",
+                               requires_grad=True).to(dev)
+        params, _, m = make_train_step(small, opt_cfg)(
+            params, init_opt_state(params, opt_cfg),
+            {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                    {k: v.detach().cpu() for k, v in
+                     params.state_dict().items()})
+    loss_err = abs(out["cuda"][0] - out["cpu"][0])
+    param_err = max(float((v - out["cpu"][2][k]).abs().max())
+                    for k, v in out["cuda"][2].items())
+    check(loss_err <= LM_STEP_LOSS_RTOL * abs(out["cpu"][0]),
+          f"lm_train: smoke loss on the card off the CPU's by {loss_err}")
+    check(abs(out["cuda"][1] - out["cpu"][1]) <= 1e-4 * out["cpu"][1],
+          "lm_train: smoke gradient norm on the card off the CPU's")
+    check(param_err <= LM_STEP_PARAM_ATOL, f"lm_train: smoke parameters "
+          f"after a step on the card off the CPU's by {param_err}")
+    row = {"arch": small.name, "loss": [out["cuda"][0], out["cpu"][0]],
+           "loss_abs_err": loss_err, "param_max_abs_err": param_err,
+           "loss_rtol": LM_STEP_LOSS_RTOL, "param_atol": LM_STEP_PARAM_ATOL}
+    emit("lm_train_small_vs_cpu", **row)
+    return row
+
+
+def resumed_on_card(small) -> dict:
+    """A smoke ``ResilientLoop`` on the card with a failure injected after
+    its step-4 checkpoint against the same run without one: it reaches the
+    last step, and its losses agree within LM_RESUME_RTOL."""
+    import shutil
+    from repro_torch.data.pipeline import synthetic_stream
+    from repro_torch.models import model as M
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.fault_tolerance import ResilientLoop
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    opt_cfg = OptConfig(lr=1e-2, warmup_steps=1)
+    root = ROOT / "build" / "lm_train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def stream_fn(start):
+        it = synthetic_stream(small, 4, 64, start_step=start, seed=LM_SEED,
+                              device="cuda")
+        return ({k: v.reshape((2, 2) + v.shape[1:]) for k, v in b.items()}
+                for b in it)
+
+    runs = {}
+    try:
+        for tag, fail_at in (("straight", None),
+                             ("failed", LM_RESUME_FAIL_AT)):
+            params = M.init_params(small, LM_SEED, device="cuda",
+                                   requires_grad=True)
+            step, calls = make_train_step(small, opt_cfg), [0]
+
+            def flaky(p, o, b, step=step, fail_at=fail_at, calls=calls):
+                calls[0] += 1
+                if calls[0] == fail_at:
+                    raise RuntimeError("injected node failure")
+                return step(p, o, b)
+
+            loop = ResilientLoop(CheckpointManager(str(root / tag)),
+                                 save_every=2)
+            p, o, log = loop.run(flaky, params,
+                                 init_opt_state(params, opt_cfg), stream_fn,
+                                 LM_RESUME_STEPS)
+            runs[tag] = (loop, int(o["step"]), [m["loss"] for m in log],
+                         {k: v.detach() for k, v in p.state_dict().items()})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    (loop_a, step_a, la, pa), (loop_b, step_b, lb, pb) = (
+        runs["straight"], runs["failed"])
+    check(loop_b.restarts == 1 and loop_a.restarts == 0,
+          "lm_train: ResilientLoop restarts")
+    check(step_a == step_b == LM_RESUME_STEPS,
+          f"lm_train: resumed loop ended at step {step_b}, not "
+          f"{LM_RESUME_STEPS}")
+    # the failed run replays from its step-4 checkpoint: its log is steps
+    # 0-3, then 4 and 5
+    check(len(lb) == LM_RESUME_STEPS, f"lm_train: resumed log {len(lb)}")
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(lb, la))
+    check(loss_err <= LM_RESUME_RTOL, f"lm_train: resumed losses off the "
+          f"uninterrupted run's by {loss_err} (relative)")
+    param_err = max(float((v - pa[k]).abs().max()) for k, v in pb.items())
+    row = {"steps": LM_RESUME_STEPS, "failed_call": LM_RESUME_FAIL_AT,
+           "restarts": loop_b.restarts, "losses": lb, "losses_straight": la,
+           "loss_max_rel_err": loss_err, "param_max_abs_err": param_err,
+           "rtol": LM_RESUME_RTOL}
+    emit("lm_train_resume", **row)
+    return row
+
+
+def rwkv_core_flops(b: int, s: int, h: int, hd: int, chunk: int) -> int:
+    """Forward FLOPs of the chunked core per layer: per (batch, head,
+    chunk) the inter-chunk product [C, hd] x [hd, hd], the state increment
+    [hd, C] x [C, hd], the scores [C, hd] x [hd, C] and their product with
+    v [C, C] x [C, hd], 2 operations a multiply-add."""
+    s_pad = -(-s // chunk) * chunk
+    return b * h * s_pad * (2 * hd * hd * 2 + 2 * chunk * hd * 2)
+
+
+def phase_lm_train() -> dict:
+    """The LM training path: ``rwkv6-7b`` at full width (d_model 4096, 64
+    heads of 64, d_ff 14336, vocab 65536, float32), its depth cut to
+    LM_TRAIN_LAYERS, weights from a seeded generator, batches from
+    ``synthetic_stream``; ``make_train_step`` with remat, 2 microbatches
+    and ``OptConfig`` defaults. Checks: the smoke model's step on the card
+    equals the CPU's; at full width the chunked core on layer 0's time-mix
+    inputs agrees with the ``rwkv_scan`` kernel; every parameter has a
+    finite, non-zero gradient; the loss is finite and falls over 6 steps
+    on one batch; no blocking transfer inside a step and one a step in
+    ``ResilientLoop``; a smoke ``ResilientLoop`` resumes from its
+    checkpoint after an injected failure; one step with int8 moments.
+    Measures the step (median of LM_TRAIN_TIMED by CUDA events), tokens/s,
+    peak memory, a profiled step's device time, and the model FLOPs' share
+    of the card's float32 rate."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import synthetic_stream
+    from repro_torch.kernels import distance_tile as tdist
+    from repro_torch.kernels import knn_tile as knn_mod
+    from repro_torch.kernels import range_tile as trange
+    from repro_torch.kernels import rwkv_scan as scan
+    from repro_torch.kernels import update_tile as upd
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models.config import get_config
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.fault_tolerance import ResilientLoop
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    t_phase = time.perf_counter()
+    full = get_config(LM_ARCH)
+    small = smoke_config(full)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    precision = torch.get_float32_matmul_precision()
+    check(not tf32 and precision == "highest",
+          f"lm_train: float32 matmuls must run in float32 (allow_tf32 "
+          f"{tf32}, precision {precision})")
+    small_row = train_small_vs_cpu(small)
+    resume_row = resumed_on_card(small)
+
+    cfg = dataclasses.replace(full, n_layers=LM_TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, LM_SEED, device="cuda", requires_grad=True)
+    opt_cfg = OptConfig()
+    opt = init_opt_state(params, opt_cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == M.count_params(cfg), "lm_train: parameter count")
+    b, s, n_micro = LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_MICRO
+
+    def stream_fn(start):
+        it = synthetic_stream(cfg, b, s, start_step=start, seed=LM_SEED,
+                              device="cuda")
+        return ({k: v.reshape((n_micro, b // n_micro) + v.shape[1:])
+                 for k, v in x.items()} for x in it)
+
+    batch = next(stream_fn(0))
+    step = make_train_step(cfg, opt_cfg)
+    emit("lm_train_setup", arch=cfg.name, n_layers=cfg.n_layers,
+         full_layers=full.n_layers, d_model=cfg.d_model,
+         heads=cfg.d_model // cfg.rwkv_head_dim, head_dim=cfg.rwkv_head_dim,
+         d_ff=cfg.d_ff, vocab=cfg.vocab, params=n_params,
+         full_params=M.count_params(full), dtype="float32",
+         tf32_matmul=tf32, float32_matmul_precision=precision,
+         batch=b, seq=s, n_micro=n_micro, chunk=L.RWKV_CHUNK, remat=True,
+         opt=dataclasses.asdict(opt_cfg), init_s=init_s,
+         cut={"n_layers": [full.n_layers, cfg.n_layers], "why": (
+             "weights, gradients and AdamW moments in float32 take 16 "
+             "bytes a parameter: 32 layers (7.53e9) need 120.5 GB, 75 GB "
+             "with int8 moments, before activations; 8 layers (2.29e9) "
+             "take 36.6 GB of the card's 80 GB")})
+
+    # the chunked core against the rwkv_scan kernel on layer 0's time-mix
+    # inputs (captured from a forward with gradients)
+    real, captured = L.rwkv_chunked_core, []
+
+    def capture(*ins, **kw):
+        out = real(*ins, **kw)
+        if not captured:
+            captured.append(([t.detach() for t in ins],
+                             [t.detach() for t in out]))
+        return out
+
+    L.rwkv_chunked_core = capture
+    try:
+        M.train_forward(params, {k: v[0] for k, v in batch.items()}, cfg)
+    finally:
+        L.rwkv_chunked_core = real
+    ins, (core_out, core_state) = captured.pop()
+    with torch.no_grad():
+        scan_out, scan_state = scan.rwkv_scan(*ins)
+        core_ms = cuda_time_ms(lambda: real(*ins), 5)
+        scan_ms = cuda_time_ms(lambda: scan.rwkv_scan(*ins), 5)
+    core_gap = {}
+    for name, got, want in (("out", core_out, scan_out),
+                            ("state", core_state, scan_state)):
+        err = float((got - want).abs().max())
+        scale = max(1.0, float(want.abs().max()))
+        core_gap[name] = {"max_abs_err": err, "scale": scale}
+        check(bool(torch.isfinite(got).all()) and err <= LM_CORE_TOL * scale,
+              f"lm_train: chunked core off rwkv_scan ({name}) by {err} "
+              f"(scale {scale})")
+    emit("lm_train_core_vs_scan", shape=list(ins[0].shape), tol=LM_CORE_TOL,
+         **core_gap, core_forward_ms=core_ms, rwkv_scan_ms=scan_ms)
+    del ins, core_out, core_state, scan_out, scan_state
+
+    # the warm-up step and LM_TRAIN_TIMED timed ones, on one batch
+    counters = [scan.rwkv_scan, knn_mod.knn_tile_anchored, knn_mod.knn_tile,
+                upd.bin_disp_tile, trange.range_count, tdist.distance_tile]
+    for fn in counters:
+        fn.launches = 0
+    losses, times = [], []
+    for i in range(1 + LM_TRAIN_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, m = step(params, opt, batch)
+        end.record()
+        losses.append(m["loss"])
+        if i == 0:
+            # every parameter: a finite, non-zero gradient
+            names = [n for n, _ in params.named_parameters()]
+            ok = torch.stack([torch.isfinite(p.grad).all()
+                              & (p.grad.abs().max() > 0)
+                              for p in params.parameters()]).cpu().tolist()
+            bad = [n for n, good in zip(names, ok) if not good]
+            check(not bad, f"lm_train: parameters without a finite, "
+                  f"non-zero gradient: {bad[:8]}")
+            grad_max = {n: float(p.grad.abs().max()) for n, p in
+                        params.named_parameters() if n.startswith(
+                            "blocks.0.mixer.")}
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    losses = torch.stack(losses).cpu().tolist()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    check(all(v == 0 for v in launches.values()),
+          f"lm_train: a hand-written kernel ran in a train step: {launches}")
+    check(all(math.isfinite(x) for x in losses),
+          f"lm_train: loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"lm_train: loss did not fall over "
+          f"{len(losses)} steps on one batch: {losses}")
+    step_ms = sorted(times[1:])[len(times[1:]) // 2]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # blocking transfers: none inside a step, one a step in ResilientLoop
+    # (its metrics fetch; no checkpoint is due in these steps)
+    res = []
+    in_step = sync_warnings(lambda: res.append(step(params, opt, batch)))
+    params, opt, _ = res.pop()
+    loop_dir = ROOT / "build" / "lm_train_loop"
+    loop = ResilientLoop(CheckpointManager(str(loop_dir)),
+                         save_every=LM_TRAIN_LOOP_STEPS + 1)
+    in_loop = sync_warnings(lambda: res.append(loop.run(
+        step, params, opt, stream_fn, LM_TRAIN_LOOP_STEPS)))
+    params, opt, _ = res.pop()
+    loop_dir.rmdir()
+    check(not in_step, f"lm_train: blocking transfers in train_step: "
+          f"{in_step}")
+    check(len(in_loop) == LM_TRAIN_LOOP_STEPS, f"lm_train: {len(in_loop)} "
+          f"blocking transfers in {LM_TRAIN_LOOP_STEPS} ResilientLoop "
+          f"steps: {in_loop}")
+
+    # one profiled step: device busy and idle time, the top kernels
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+    device = device_breakdown(prof, kernel="rwkv_scan")
+    del prof
+
+    # one step with int8 moments, the float32 moments freed first
+    del opt
+    torch.cuda.empty_cache()
+    q_cfg = OptConfig(quantize_moments=True)
+    q_opt = init_opt_state(params, q_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, q_opt, qm = make_train_step(cfg, q_cfg)(params, q_opt, batch)
+    q_loss = float(qm["loss"])
+    q_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(math.isfinite(q_loss), f"lm_train: int8-moment step loss {q_loss}")
+    check(q_opt["m"]["embed"]["code"].dtype == torch.int8,
+          "lm_train: int8 moments")
+
+    tokens = b * s
+    rec = rwkv_core_flops(b, s, cfg.d_model // cfg.rwkv_head_dim,
+                          cfg.rwkv_head_dim, L.RWKV_CHUNK) * cfg.n_layers
+    flops = 6 * n_params * tokens + 3 * rec
+    row = {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
+           "batch": b, "seq": s, "n_micro": n_micro, "tokens": tokens,
+           "step_ms": step_ms, "step_ms_all": times,
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "peak_memory_gb": peak_gb, "losses": losses,
+           "grad_max_layer0_mixer": grad_max,
+           "blocking_transfers_in_step": in_step,
+           "blocking_transfers_in_loop": in_loop,
+           "kernel_launches_in_steps": launches,
+           "device": device, "model_flops": flops,
+           "model_flops_formula": "6 x params x tokens + 3 x recurrence "
+           "forward (chunked core)", "recurrence_forward_flops": rec,
+           "flops_per_s": flops / step_ms * 1e3,
+           "fp32_peak_share": flops / (step_ms / 1e3) / PEAK_FP32,
+           "int8_moments": {"loss": q_loss, "peak_memory_gb": q_peak_gb},
+           "small_vs_cpu": small_row, "resume": resume_row,
+           "seconds": time.perf_counter() - t_phase}
+    emit("lm_train", **row)
+    del params, q_opt, batch
+    torch.cuda.empty_cache()
+    return row
 
 
 def serve_trace(scenes: dict, signatures: list, rng):
@@ -2810,6 +3182,7 @@ def main() -> int:
          d2_gap=serve["d2_gap"])
 
     lm = phase_lm_serve(reports.get("rwkv_scan", ""))
+    phase_lm_train()
 
     rows = [("knn_tile_anchored", dict(
         launches=m["launches"], err=max(m["err"], hp_err, any_k_err,

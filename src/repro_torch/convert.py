@@ -7,9 +7,10 @@ functions take that state as numpy arrays and plain values (the static
 spec, params and options as dataclasses or as the ``dict`` that
 ``dataclasses.asdict`` makes of the reference's ones), so that
 ``execute_plan`` or ``SimulationSession.step`` can run under exactly the
-state that another implementation built. A language model's parameters
-and decode cache come as the reference's nested trees of numpy arrays,
-with each period's layers stacked on a leading axis.
+state that another implementation built. A language model's parameters,
+gradients, optimizer state and decode cache come as the reference's
+nested trees of numpy arrays, with each period's layers stacked on a
+leading axis.
 """
 from __future__ import annotations
 
@@ -149,13 +150,33 @@ def _unstack(tree, cfg) -> list:
     return out + list(tree.get("tail", []))
 
 
+def _is_quantized(v) -> bool:
+    return isinstance(v, dict) and "code" in v
+
+
 def _flatten(tree, prefix: str = "") -> dict:
+    """A nested dict as ``{"a.b.c": leaf}``; a quantized moment
+    (``{"code", "scale"}``) is one leaf."""
     out = {}
     for k, v in tree.items():
-        if isinstance(v, dict):
+        if isinstance(v, dict) and not _is_quantized(v):
             out.update(_flatten(v, f"{prefix}{k}."))
         else:
             out[prefix + k] = v
+    return out
+
+
+def lm_arrays_by_name(cfg, tree) -> dict:
+    """A tree shaped as the reference's LM parameters (the parameters, their
+    gradients, or one optimizer moment, as numpy arrays) by the port's
+    parameter names (``LM.named_parameters()``): the stacked body unstacked
+    into ``blocks.<layer>.``, a quantized moment's ``code`` and ``scale``
+    unstacked alike and kept together."""
+    top = {k: v for k, v in tree.items()
+           if k not in ("prefix", "body", "tail")}
+    out = _flatten(top)
+    for li, layer in enumerate(_unstack(tree, cfg)):
+        out.update(_flatten(layer, f"blocks.{li}."))
     return out
 
 
@@ -163,17 +184,31 @@ def lm_params_from_arrays(cfg, tree, *, device="cuda") -> LM:
     """The port's :class:`LM` holding the reference's parameters: ``tree``
     is the reference's param tree as numpy arrays
     (``jax.tree.map(np.asarray, params)``), its stacked body unstacked
-    into one block per layer. Dtypes are kept."""
+    into one block per layer. Dtypes are kept; the parameters do not
+    require gradients (``requires_grad_()`` to train)."""
     dev = resolve_device(device)
-    top = {k: v for k, v in tree.items()
-           if k not in ("prefix", "body", "tail")}
-    state = _flatten(top)
-    for li, layer in enumerate(_unstack(tree, cfg)):
-        state.update(_flatten(layer, f"blocks.{li}."))
+    state = lm_arrays_by_name(cfg, tree)
     model = init_params(cfg, dtype=torch.float32, device="meta")
     model.load_state_dict({k: _leaf(v, dev) for k, v in state.items()},
                           strict=True, assign=True)
     return model
+
+
+def opt_state_from_arrays(cfg, tree, *, device="cuda") -> dict:
+    """The port's optimizer state (``train.optimizer.init_opt_state``'s
+    layout) from the reference's: ``tree`` is its ``{"step", "m", "v"}``
+    as numpy arrays, each moment shaped as the param tree (float32 leaves,
+    or ``{"code", "scale"}`` when quantized); ``m`` and ``v`` come back by
+    the port's parameter names, the step as an int32 0-d tensor."""
+    dev = resolve_device(device)
+
+    def moment(tree_m):
+        return {name: (_tree_map(lambda a: _leaf(a, dev), v)
+                       if _is_quantized(v) else _leaf(v, dev))
+                for name, v in lm_arrays_by_name(cfg, tree_m).items()}
+
+    return {"step": _tensor(tree["step"], torch.int32, dev).reshape(()),
+            "m": moment(tree["m"]), "v": moment(tree["v"])}
 
 
 def decode_cache_from_arrays(cfg, tree, *, device="cuda") -> Cache:

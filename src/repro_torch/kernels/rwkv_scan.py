@@ -14,7 +14,10 @@ the inputs in place through their strides and splits each head's columns
 over several CTAs (:func:`scan_plan`); on a CPU tensor it runs
 :func:`rwkv_scan_plain`, the reference's ``_rwkv_scan_core``
 (``src/repro/models/layers.py``) as a loop over t. There is no fallback
-from one to the other.
+from one to the other. The kernel has no backward (nor has the
+reference's, its inference and prefill fast path), so the wrapper refuses
+inputs that autograd would need a gradient of, on every device: training
+runs ``models.layers.rwkv_chunked_core``.
 """
 from __future__ import annotations
 
@@ -91,6 +94,12 @@ def rwkv_scan(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
     """r/k/v/w [B, S, H, hd], u [H, hd], state0 [B, H, hd, hd] ->
     (out [B, S, H, hd], state_T [B, H, hd, hd]), both float32."""
     _check(r, k, v, w, u, state0)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u, state0)):
+        raise RuntimeError(
+            "rwkv_scan has no backward: an input requires a gradient (train "
+            "through models.layers.rwkv_chunked_core, or call under "
+            "torch.no_grad())")
     if r.device.type == "cpu":
         return rwkv_scan_plain(r, k, v, w, u, state0)
     if r.device.type != "cuda":

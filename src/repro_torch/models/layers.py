@@ -7,9 +7,13 @@ apply a mapping of parameters by name (a dict, an ``nn.ParameterDict`` or
 one of the modules below) and return ``(out, new_cache)`` as the
 reference's do. :class:`RWKV6TimeMix` and :class:`RWKV6ChannelMix` hold
 the parameters as ``nn.Module``s. Parameters are made for serving: they
-do not require gradients, and the recurrence runs through
-``kernels.rwkv_scan.rwkv_scan`` (no backward). The attention, MLA, MoE,
-RG-LRU and Whisper layers are not ported yet (ROADMAP queue 1 item 14).
+require gradients only after ``requires_grad_()`` (which
+``models.model.init_params(..., requires_grad=True)`` calls). The time
+mix runs its recurrence through ``kernels.rwkv_scan.rwkv_scan`` (no
+backward) when no gradient is needed, and through
+:func:`rwkv_chunked_core`, plain tensor operations that autograd
+differentiates, when one is. The attention, MLA, MoE, RG-LRU and Whisper
+layers are not ported yet (ROADMAP queue 1 item 2.2).
 """
 from __future__ import annotations
 
@@ -81,7 +85,11 @@ def layernorm(x: Tensor, p: Mapping[str, Tensor], eps: float) -> Tensor:
 # RWKV-6 (Finch): data-dependent decay time-mix + channel-mix
 # ---------------------------------------------------------------------------
 
-_LOG_DECAY_CLAMP = 5.0   # per-step |log w| cap, as the reference's
+_LOG_DECAY_CLAMP = 5.0   # per-step |log w| cap, as the reference's: keeps
+                         # every exponent difference inside a chunk within
+                         # float32 range (16 * 5 = 80 < log(f32 max) ~ 88.7)
+RWKV_CHUNK = 16          # chunk length of the chunked-parallel core, the
+                         # reference's default
 
 
 def init_rwkv6(gen, cfg, dtype, device=None) -> dict[str, Any]:
@@ -116,13 +124,84 @@ def _token_shift(x: Tensor, cache: Cache | None) -> Tensor:
     return torch.cat([x_prev, x[:, :-1, :]], dim=1) - x
 
 
+def rwkv_chunked_core(r: Tensor, k: Tensor, v: Tensor, w: Tensor,
+                      u: Tensor, state0: Tensor, chunk: int = RWKV_CHUNK
+                      ) -> tuple[Tensor, Tensor]:
+    """The reference's chunked-parallel form of the recurrence
+    (``_rwkv_chunked_core``), the same math as ``rwkv_scan`` in plain
+    tensor operations, so that autograd differentiates it. Within a chunk,
+    with A_t = prod_{j<=t} w_j,
+
+        out_t = r_t diag(A_{t-1}) S_0
+              + sum_{i<t} r_t diag(A_{t-1}/A_i) k_i^T v_i
+              + (r_t . u k_t) v_t.
+
+    S is padded to a multiple of ``chunk`` (r, k, v with 0, w with 1, so
+    the state passes the padding unchanged). The intra-chunk and bonus
+    terms of all chunks are batched einsums; only the carried state is a
+    loop over the chunks, each chunk's increment computed for all chunks
+    at once. r/k/v/w [B, S, H, hd] float32, u [H, hd], state0
+    [B, H, hd, hd] -> (out [B, S, H, hd], state_T)."""
+    b, s, h, hd = r.shape
+    pad = (-s) % chunk
+    if pad:
+        z = (0, 0, 0, 0, 0, pad)
+        r, k, v = F.pad(r, z), F.pad(k, z), F.pad(v, z)
+        w = F.pad(w, z, value=1.0)
+    n_c = (s + pad) // chunk
+
+    def resh(t):                                     # [N, B, C, H, hd]
+        return t.reshape(b, n_c, chunk, h, hd).transpose(0, 1)
+
+    rc, kc, vc, wc = resh(r), resh(k), resh(v), resh(w)
+    lw = torch.log(torch.clamp(wc, min=1e-38))       # <= 0
+    la = torch.cumsum(lw, dim=2)                     # inclusive
+    la_ex = la - lw                                  # exclusive
+    la_c = la[:, :, -1:]                             # the chunk's total decay
+    mask = (torch.arange(chunk, device=r.device)[:, None]
+            > torch.arange(chunk, device=r.device)[None, :])
+
+    rr = rc * torch.exp(la_ex)                       # <= |r|, safe
+    kk_neg = kc * torch.exp(-la)                     # bounded by the clamp
+    # intra-chunk (strictly causal)
+    scores = torch.einsum("nbthk,nbihk->nbhti", rr, kk_neg)
+    scores = torch.where(mask, scores, scores.new_zeros(()))
+    intra = torch.einsum("nbhti,nbihv->nbthv", scores, vc)
+    # diagonal bonus term
+    bonus = torch.einsum("nbchk,nbchk->nbch", rc, u * kc)
+    # each chunk's state increment and decay, then the carried state
+    k_dec = kc * torch.exp(la_c - la)
+    incr = torch.einsum("nbihk,nbihv->nbhkv", k_dec, vc)
+    decay = torch.exp(la_c[:, :, 0])[..., None]      # [N, B, H, hd, 1]
+    states, state = [], state0
+    for n in range(n_c):
+        states.append(state)
+        state = state * decay[n] + incr[n]
+    # inter-chunk: the decayed state at the chunk's start
+    out = torch.einsum("nbchk,nbhkv->nbchv", rr, torch.stack(states))
+    out = out + intra + bonus[..., None] * vc
+    out = out.transpose(0, 1).reshape(b, s + pad, h, hd)
+    return out[:, :s], state
+
+
+def _needs_grad(*ts: Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def rwkv6_timemix_fwd(p: Mapping[str, Any], x: Tensor, cfg, *,
                       cache: Cache | None = None
                       ) -> tuple[Tensor, Cache | None]:
     """RWKV-6 time mix. State S [B, H, hd, hd]; recurrence
-    S_t = diag(w_t) S_{t-1} + k_t^T v_t ; out_t = r_t (S_{t-1} + u k_t^T v_t),
-    through :func:`kernels.rwkv_scan.rwkv_scan` for every S (prefill and
-    decode alike)."""
+    S_t = diag(w_t) S_{t-1} + k_t^T v_t ; out_t = r_t (S_{t-1} + u k_t^T v_t).
+
+    Where autograd needs a gradient of the recurrence's inputs (training),
+    it runs :func:`rwkv_chunked_core`; otherwise (prefill and decode in
+    serving) :func:`kernels.rwkv_scan.rwkv_scan`, which has no backward.
+    The reference takes its chunked core for every S > 1, prefill
+    included, and its sequential scan for S = 1; the two cores are the
+    same math, held together by ``tests/test_torch_models.py``
+    (``test_forward_logits_matches_reference`` against both of the
+    reference's cores) and ``tests/test_torch_train.py``."""
     b, s, d = x.shape
     hd = cfg.rwkv_head_dim
     n_h = d // hd
@@ -147,7 +226,13 @@ def rwkv6_timemix_fwd(p: Mapping[str, Any], x: Tensor, cfg, *,
     w = torch.exp(-torch.clamp(torch.exp(w), 0.0, _LOG_DECAY_CLAMP))
     w = w.reshape(b, s, n_h, hd)                             # decay in (0,1)
 
-    out, state_last = rwkv_scan(r, k, v, w, p["u"], state0)
+    u = p["u"]
+    if _needs_grad(r, k, v, w, u, state0):
+        out, state_last = rwkv_chunked_core(
+            r.to(torch.float32), k.to(torch.float32), v.to(torch.float32),
+            w.to(torch.float32), u, state0)
+    else:
+        out, state_last = rwkv_scan(r, k, v, w, u, state0)
     out = out.reshape(b, s, d)
     out = layernorm(out, p["ln_x"], 1e-5).to(x.dtype) * g.to(x.dtype)
     out = out @ p["wo"]

@@ -4,10 +4,12 @@ Port of ``src/repro/models/model.py`` for the ``rwkv`` layer kind. The
 reference stacks each period's parameters on a leading axis and runs the
 layers as a ``lax.scan``; the port keeps one module per layer
 (:class:`LM` holds an ``nn.ModuleList`` of :class:`Block`) and runs them in
-a plain loop, with no remat. Decode caches are a list with one entry per
-layer. The attention, MLA, MoE, RG-LRU and Whisper kinds, the chunked
-training loss and ``train_forward`` are not ported yet (ROADMAP queue 1
-item 14).
+a plain loop. Training (``train_forward``) recomputes each layer of the
+scanned periods in the backward pass (``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint`` of the period body) and computes the
+cross-entropy in sequence chunks (``chunked_ce_loss``). Decode caches are
+a list with one entry per layer. The attention, MLA, MoE, RG-LRU and
+Whisper kinds are not ported yet (ROADMAP queue 1 item 2.2).
 """
 from __future__ import annotations
 
@@ -15,7 +17,9 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.api import resolve_device
 from . import layers as L
@@ -23,7 +27,7 @@ from .config import ArchConfig
 
 Tensor = torch.Tensor
 Cache = list[dict[str, Any]]
-_NOT_PORTED = ("layer kind {!r} is not ported yet (ROADMAP queue 1 item 14: "
+_NOT_PORTED = ("layer kind {!r} is not ported yet (ROADMAP queue 1 item 2.2: "
                "only the rwkv kind has landed)")
 
 
@@ -102,7 +106,8 @@ def layer_groups(cfg: ArchConfig) -> LayerGroups:
 class LM(nn.Module):
     """The language model: ``embed`` [V, d], ``blocks`` (one per layer, in
     ``cfg.layer_kinds`` order), ``final_norm`` and, unless the config ties
-    them, ``unembed`` [d, V]."""
+    them, ``unembed`` [d, V]. Its parameters are made without gradients
+    (serving); ``requires_grad_()`` makes them trainable."""
 
     def __init__(self, cfg: ArchConfig, dtype=torch.float32, *,
                  generator=None, device=None):
@@ -129,26 +134,61 @@ class LM(nn.Module):
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32, *,
-                device="cuda") -> LM:
+                device="cuda", requires_grad: bool = False) -> LM:
     """The model with random weights drawn from a ``torch.Generator`` on
     ``device`` seeded with ``seed`` (the reference draws from a JAX key, so
-    the two give different weights from one seed). Raises without a card
+    the two give different weights from one seed); its parameters require
+    gradients if ``requires_grad`` (to train it). Raises without a card
     unless ``device`` is ``"cpu"`` (or ``"meta"``, which only allocates
     shapes)."""
     dev = resolve_device(device)
     gen = (None if dev.type == "meta"
            else torch.Generator(device=dev).manual_seed(seed))
-    return LM(cfg, dtype, generator=gen, device=dev)
+    return LM(cfg, dtype, generator=gen, device=dev).requires_grad_(
+        requires_grad)
+
+
+def scanned_params(model: LM) -> set[str]:
+    """Names of the parameters that the reference stacks over its scanned
+    periods (every block of the ``body``, not the prefix or tail), where
+    each has one more (leading) axis than in the port. Its optimizer
+    decays a parameter by the number of axes it has there."""
+    return {f"blocks.{i}.{name}" for i in _scanned_layers(model.cfg)
+            for name, _ in model.blocks[i].named_parameters()}
+
+
+def _scanned_layers(cfg: ArchConfig) -> range:
+    """Indices of the layers in the reference's scanned periods."""
+    groups = layer_groups(cfg)
+    lo = len(groups.prefix_kinds)
+    return range(lo, lo + groups.n_periods * len(groups.period))
 
 
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
-def _run_layers(params: LM, x: Tensor, cfg: ArchConfig) -> Tensor:
-    for blk, kind in zip(params.blocks, cfg.layer_kinds):
-        x, _ = apply_layer(blk, x, cfg, kind)
+def _run_layers(params: LM, x: Tensor, cfg: ArchConfig, *,
+                remat: bool = False) -> Tensor:
+    """The blocks in order. With ``remat`` (and autograd recording), each
+    layer of the scanned periods keeps only its input for the backward
+    pass and runs again there, as the reference's ``jax.checkpoint`` of
+    its period body; prefix and tail layers are not recomputed, as
+    there."""
+    scanned = _scanned_layers(cfg)
+    remat = remat and torch.is_grad_enabled()
+    for i, (blk, kind) in enumerate(zip(params.blocks, cfg.layer_kinds)):
+        if remat and i in scanned:
+            # the forward draws no random numbers: no RNG state to replay
+            x = checkpoint(_layer_out, blk, x, cfg, kind,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _layer_out(blk, x, cfg, kind)
     return x
+
+
+def _layer_out(blk: Block, x: Tensor, cfg: ArchConfig, kind: str) -> Tensor:
+    return apply_layer(blk, x, cfg, kind)[0]
 
 
 def _logits(x: Tensor, unembed: Tensor) -> Tensor:
@@ -163,6 +203,46 @@ def forward_logits(params: LM, tokens: Tensor, cfg: ArchConfig) -> Tensor:
     x = _run_layers(params, x, cfg)
     x = _norm(x, params.final_norm, cfg.norm_eps)
     return _logits(x, params.unembedding())
+
+
+def chunked_ce_loss(x: Tensor, unembed: Tensor, labels: Tensor,
+                    mask: Tensor, *, chunk: int = 512) -> Tensor:
+    """Mean next-token cross-entropy of ``x`` [B, S, d] over ``mask``,
+    without the whole [B, S, V] logits at once: the sequence runs in
+    ``max(1, S // chunk)`` chunks (S must divide into them, as in the
+    reference), each chunk's logits in float32; masked labels may be
+    sentinels (clipped at 0). The masked mean divides by at least 1."""
+    b, s, d = x.shape
+    n_chunk = max(1, s // chunk)
+    xc = x.reshape(b, n_chunk, s // n_chunk, d)
+    lc = labels.reshape(b, n_chunk, s // n_chunk)
+    mc = mask.reshape(b, n_chunk, s // n_chunk)
+    nlls, cnts = [], []
+    for i in range(n_chunk):
+        logits = _logits(xc[:, i], unembed)
+        lse = torch.logsumexp(logits, dim=-1)
+        safe = torch.clamp(lc[:, i], min=0).to(torch.int64)
+        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+        mm = mc[:, i].to(torch.float32)
+        nlls.append(torch.sum((lse - gold) * mm))
+        cnts.append(torch.sum(mm))
+    return torch.sum(torch.stack(nlls)) / torch.clamp(
+        torch.sum(torch.stack(cnts)), min=1.0)
+
+
+def train_forward(params: LM, batch: dict[str, Tensor], cfg: ArchConfig,
+                  *, remat: bool = True) -> Tensor:
+    """Training loss of one (micro)batch: ``tokens``, ``labels`` and
+    ``mask`` [B, S] -> the mean next-token cross-entropy, a 0-d float32
+    tensor on the batch's device. The port's layer kind (``rwkv``) takes
+    no positions; the vision, M-RoPE, encoder-decoder and multi-token
+    parts of the reference's ``train_forward`` come with the layer kinds
+    that use them (no config the port can build has them)."""
+    x = F.embedding(batch["tokens"], params.embed)
+    x = _run_layers(params, x, cfg, remat=remat)
+    x = _norm(x, params.final_norm, cfg.norm_eps)
+    return chunked_ce_loss(x, params.unembedding(), batch["labels"],
+                           batch["mask"])
 
 
 # ---------------------------------------------------------------------------

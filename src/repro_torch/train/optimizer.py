@@ -1,0 +1,183 @@
+"""AdamW with optional int8 block-quantized moments (the port of
+``src/repro/train/optimizer.py``).
+
+Parameters, gradients and moments are mappings by the model's parameter
+names (``dict(model.named_parameters())``, the ``.grad`` of each). A
+quantized moment is ``{"code": int8, "scale": float32}``: blocks of 256
+along the last axis (padded), codes keeping the parameter's shape (its
+last axis padded), scales that shape with the last axis replaced by the
+block count; the second moment is quantized in sqrt-space with a decode
+floor of one quantization step (the reference's documented bias: tiny
+second moments get conservatively smaller steps). Rounding is half to
+even in both frameworks, so codes equal the reference's on equal inputs.
+
+The step counter, the learning rate and the clip factor stay on the
+device, so a step fetches nothing to the host. :func:`apply_updates`
+updates the parameters, and float32 moments, in place (under
+``torch.no_grad``): a step then needs no second copy of either, only
+one parameter's temporaries at a time.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Collection, Mapping
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+_QBLOCK = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    quantize_moments: bool = False
+    warmup_steps: int = 100
+
+
+# -- int8 blockwise quantization --------------------------------------------
+
+def _blocks(x: Tensor) -> Tensor:
+    """``x`` (0-d taken as [1]) padded with zeros along its last axis to a
+    multiple of the block, as [..., n_blocks, _QBLOCK]."""
+    if x.ndim == 0:
+        x = x[None]
+    xp = F.pad(x, (0, (-x.shape[-1]) % _QBLOCK))
+    return xp.reshape(*xp.shape[:-1], xp.shape[-1] // _QBLOCK, _QBLOCK)
+
+
+def _code_shape(blocks: Tensor) -> tuple[int, ...]:
+    return (*blocks.shape[:-2], blocks.shape[-2] * _QBLOCK)
+
+
+def _qencode(x: Tensor) -> dict[str, Tensor]:
+    """Signed absmax int8 per block."""
+    blocks = _blocks(x)
+    scale = torch.amax(torch.abs(blocks), dim=-1, keepdim=True) / 127.0
+    scale = torch.clamp(scale, min=1e-20)
+    code = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
+    return {"code": code.reshape(_code_shape(blocks)),
+            "scale": scale[..., 0].to(torch.float32)}
+
+
+def _decoded(q: Mapping[str, Tensor], values: Tensor, shape) -> Tensor:
+    """Block values [..., n_blocks, _QBLOCK] back to ``shape``."""
+    out = values.reshape(q["code"].shape)
+    out = out[..., : shape[-1] if len(shape) else 1]
+    return out.reshape(shape)
+
+
+def _code_blocks(q: Mapping[str, Tensor]) -> Tensor:
+    code = q["code"]
+    return code.reshape(*code.shape[:-1], code.shape[-1] // _QBLOCK,
+                        _QBLOCK).to(torch.float32)
+
+
+def _qdecode(q: Mapping[str, Tensor], shape) -> Tensor:
+    return _decoded(q, _code_blocks(q) * q["scale"][..., None], shape)
+
+
+def _qencode_sqrt(x: Tensor) -> dict[str, Tensor]:
+    """Non-negative values (second moments), quantized in sqrt-space. The
+    root is taken in float64 and rounded once to float32, the correctly
+    rounded float32 root (PyTorch's vectorised float32 root on the CPU is
+    not: about 0.6 % of values differ by an ulp), so that scales and codes
+    equal the reference's."""
+    root = torch.sqrt(torch.clamp(x, min=0.0).to(torch.float64))
+    blocks = _blocks(root.to(torch.float32))
+    scale = torch.clamp(torch.amax(blocks, dim=-1, keepdim=True) / 127.0,
+                        min=1e-20)
+    code = torch.clamp(torch.round(blocks / scale), 0, 127).to(torch.int8)
+    return {"code": code.reshape(_code_shape(blocks)),
+            "scale": scale[..., 0].to(torch.float32)}
+
+
+def _qdecode_sqrt(q: Mapping[str, Tensor], shape) -> Tensor:
+    # decode floor of one quant step: bounds updates for zero-collapsed v
+    root = torch.clamp(_code_blocks(q), min=1.0) * q["scale"][..., None]
+    return _decoded(q, root * root, shape)
+
+
+# -- state -------------------------------------------------------------------
+
+def init_opt_state(params: Mapping[str, Tensor] | torch.nn.Module,
+                   cfg: OptConfig) -> dict[str, Any]:
+    """``{"step": int32 0-d, "m": {name: moment}, "v": {name: moment}}`` on
+    the parameters' devices, the moments zero."""
+    params = _named(params)
+
+    def zeros_like_moment(p):
+        z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return _qencode(z) if cfg.quantize_moments else z
+
+    dev = next(iter(params.values())).device
+    return {"step": torch.zeros((), dtype=torch.int32, device=dev),
+            "m": {n: zeros_like_moment(p) for n, p in params.items()},
+            "v": {n: zeros_like_moment(p) for n, p in params.items()}}
+
+
+def _named(params) -> dict[str, Tensor]:
+    if isinstance(params, torch.nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+def _global_norm(tree: Mapping[str, Tensor]) -> Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                          for g in tree.values()))
+
+
+def lr_at(cfg: OptConfig, step: Tensor) -> Tensor:
+    """The warmed-up learning rate at ``step`` (a device tensor)."""
+    warm = torch.clamp((step + 1) / max(cfg.warmup_steps, 1), max=1.0)
+    return cfg.lr * warm
+
+
+@torch.no_grad()
+def apply_updates(params: Mapping[str, Tensor] | torch.nn.Module,
+                  grads: Mapping[str, Tensor], state: dict[str, Any],
+                  cfg: OptConfig, *, stacked: Collection[str] = ()
+                  ) -> tuple[dict[str, Tensor], dict[str, Any], dict]:
+    """One AdamW step: the global gradient norm clipped to
+    ``cfg.grad_clip``, bias-corrected moments, and weight decay on a
+    parameter of two axes or more. A parameter named in ``stacked`` counts
+    one axis more: the reference holds it stacked over its scanned layers
+    (``models.model.scanned_params``), and decays it by that shape.
+    Parameters and float32 moments are updated in place. Returns (params,
+    state, metrics), ``metrics`` the device scalars ``grad_norm`` and
+    ``lr``."""
+    params = _named(params)
+    step = state["step"] + 1
+    gnorm = _global_norm(grads)
+    clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
+                       max=1.0)
+    lr = lr_at(cfg, state["step"])
+    stepf = step.to(torch.float32)
+    b1c = 1.0 - cfg.b1 ** stepf
+    b2c = 1.0 - cfg.b2 ** stepf
+    new_m, new_v = {}, {}
+    for name, p in params.items():
+        gf = grads[name].to(torch.float32) * clip
+        m, v = state["m"][name], state["v"][name]
+        if cfg.quantize_moments:
+            m_f = cfg.b1 * _qdecode(m, p.shape) + (1 - cfg.b1) * gf
+            v_f = (cfg.b2 * _qdecode_sqrt(v, p.shape)
+                   + (1 - cfg.b2) * gf * gf)
+        else:
+            m_f = m.mul_(cfg.b1).add_((1 - cfg.b1) * gf)
+            v_f = v.mul_(cfg.b2).add_((1 - cfg.b2) * gf * gf)
+        upd = (m_f / b1c) / (torch.sqrt(v_f / b2c) + cfg.eps)
+        ndim = p.ndim + (name in stacked)
+        wd = cfg.weight_decay if ndim >= 2 else 0.0
+        pf = p.to(torch.float32)
+        p.copy_(pf - lr * (upd + wd * pf))
+        new_m[name] = _qencode(m_f) if cfg.quantize_moments else m_f
+        new_v[name] = _qencode_sqrt(v_f) if cfg.quantize_moments else v_f
+    return (params, {"step": step, "m": new_m, "v": new_v},
+            {"grad_norm": gnorm, "lr": lr})

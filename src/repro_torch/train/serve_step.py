@@ -2,8 +2,10 @@
 cache-writing prompt) + a batched greedy loop.
 
 Port of ``src/repro/train/serve_step.py``. PyTorch runs eagerly, so the
-steps are plain closures (no jit), and the model's parameters do not
-require gradients, so no autograd graph is kept.
+steps are plain closures (no jit). They run under ``torch.no_grad()``, so
+no autograd graph is kept and the recurrence takes the ``rwkv_scan``
+kernel even for a model whose parameters require gradients (one being
+trained).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ def make_prefill_step(cfg: ArchConfig) -> Callable:
     """Forward over the full prompt producing last-position logits [B, V]
     float32. (The cache-writing prefill is ``decode_step`` with S > 1.)"""
 
+    @torch.no_grad()
     def prefill(params: M.LM, batch: dict[str, Tensor]) -> Tensor:
         x = params.embed[batch["tokens"]]
         x = M._run_layers(params, x, cfg)
@@ -31,11 +34,13 @@ def make_prefill_step(cfg: ArchConfig) -> Callable:
 
 
 def make_decode_step(cfg: ArchConfig) -> Callable:
+    @torch.no_grad()
     def decode(params: M.LM, cache: M.Cache, tokens: Tensor):
         return M.decode_step(params, cache, tokens, cfg)
     return decode
 
 
+@torch.no_grad()
 def greedy_generate(params: M.LM, cfg: ArchConfig, prompt: Tensor,
                     max_new: int, cache_len: int,
                     dtype=torch.float32) -> Tensor:

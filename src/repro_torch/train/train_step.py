@@ -1,0 +1,71 @@
+"""Training step factory: microbatched gradient accumulation + AdamW (the
+port of ``src/repro/train/train_step.py``).
+
+PyTorch runs eagerly, so the steps are plain closures (no jit). A step
+takes the model whose parameters require gradients (``init_params(...,
+requires_grad=True)``), updates it in place and returns it.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..models.config import ArchConfig
+from ..models.model import LM, scanned_params, train_forward
+from .optimizer import OptConfig, apply_updates
+
+Tensor = torch.Tensor
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,
+                    remat: bool = True) -> Callable:
+    """Returns ``train_step(params, opt_state, batch)`` -> ``(params,
+    opt_state, metrics)``.
+
+    ``batch`` tensors carry a leading microbatch axis: [n_micro, B_micro,
+    ...]. Each microbatch's gradients accumulate, in float32, into the
+    parameters' ``.grad`` (float32 parameters; others are refused), which
+    then hold the mean gradient until the next step clears them. The
+    metrics are device scalars: the mean ``loss``, ``grad_norm`` and
+    ``lr``; nothing is fetched to the host."""
+
+    def train_step(params: LM, opt_state: dict, batch: dict[str, Tensor]):
+        named = dict(params.named_parameters())
+        for name, p in named.items():
+            if not p.requires_grad or p.dtype != torch.float32:
+                raise ValueError(
+                    f"train_step: parameter {name} is {p.dtype}, requires_"
+                    f"grad={p.requires_grad}; training takes float32 "
+                    "parameters that require gradients (init_params(..., "
+                    "requires_grad=True))")
+            p.grad = None
+        n_micro = next(iter(batch.values())).shape[0]
+        loss = None
+        for i in range(n_micro):
+            micro = {k: v[i] for k, v in batch.items()}
+            li = train_forward(params, micro, cfg, remat=remat)
+            li.backward()
+            loss = li.detach() if loss is None else loss + li.detach()
+        if n_micro > 1:
+            loss = loss / n_micro
+            for p in named.values():
+                p.grad.div_(n_micro)
+        grads = {name: p.grad for name, p in named.items()}
+        _, opt_state, opt_metrics = apply_updates(
+            named, grads, opt_state, opt_cfg, stacked=scanned_params(params))
+        return params, opt_state, {"loss": loss, **opt_metrics}
+
+    return train_step
+
+
+def make_eval_step(cfg: ArchConfig) -> Callable:
+    """Returns ``eval_step(params, batch)``: the first microbatch's loss,
+    without autograd (so the recurrence runs ``rwkv_scan``)."""
+
+    @torch.no_grad()
+    def eval_step(params: LM, batch: dict[str, Tensor]) -> Tensor:
+        micro = {k: v[0] for k, v in batch.items()}
+        return train_forward(params, micro, cfg, remat=False)
+
+    return eval_step

@@ -36,7 +36,11 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.train.serve_step",
             "repro_torch.launch.serve_lm", "repro_torch.core.shards",
             "repro_torch.core.distributed",
-            "repro_torch.launch.mesh"} <= set(names)
+            "repro_torch.launch.mesh", "repro_torch.train.optimizer",
+            "repro_torch.train.train_step", "repro_torch.train.checkpoint",
+            "repro_torch.train.fault_tolerance",
+            "repro_torch.data.pipeline", "repro_torch.launch.train",
+            "repro_torch.configs.lm_100m"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"
@@ -124,3 +128,34 @@ def test_sharded_entry_points_default_to_cuda():
     assert index.pts.device.type == "cpu"
     sess = ShardedSession(pts, params, n_slabs=2, device="cpu")
     assert sess.step(pts).counts.device.type == "cpu"
+
+
+def test_train_entry_points_default_to_cuda():
+    """Without a CUDA device, ``make_batch``, ``synthetic_stream``,
+    ``launch/train`` and ``convert.opt_state_from_arrays`` raise unless the
+    caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device works")
+    from repro_torch import convert
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import make_batch, synthetic_stream
+    from repro_torch.launch import train
+    from repro_torch.models import get_config
+    cfg = smoke_config(get_config("rwkv6-7b"))
+    gen = torch.Generator().manual_seed(0)
+    moment = {"embed": np.zeros((4, 2), np.float32),
+              "body": [{"u": np.zeros((cfg.n_layers, 3), np.float32)}]}
+    tree = {"step": np.zeros((), np.int32), "m": moment, "v": moment}
+    for call in (lambda: make_batch(cfg, 2, 8, gen),
+                 lambda: synthetic_stream(cfg, 2, 8),
+                 lambda: train.main(["--arch", "rwkv6-7b", "--smoke",
+                                     "--steps", "1"]),
+                 lambda: convert.opt_state_from_arrays(cfg, tree)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert make_batch(cfg, 2, 8, gen, device="cpu")["tokens"].shape == (2, 8)
+    assert next(synthetic_stream(cfg, 2, 8, device="cpu"))["mask"].device \
+        .type == "cpu"
+    state = convert.opt_state_from_arrays(cfg, tree, device="cpu")
+    assert set(state["v"]) == {"embed", "blocks.0.u", "blocks.1.u"}
+    assert state["m"]["blocks.1.u"].device.type == "cpu"

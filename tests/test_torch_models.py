@@ -251,7 +251,7 @@ def test_count_params_full_config_on_meta():
 def test_other_layer_kinds_are_not_ported():
     import dataclasses
     cfg = dataclasses.replace(T_CFG, layer_pattern=("attn",))
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 2.2"):
         TM.init_params(cfg, device="meta")
 
 
