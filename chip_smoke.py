@@ -74,6 +74,20 @@ and checks each against the brute-force oracle or against itself:
   moments; the step's time, tokens/s, peak memory, profile and FLOP
   share. It launches none of the hand-written kernels (as the
   reference's training runs none of its Pallas kernels);
+- the dense attention LMs (phase ``lm_dense``, after ``lm_train``): the
+  smoke ``lm-100m`` and ``qwen1.5-110b`` on the card against the CPU
+  (logits, decode against the parallel forward, greedy tokens, a train
+  step); ``lm-100m`` at full size, float32: ``make_train_step`` on 8 x 256
+  tokens in 2 microbatches (loss falling over 6 steps, no blocking
+  transfer in a step, step time, tokens/s, peak memory, FLOP share),
+  ``launch/train.py`` with no ``--arch`` in a subprocess, a 4 x 2048
+  prefill, ``greedy_generate`` at ``serve_lm``'s defaults and single
+  decode steps (no blocking transfer), and ``scaled_dot_product_attention``
+  against the port's ``_sdpa`` on layer 0's q/k/v for the record;
+  ``qwen1.5-110b`` at full width cut to 2 layers: a 1 x 2048 prefill, a
+  cache-writing prefill and 16 decode steps against the parallel forward,
+  peak memory. No hand-written kernel runs there (the reference's
+  attention is einsum math);
 - the neighbor-query service (phase ``serve``, run before ``lm_serve``):
   ``repro_torch.serve`` on three 1M-point KITTI-like scenes, knn and
   range, 256 requests of 1,024-16,384 rows on a simulated 2,000
@@ -198,6 +212,23 @@ LM_RESUME_STEPS, LM_RESUME_FAIL_AT = 6, 5   # smoke ResilientLoop: steps, and
 LM_RESUME_RTOL = 1e-3       # resumed vs uninterrupted losses on the card
                             # (embedding backward accumulates with atomics,
                             # so not bitwise; Adam's 1/sqrt(v) amplifies)
+
+# the dense attention LMs (phase ``lm_dense``): lm-100m at full size
+# (src/repro_torch/configs/lm_100m.py), float32, trained with
+# examples/train_lm.py's shape and served at serve_lm's defaults; and
+# qwen1.5-110b at full width (configs/qwen1_5_110b.py), its depth cut
+DENSE_ARCH = "lm-100m"
+DENSE_SMOKE_ARCHS = ("lm-100m", "qwen1.5-110b")   # smoke size, card vs CPU
+DENSE_TRAIN = (8, 256, 2)      # batch, seq, --n-micro of examples/train_lm.py
+DENSE_TRAIN_TIMED = 5          # steps timed after one warm-up, on one batch:
+                               # the loss must fall over the 6
+DENSE_CLI_STEPS = 3            # launch/train with no --arch, in a subprocess
+SDPA_RTOL = 1e-5               # F.scaled_dot_product_attention vs _sdpa:
+                               # max|diff| <= SDPA_RTOL * max(1, max|plain|)
+# qwen1.5-110b: depth cut from 80 to 2 layers (5.21e9 parameters, 20.8 GB
+# of float32 weights; 80 layers, 1.1e11, would take 444 GB)
+QWEN_ARCH, QWEN_LAYERS = "qwen1.5-110b", 2
+QWEN_PREFILL, QWEN_DECODE = 2048, 16
 
 # FP32 operations per (b, h, t) and state cell that rwkv_scan needs at
 # least: r_i*S_ij and its add to out_j, k_i*v_j, w_i*S_ij and the add of
@@ -2724,6 +2755,376 @@ def phase_lm_train() -> dict:
     torch.cuda.empty_cache()
     return row
 
+def dense_small_vs_cpu(arch: str) -> dict:
+    """The smoke-size ``arch`` with one set of weights on the card and on
+    the CPU (the path the CPU tests hold against the JAX reference):
+    ``forward_logits`` within LM_CPU_TOL, token-by-token decode on the
+    card against the card's parallel forward within LM_DECODE_TOL, greedy
+    tokens at ``serve_lm``'s defaults equal, and one train step within the
+    CPU tests' tolerances (``train_small_vs_cpu``)."""
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.models.config import get_config
+    from repro_torch.train.serve_step import greedy_generate
+    small = smoke_config(get_config(arch))
+    cpu_lm = M.init_params(small, LM_SEED, device="cpu")
+    card_lm = M.init_params(small, LM_SEED, device="cpu").to("cuda")
+    gen = torch.Generator().manual_seed(LM_SEED)
+    toks = torch.randint(0, small.vocab, (2, 37), dtype=torch.int32,
+                         generator=gen)
+    want = M.forward_logits(cpu_lm, toks, small)
+    got = M.forward_logits(card_lm, toks.cuda(), small)
+    gaps = {"forward_logits": allclose_gap(got.cpu(), want, LM_CPU_TOL)}
+    cache = M.init_decode_cache(small, 2, 38, torch.float32)
+    steps = []
+    for i in range(toks.shape[1]):
+        logits, cache = M.decode_step(card_lm, cache, toks[:, i:i + 1].cuda(),
+                                      small)
+        steps.append(logits)
+    gaps["decode_vs_forward"] = allclose_gap(torch.cat(steps, 1), got,
+                                             LM_DECODE_TOL)
+    for key, (gap, ok) in gaps.items():
+        check(ok, f"lm_dense: smoke {arch} {key} off by {gap}")
+    prompts = torch.randint(0, small.vocab, (LM_REQUESTS, LM_PROMPT),
+                            dtype=torch.int32, generator=gen)
+    cache_len = LM_PROMPT + LM_MAX_NEW + 1
+    cpu_toks = greedy_generate(cpu_lm, small, prompts, LM_MAX_NEW, cache_len)
+    card_toks = greedy_generate(card_lm, small, prompts.cuda(), LM_MAX_NEW,
+                                cache_len).cpu()
+    check(torch.equal(cpu_toks, card_toks),
+          f"lm_dense: smoke {arch} greedy tokens on the card differ from "
+          "the CPU's")
+    row = {"arch": small.name, "max_abs_err": {k: g for k, (g, _) in
+                                               gaps.items()},
+           "tol": {"forward_logits": LM_CPU_TOL,
+                   "decode_vs_forward": LM_DECODE_TOL},
+           "greedy_tokens_equal": True, "train_step": train_small_vs_cpu(
+               small)}
+    emit("lm_dense_small_vs_cpu", **row)
+    return row
+
+
+def sdpa_vs_plain(L, q, k, v) -> dict:
+    """``F.scaled_dot_product_attention`` (causal, grouped kv heads: with
+    ``enable_gqa``, and with the kv heads repeated) against the port's
+    ``_sdpa`` on the same q/k/v [B, S, H, hd]: both within SDPA_RTOL of the
+    plain version's scale, and the three timed. For the record: the port
+    calls ``_sdpa``."""
+    import torch
+    import torch.nn.functional as F
+    with torch.no_grad():
+        plain = L._sdpa(q, k, v, causal=True, window=None)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        g = q.shape[2] // k.shape[2]
+        rep_k, rep_v = (t.repeat_interleave(g, dim=1) for t in (kt, vt))
+        calls = {"repeat_kv": lambda: F.scaled_dot_product_attention(
+            qt, rep_k, rep_v, is_causal=True)}
+        try:
+            F.scaled_dot_product_attention(qt[:, :, :8], kt[:, :, :8],
+                                           vt[:, :, :8], is_causal=True,
+                                           enable_gqa=True)
+            calls["enable_gqa"] = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        except TypeError:
+            pass                      # this PyTorch has no enable_gqa
+        scale = max(1.0, float(plain.abs().max()))
+        row = {"shape_q": list(q.shape), "shape_kv": list(k.shape),
+               "scale": scale, "rtol": SDPA_RTOL,
+               "plain_ms": cuda_time_ms(lambda: L._sdpa(
+                   q, k, v, causal=True, window=None), 5)}
+        for name, call in calls.items():
+            err = float((call().transpose(1, 2) - plain).abs().max())
+            check(err <= SDPA_RTOL * scale, f"lm_dense: scaled_dot_product_"
+                  f"attention ({name}) off _sdpa by {err} (scale {scale})")
+            row[name] = {"max_abs_err": err,
+                         "ms": cuda_time_ms(call, 5)}
+    emit("lm_dense_sdpa", **row)
+    return row
+
+
+def phase_lm_dense() -> dict:
+    """The dense attention LMs. The smoke ``lm-100m`` and ``qwen1.5-110b``
+    on the card against the CPU (``dense_small_vs_cpu``). ``lm-100m`` at
+    full size (12 layers, d_model 768, 12 heads of 64, 4 kv heads, d_ff
+    2048, vocab 32000, untied; float32): ``make_train_step`` at
+    examples/train_lm.py's shape (8 x 256 tokens in 2 microbatches, remat,
+    ``OptConfig`` defaults), the loss falling over 6 steps on one batch,
+    no blocking transfer in a step, the median step, tokens/s, peak
+    memory, a profiled step and the FLOP share; ``launch/train.py`` with
+    no ``--arch`` in a subprocess; serving: a 4 x 2048 prefill through
+    ``make_prefill_step``, ``greedy_generate`` at ``serve_lm``'s defaults
+    three times with identical tokens, single decode steps with no
+    blocking transfer; layer 0's attention through
+    ``scaled_dot_product_attention`` for the record. ``qwen1.5-110b`` at
+    full width cut to QWEN_LAYERS layers: a 1 x QWEN_PREFILL prefill, a
+    cache-writing prefill given its positions, QWEN_DECODE decode steps,
+    their logits against the parallel forward at the same positions, peak
+    memory. None of the hand-written kernels runs (attention is plain
+    tensor operations, as the reference's is einsum math)."""
+    import os
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import SHAPES
+    from repro_torch.data.pipeline import synthetic_stream
+    from repro_torch.kernels import distance_tile as tdist
+    from repro_torch.kernels import knn_tile as knn_mod
+    from repro_torch.kernels import range_tile as trange
+    from repro_torch.kernels import rwkv_scan as scan
+    from repro_torch.kernels import update_tile as upd
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models.config import get_config
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.serve_step import (greedy_generate,
+                                              make_decode_step,
+                                              make_prefill_step)
+    from repro_torch.train.train_step import make_train_step
+    t_phase = time.perf_counter()
+    full_prefill = SHAPES["prefill_32k"]
+    prefill_cut = {"of": full_prefill.name,
+                   "full_batch": full_prefill.global_batch,
+                   "full_seq": full_prefill.seq_len}
+    small = [dense_small_vs_cpu(arch) for arch in DENSE_SMOKE_ARCHS]
+    counters = [scan.rwkv_scan, knn_mod.knn_tile_anchored, knn_mod.knn_tile,
+                upd.bin_disp_tile, trange.range_count, tdist.distance_tile]
+
+    # lm-100m training
+    cfg = get_config(DENSE_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, LM_SEED, device="cuda", requires_grad=True)
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == M.count_params(cfg), "lm_dense: parameter count")
+    opt_cfg = OptConfig()
+    opt = init_opt_state(params, opt_cfg)
+    b, s, n_micro = DENSE_TRAIN
+    batch = {k: v.reshape((n_micro, b // n_micro) + v.shape[1:])
+             for k, v in next(synthetic_stream(cfg, b, s, seed=LM_SEED,
+                                               device="cuda")).items()}
+    step = make_train_step(cfg, opt_cfg)
+    for fn in counters:
+        fn.launches = 0
+    losses, times = [], []
+    for _ in range(1 + DENSE_TRAIN_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, m = step(params, opt, batch)
+        end.record()
+        losses.append(m["loss"])
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    losses = torch.stack(losses).cpu().tolist()
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"lm_dense: loss not finite or not falling over {len(losses)} "
+          f"steps on one batch: {losses}")
+    step_ms = sorted(times[1:])[len(times[1:]) // 2]
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res = []
+    in_step = sync_warnings(lambda: res.append(step(params, opt, batch)))
+    params, opt, _ = res.pop()
+    check(not in_step, f"lm_dense: blocking transfers in train_step: "
+          f"{in_step}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+    train_device = device_breakdown(prof, kernel="softmax")
+    del prof, params, opt, batch
+    tokens = b * s
+    attn_flops = 12 * cfg.n_layers * b * s * s * cfg.n_heads * cfg.head_dim
+    flops = 6 * n_params * tokens + attn_flops
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--steps",
+         str(DENSE_CLI_STEPS)], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0 and f"arch={DENSE_ARCH} " in proc.stdout
+          and proc.stdout.strip().endswith("done"),
+          f"lm_dense: launch/train with no --arch: {proc.returncode} "
+          f"{proc.stdout[-800:]} {proc.stderr[-1500:]}")
+    train_row = {
+        "arch": cfg.name, "params": n_params, "batch": b, "seq": s,
+        "n_micro": n_micro, "tokens": tokens, "remat": True,
+        "opt": dataclasses.asdict(opt_cfg), "step_ms": step_ms,
+        "step_ms_all": times, "tokens_per_s": tokens / step_ms * 1e3,
+        "peak_memory_gb": train_peak_gb, "losses": losses,
+        "blocking_transfers_in_step": in_step, "device": train_device,
+        "model_flops": flops, "attention_flops": attn_flops,
+        "model_flops_formula": "6 x params x tokens + 12 x L x B x S^2 x "
+        "H x hd", "flops_per_s": flops / step_ms * 1e3,
+        "fp32_peak_share": flops / (step_ms / 1e3) / PEAK_FP32,
+        "cli": {"args": ["--steps", DENSE_CLI_STEPS], "seconds": cli_s,
+                "last_lines": proc.stdout.strip().splitlines()[-2:]}}
+    emit("lm_dense_train", **train_row)
+
+    # lm-100m serving
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, LM_SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(LM_SEED)
+    pb, ps = LM_PREFILL
+    pre_batch = {"tokens": torch.randint(0, cfg.vocab, (pb, ps),
+                                         generator=gen, device="cuda",
+                                         dtype=torch.int32)}
+    prompts = torch.randint(0, cfg.vocab, (LM_REQUESTS, LM_PROMPT),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    prefill = make_prefill_step(cfg)
+    decode = make_decode_step(cfg)
+    real, captured = L._sdpa, []
+
+    def capture(q, k, v, **kw):
+        if not captured:
+            captured.append((q, k, v))
+        return real(q, k, v, **kw)
+
+    L._sdpa = capture
+    try:
+        logits = prefill(params, pre_batch)
+    finally:
+        L._sdpa = real
+    check(logits.shape == (pb, cfg.vocab) and bool(
+        torch.isfinite(logits).all()), "lm_dense: prefill logits")
+    prefill_ms = cuda_time_ms(lambda: prefill(params, pre_batch),
+                              LM_TIMED_PREFILLS)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prefill(params, pre_batch)
+        torch.cuda.synchronize()
+    prefill_device = device_breakdown(prof, kernel="softmax")
+    del prof, logits
+    sdpa = sdpa_vs_plain(L, *captured.pop())
+    cache_len = LM_PROMPT + LM_MAX_NEW + 1
+    served = greedy_generate(params, cfg, prompts, LM_MAX_NEW, cache_len)
+    gen_ms = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = greedy_generate(params, cfg, prompts, LM_MAX_NEW, cache_len)
+        end.record()
+        end.synchronize()
+        gen_ms.append(start.elapsed_time(end))
+        check(torch.equal(out, served), "lm_dense: greedy tokens differ "
+              "between runs")
+    cache = M.init_decode_cache(cfg, LM_REQUESTS, cache_len, torch.float32)
+    tok, lat = prompts[:, :1], []
+    for _ in range(LM_TIMED_TOKENS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step_logits, cache = decode(params, cache, tok)
+        end.record()
+        end.synchronize()
+        lat.append(start.elapsed_time(end))
+        tok = torch.argmax(step_logits[:, -1], dim=-1)[:, None].to(
+            torch.int32)
+    res = []
+    syncs = sync_warnings(lambda: res.append(decode(params, cache, tok)))
+    step_logits, cache = res.pop()
+    check(not syncs, f"lm_dense: blocking transfers in a decode step: "
+          f"{syncs}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode(params, cache, tok)
+        torch.cuda.synchronize()
+    decode_device = device_breakdown(prof, kernel="softmax")
+    del prof, cache, step_logits, params, pre_batch
+    n_tok = LM_REQUESTS * LM_MAX_NEW
+    serve_row = {
+        "arch": cfg.name, "prefill_shape": [pb, ps],
+        "prefill_cut": prefill_cut, "prefill_ms": prefill_ms,
+        "prefill_tokens_per_s": pb * ps / prefill_ms * 1e3,
+        "prefill_device": prefill_device, "requests": LM_REQUESTS,
+        "prompt_len": LM_PROMPT, "max_new": LM_MAX_NEW,
+        "cache_len": cache_len, "generate_ms": gen_ms,
+        "tokens_per_s": n_tok / sorted(gen_ms)[1] * 1e3,
+        "decode_step_ms": lat,
+        "decode_step_median_ms": sorted(lat)[len(lat) // 2],
+        "decode_blocking_transfers": syncs, "decode_device": decode_device,
+        "first_tokens": served[:, :8].tolist(),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit("lm_dense_serve", **serve_row)
+
+    # qwen1.5-110b at full width, its depth cut
+    full = get_config(QWEN_ARCH)
+    qcfg = dataclasses.replace(full, n_layers=QWEN_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(qcfg, LM_SEED, device="cuda")
+    q_params = sum(p.numel() for p in params.parameters())
+    check(q_params == M.count_params(qcfg), "lm_dense: qwen parameter count")
+    n = QWEN_PREFILL + QWEN_DECODE
+    toks = torch.randint(0, qcfg.vocab, (1, n), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    prefill, decode = make_prefill_step(qcfg), make_decode_step(qcfg)
+    head = {"tokens": toks[:, :QWEN_PREFILL]}
+    last = prefill(params, head)
+    q_prefill_ms = cuda_time_ms(lambda: prefill(params, head), 1, warmup=0)
+    with torch.no_grad():
+        want = M.forward_logits(params, toks, qcfg)
+    cache = M.init_decode_cache(qcfg, 1, n, torch.float32)
+    pos = torch.arange(QWEN_PREFILL, device="cuda")[None]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    whole, cache = decode(params, cache, head["tokens"], pos)
+    end.record()
+    end.synchronize()
+    cache_prefill_ms = start.elapsed_time(end)
+    gaps = {"prefill_last": allclose_gap(last, want[:, QWEN_PREFILL - 1],
+                                         LM_DECODE_TOL),
+            "cache_prefill": allclose_gap(whole, want[:, :QWEN_PREFILL],
+                                          LM_DECODE_TOL)}
+    del whole
+    steps, q_lat = [], []
+    for i in range(QWEN_PREFILL, n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step_logits, cache = decode(params, cache, toks[:, i:i + 1])
+        end.record()
+        end.synchronize()
+        q_lat.append(start.elapsed_time(end))
+        steps.append(step_logits)
+    gaps["decode"] = allclose_gap(torch.cat(steps, 1),
+                                  want[:, QWEN_PREFILL:], LM_DECODE_TOL)
+    for key, (gap, ok) in gaps.items():
+        check(ok, f"lm_dense: {QWEN_ARCH} {key} against the parallel "
+              f"forward off by {gap} (atol = rtol = {LM_DECODE_TOL})")
+    launches = {fn.__name__: fn.launches for fn in counters}
+    check(all(v == 0 for v in launches.values()),
+          f"lm_dense: a hand-written kernel ran: {launches}")
+    qwen_row = {
+        "arch": qcfg.name, "n_layers": QWEN_LAYERS,
+        "full_layers": full.n_layers, "d_model": qcfg.d_model,
+        "heads": qcfg.n_heads, "kv_heads": qcfg.n_kv_heads,
+        "head_dim": qcfg.head_dim, "d_ff": qcfg.d_ff, "vocab": qcfg.vocab,
+        "attn_bias": qcfg.attn_bias, "params": q_params,
+        "full_params": M.count_params(full),
+        "weight_gb": sum(p.numel() * p.element_size()
+                         for p in params.parameters()) / 1e9,
+        "cut": {"n_layers": [full.n_layers, QWEN_LAYERS], "why": (
+            "80 layers of float32 weights (1.11e11 parameters) take 444 GB; "
+            "2 layers with the embedding and unembedding take 20.8 GB of "
+            "the card's 80 GB"), "prefill": prefill_cut},
+        "prefill_shape": [1, QWEN_PREFILL], "prefill_ms": q_prefill_ms,
+        "cache_prefill_ms": cache_prefill_ms, "decode_steps": QWEN_DECODE,
+        "decode_step_ms": q_lat,
+        "decode_step_median_ms": sorted(q_lat)[len(q_lat) // 2],
+        "max_abs_err": {k: g for k, (g, _) in gaps.items()},
+        "tol": LM_DECODE_TOL,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit("lm_dense_qwen", **qwen_row)
+    del params, cache, want, steps, last
+    torch.cuda.empty_cache()
+    row = {"small_vs_cpu": small, "train": train_row, "serve": serve_row,
+           "sdpa": sdpa, "qwen": qwen_row,
+           "kernel_launches": launches,
+           "seconds": time.perf_counter() - t_phase}
+    emit("lm_dense", **{k: row[k] for k in ("kernel_launches", "seconds")})
+    return row
+
 
 def serve_trace(scenes: dict, signatures: list, rng):
     """The serve phase's request trace: (arrival gap, scene id, signature,
@@ -3183,6 +3584,7 @@ def main() -> int:
 
     lm = phase_lm_serve(reports.get("rwkv_scan", ""))
     phase_lm_train()
+    phase_lm_dense()
 
     rows = [("knn_tile_anchored", dict(
         launches=m["launches"], err=max(m["err"], hp_err, any_k_err,

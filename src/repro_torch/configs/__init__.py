@@ -1,16 +1,19 @@
 """Ported architecture configs. Importing this package registers them.
 
-``rwkv6-7b`` is ported with the RWKV-6 serving and training paths, and
-``lm-100m`` (the training launcher's default, registered as in the
-reference and outside ``ALL_ARCHS``) waits for its attention layers; the
-reference's other nine configs (``src/repro/configs/``) arrive with the
-slices that port their layers (ROADMAP queue 1 item 2.2). ``<arch>.py``
-holds the exact published config; ``smoke.py`` derives reduced
-same-family configs for CPU tests; ``shapes.py`` holds the four input
-shapes.
+``rwkv6-7b`` (the ``rwkv`` kind) and the dense GQA configs
+``command-r-35b``, ``command-r-plus-104b`` and ``qwen1.5-110b`` (the
+``attn`` kind) are ported for serving and training, and so is ``lm-100m``
+(the LM launchers' default, registered as in the reference and outside
+``ALL_ARCHS``); the reference's other six configs
+(``src/repro/configs/``) arrive with the slices that port their layers
+(ROADMAP queue 1 item 2.2). ``<arch>.py`` holds the exact published
+config; ``smoke.py`` derives reduced same-family configs for CPU tests;
+``shapes.py`` holds the four input shapes.
 """
-from . import lm_100m, rwkv6_7b
+from . import (command_r_plus_104b, qwen1_5_110b, command_r_35b, rwkv6_7b,
+               lm_100m)
 from .shapes import SHAPES, ShapeSpec, applicable
 from .smoke import smoke_config
 
-ALL_ARCHS = ["rwkv6-7b"]
+ALL_ARCHS = ["command-r-plus-104b", "qwen1.5-110b", "command-r-35b",
+             "rwkv6-7b"]

@@ -1,10 +1,9 @@
 """~100M-parameter LLaMA-style model for end-to-end training (the
-reference's ``examples/train_lm.py`` and ``launch/train.py`` default;
-not one of the 10 assigned archs).
+reference's ``examples/train_lm.py`` and ``launch/train.py`` default, and
+its ``launch/serve_lm.py`` default; not one of the 10 assigned archs).
 
-12L d=768 12H (GQA kv=4) d_ff=2048 vocab=32000 -> ~110M params. Its
-``attn`` layer kind is not ported yet (ROADMAP queue 1 item 2.2), so
-building it raises until the attention slice lands.
+12L d=768 12H (GQA kv=4) d_ff=2048 vocab=32000 -> 124.7M params (untied
+embedding and unembedding).
 """
 from repro_torch.models.config import ArchConfig, register
 

@@ -213,7 +213,15 @@ def opt_state_from_arrays(cfg, tree, *, device="cuda") -> dict:
 
 def decode_cache_from_arrays(cfg, tree, *, device="cuda") -> Cache:
     """The port's decode cache (one entry per layer) from the reference's
-    ``init_decode_cache``/``decode_step`` cache tree as numpy arrays."""
+    ``init_decode_cache``/``decode_step`` cache tree as numpy arrays: an
+    attention layer's ``k``, ``v`` (and a ring buffer's ``pos``) as
+    tensors, its ``length`` read to a host int."""
     dev = resolve_device(device)
-    return [_tree_map(lambda a: _leaf(a, dev), layer)
-            for layer in _unstack(tree, cfg)]
+
+    def layer(entry):
+        out = _tree_map(lambda a: _leaf(a, dev), entry)
+        if "length" in entry:
+            out["length"] = int(np.asarray(entry["length"]))
+        return out
+
+    return [layer(entry) for entry in _unstack(tree, cfg)]

@@ -1,16 +1,17 @@
-"""LM serving demo: batched greedy generation with a recurrent cache, on
-the card.
+"""LM serving demo: batched greedy generation with a KV cache (or the
+RWKV-6 recurrent cache), on the card.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch rwkv6-7b \
+  PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch lm-100m \
       --requests 4 --prompt-len 16 --max-new 32
 
-Port of ``src/repro/launch/serve_lm.py`` with its flags and defaults, plus
-``--device`` (default ``cuda``; it raises without a card, and the CPU runs
-only with ``--device cpu``, e.g. ``--smoke --device cpu``). Only the
-``rwkv6-7b`` config is ported, so it is the default ``--arch``. The first
-run is a warmup (it builds the ``rwkv_scan`` kernel and warms the
-libraries) and is reported apart; the second is the steady state. On the
-card both are timed with CUDA events; on the CPU with the host clock.
+Port of ``src/repro/launch/serve_lm.py`` with its flags and defaults
+(``--arch lm-100m``), plus ``--device`` (default ``cuda``; it raises
+without a card, and the CPU runs only with ``--device cpu``, e.g.
+``--smoke --device cpu``). ``--arch rwkv6-7b`` serves RWKV-6. The first
+run is a warmup (it builds the ``rwkv_scan`` kernel where the model runs
+it, and warms the libraries) and is reported apart; the second is the
+steady state. On the card both are timed with CUDA events; on the CPU
+with the host clock.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="rwkv6-7b")
+    ap.add_argument("--arch", default="lm-100m")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)

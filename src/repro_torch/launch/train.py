@@ -1,15 +1,14 @@
 """End-to-end training launcher, on the card.
 
-  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \
-      --smoke --steps 50 --batch 8 --seq 256 --ckpt-dir /tmp/ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --arch lm-100m \
+      --steps 50 --batch 8 --seq 256 --ckpt-dir /tmp/ckpt
 
-Port of ``src/repro/launch/train.py`` with its flags and defaults, plus
-``--device`` (default ``cuda``; it raises without a card, and the CPU runs
-only with ``--device cpu``, e.g. ``--smoke --device cpu``). The default
-``--arch lm-100m`` is an attention model, whose layers are not ported yet:
-it raises until the attention slice lands; ``rwkv6-7b`` trains. Fault
-tolerance comes from ``ResilientLoop`` (checkpoint/restart + straggler
-monitor) when ``--ckpt-dir`` is given.
+Port of ``src/repro/launch/train.py`` with its flags and defaults
+(``--arch lm-100m``, an attention model), plus ``--device`` (default
+``cuda``; it raises without a card, and the CPU runs only with
+``--device cpu``, e.g. ``--smoke --device cpu``); ``--arch rwkv6-7b``
+trains RWKV-6. Fault tolerance comes from ``ResilientLoop``
+(checkpoint/restart + straggler monitor) when ``--ckpt-dir`` is given.
 """
 from __future__ import annotations
 

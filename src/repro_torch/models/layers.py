@@ -1,19 +1,25 @@
-"""Layer library of the port: what the ``rwkv`` layer kind needs.
+"""Layer library of the port: what the ``rwkv`` and the dense attention
+layer kinds need.
 
-Port of ``src/repro/models/layers.py``: the dense init, the two norms and
-the RWKV-6 (Finch) time mix and channel mix. ``init_*`` returns a dict of
-tensors as the reference's returns a param dict; the ``*_fwd`` functions
-apply a mapping of parameters by name (a dict, an ``nn.ParameterDict`` or
-one of the modules below) and return ``(out, new_cache)`` as the
-reference's do. :class:`RWKV6TimeMix` and :class:`RWKV6ChannelMix` hold
-the parameters as ``nn.Module``s. Parameters are made for serving: they
-require gradients only after ``requires_grad_()`` (which
+Port of ``src/repro/models/layers.py``: the dense init, the two norms,
+rotary embeddings, grouped-query attention with its linear and
+ring-buffer KV caches, the SwiGLU and GELU MLPs, and the RWKV-6 (Finch)
+time mix and channel mix. ``init_*`` returns a dict of tensors as the
+reference's returns a param dict; the ``*_fwd`` functions apply a mapping
+of parameters by name (a dict, an ``nn.ParameterDict`` or one of the
+modules below) and return what the reference's return. :class:`Attention`,
+:class:`SwiGLU`, :class:`GeluMLP`, :class:`RWKV6TimeMix` and
+:class:`RWKV6ChannelMix` hold the parameters as ``nn.Module``s under the
+reference's names. Parameters are made for serving: they require
+gradients only after ``requires_grad_()`` (which
 ``models.model.init_params(..., requires_grad=True)`` calls). The time
 mix runs its recurrence through ``kernels.rwkv_scan.rwkv_scan`` (no
 backward) when no gradient is needed, and through
 :func:`rwkv_chunked_core`, plain tensor operations that autograd
-differentiates, when one is. The attention, MLA, MoE, RG-LRU and Whisper
-layers are not ported yet (ROADMAP queue 1 item 2.2).
+differentiates, when one is. Attention is plain tensor operations, as the
+reference's is einsum math (no Pallas kernel stands behind it). M-RoPE,
+MLA, MoE, RG-LRU and the Whisper layers are not ported yet (ROADMAP queue
+1 item 2.2).
 """
 from __future__ import annotations
 
@@ -79,6 +85,195 @@ def layernorm(x: Tensor, p: Mapping[str, Tensor], eps: float) -> Tensor:
     out = (xf - mu) * torch.rsqrt(var + eps)
     out = out * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(d_rot: int, theta: float, device=None) -> Tensor:
+    return 1.0 / (theta ** (torch.arange(0, d_rot, 2, dtype=torch.float32,
+                                         device=device) / d_rot))
+
+
+def apply_rope(x: Tensor, pos: Tensor, theta: float) -> Tensor:
+    """x [B,S,H,D] (D even, fully rotary), pos [B,S] int -> rotated x: the
+    angles in float32, the two halves rotated, cast back to x's dtype."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                # [D/2]
+    ang = pos[..., None].to(torch.float32) * freqs        # [B,S,D/2]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA / MQA / MHA), optional sliding window, KV cache
+# ---------------------------------------------------------------------------
+
+_MASKED = -1e30          # the reference's fill: a fully masked row gives a
+                         # uniform softmax there too, not NaN
+
+
+def init_attention(gen, cfg, dtype, device=None) -> dict[str, Tensor]:
+    d, h, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": _dense_init(gen, (d, h, hd), None, dtype, device),
+        "wk": _dense_init(gen, (d, hk, hd), None, dtype, device),
+        "wv": _dense_init(gen, (d, hk, hd), None, dtype, device),
+        "wo": _dense_init(gen, (h, hd, d), 1.0 / math.sqrt(h * hd), dtype,
+                          device),
+    }
+    if cfg.attn_bias:
+        p["bq"] = torch.zeros((h, hd), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((hk, hd), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((hk, hd), dtype=dtype, device=device)
+    return p
+
+
+def _sdpa(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+          window: int | None, q_offset: int = 0,
+          kpos: Tensor | None = None) -> Tensor:
+    """q [B,Sq,H,D], k/v [B,Sk,Hk,D] -> [B,Sq,H,D]. GQA by head grouping:
+    query head h attends with kv head h // (H / Hk). Logits in float32
+    over sqrt(D), masked with -1e30, softmax in float32, probabilities
+    cast to q's dtype.
+
+    ``q_offset`` positions query i at absolute position q_offset + i for
+    the causal and window masks (key j at j); ``kpos`` [Sk] gives the keys'
+    absolute positions instead (a ring-buffer cache), a negative entry
+    marking an unwritten slot. The reference also has a branch that
+    repeats the kv heads to H, taken only under a sharded mesh whose model
+    axis the kv heads do not divide; the port has no such mesh and ports
+    the grouped branch alone."""
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = h // hk
+    dev = q.device
+    qpos = torch.arange(sq, device=dev)[:, None] + q_offset
+    if kpos is None:
+        kp = torch.arange(sk, device=dev)[None, :]
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=dev)
+    else:
+        kp = kpos[None, :]
+        mask = kp >= 0
+    if causal:
+        mask = mask & (kp <= qpos)
+    if window is not None:
+        mask = mask & (kp > qpos - window)
+
+    qg = q.reshape(b, sq, hk, g, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32),
+                          k.to(torch.float32))
+    logits = logits / math.sqrt(d)
+    logits = torch.where(mask, logits, logits.new_full((), _MASKED))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    dt = torch.promote_types(probs.dtype, v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(dt), v.to(dt))
+    return out.reshape(b, sq, h, dv)
+
+
+def _write(buf: Tensor, update: Tensor, start: int) -> Tensor:
+    """``buf`` with ``update`` written along axis 1 from ``start``, as a
+    new tensor: ``jax.lax.dynamic_update_slice``, whose start is clamped
+    to [0, size - update size] so that the update always fits."""
+    size, n = buf.shape[1], update.shape[1]
+    if n > size:
+        raise ValueError(f"a cache write of {n} positions into {size}")
+    start = min(max(start, 0), size - n)
+    return torch.slice_scatter(buf, update.to(buf.dtype), dim=1,
+                               start=start, end=start + n)
+
+
+def attention_fwd(p: Mapping[str, Tensor], x: Tensor, cfg, *,
+                  pos: Tensor | None, cache: Cache | None = None,
+                  causal: bool = True, window: int | None = None
+                  ) -> tuple[Tensor, Cache | None]:
+    """Returns (out [B,S,d], new_cache). ``pos`` [B,S] are the tokens'
+    positions for the rotary embedding (``cfg.pos == "rope"``).
+
+    ``cache`` is ``{"k", "v" [B, S_max, Hk, D], "length": int}`` (decode
+    appends at ``length``, a host int, so a step makes no blocking
+    transfer), or, for a sliding-window layer, a ring buffer with
+    ``"pos"`` [B, S_max] int32 as well: written at ``length % S_max``,
+    holding each slot's absolute position (-1: unwritten) for the mask.
+    Writes clamp as ``dynamic_update_slice`` does (:func:`_write`). The
+    new cache is new tensors; the one passed in is left as it was."""
+    b, s, d = x.shape
+    h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"].reshape(d, h * hd)).reshape(b, s, h, hd)
+    k = (x @ p["wk"].reshape(d, hk * hd)).reshape(b, s, hk, hd)
+    v = (x @ p["wv"].reshape(d, hk * hd)).reshape(b, s, hk, hd)
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+
+    if cfg.pos == "rope":
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    elif cfg.pos == "mrope":
+        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP queue "
+                                  "1 item 2.2)")
+
+    if cache is None:
+        out = _sdpa(q, k, v, causal=causal, window=window)
+        new_cache = None
+    elif "pos" in cache:
+        # ring buffer (sliding-window layers): cache memory stays O(window)
+        length = cache["length"]
+        slot = length % cache["k"].shape[1]
+        ck = _write(cache["k"], k, slot)
+        cv = _write(cache["v"], v, slot)
+        new_pos = (torch.arange(s, dtype=torch.int32, device=x.device)
+                   + length).expand(cache["pos"].shape[0], s)
+        cp = _write(cache["pos"], new_pos, slot)
+        out = _sdpa(q, ck, cv, causal=True, window=window, q_offset=length,
+                    kpos=cp[0])
+        new_cache = {"k": ck, "v": cv, "pos": cp, "length": length + s}
+    else:
+        length = cache["length"]
+        ck = _write(cache["k"], k, length)
+        cv = _write(cache["v"], v, length)
+        # causal mask with q_offset both enforces causality and excludes
+        # unwritten cache rows (kpos > length + Sq - 1)
+        out = _sdpa(q, ck, cv, causal=True, window=window, q_offset=length)
+        new_cache = {"k": ck, "v": cv, "length": length + s}
+    o = out.reshape(b, s, h * hd) @ p["wo"].reshape(h * hd, d)
+    return o, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def init_swiglu(gen, d: int, ff: int, dtype, device=None) -> dict[str, Tensor]:
+    return {
+        "w_gate": _dense_init(gen, (d, ff), None, dtype, device),
+        "w_up": _dense_init(gen, (d, ff), None, dtype, device),
+        "w_down": _dense_init(gen, (ff, d), None, dtype, device),
+    }
+
+
+def swiglu_fwd(p: Mapping[str, Tensor], x: Tensor) -> Tensor:
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+def init_gelu_mlp(gen, d: int, ff: int, dtype, device=None
+                  ) -> dict[str, Tensor]:
+    return {
+        "w1": _dense_init(gen, (d, ff), None, dtype, device),
+        "b1": torch.zeros((ff,), dtype=dtype, device=device),
+        "w2": _dense_init(gen, (ff, d), None, dtype, device),
+        "b2": torch.zeros((d,), dtype=dtype, device=device),
+    }
+
+
+def gelu_mlp_fwd(p: Mapping[str, Tensor], x: Tensor) -> Tensor:
+    """``jax.nn.gelu``'s default is the tanh approximation; so is this."""
+    h = F.gelu(x @ p["w1"] + p["b1"], approximate="tanh")
+    return h @ p["w2"] + p["b2"]
 
 
 # ---------------------------------------------------------------------------
@@ -283,6 +478,9 @@ class _Params(nn.Module):
     def __getitem__(self, name: str):
         return getattr(self, name)
 
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
 
 class RWKV6TimeMix(_Params):
     """The time mix's parameters (:func:`init_rwkv6`); ``forward(x, cache)``
@@ -308,3 +506,43 @@ class RWKV6ChannelMix(_Params):
 
     def forward(self, x: Tensor, cache: Cache | None = None):
         return rwkv6_channelmix_fwd(self, x, self.cfg, cache=cache)
+
+
+class Attention(_Params):
+    """Attention's parameters (:func:`init_attention`: ``wq``, ``wk``,
+    ``wv``, ``wo``, and ``bq``/``bk``/``bv`` with ``cfg.attn_bias``);
+    ``forward(x, pos, cache, window)`` is :func:`attention_fwd`."""
+
+    def __init__(self, cfg, dtype=torch.float32, *, generator=None,
+                 device=None):
+        super().__init__(init_attention(generator, cfg, dtype, device))
+        self.cfg = cfg
+
+    def forward(self, x: Tensor, pos: Tensor | None = None,
+                cache: Cache | None = None, window: int | None = None):
+        return attention_fwd(self, x, self.cfg, pos=pos, cache=cache,
+                             window=window)
+
+
+class SwiGLU(_Params):
+    """The SwiGLU MLP's parameters (:func:`init_swiglu`); ``forward(x)`` is
+    :func:`swiglu_fwd`."""
+
+    def __init__(self, d: int, ff: int, dtype=torch.float32, *,
+                 generator=None, device=None):
+        super().__init__(init_swiglu(generator, d, ff, dtype, device))
+
+    def forward(self, x: Tensor) -> Tensor:
+        return swiglu_fwd(self, x)
+
+
+class GeluMLP(_Params):
+    """The GELU MLP's parameters (:func:`init_gelu_mlp`); ``forward(x)`` is
+    :func:`gelu_mlp_fwd`."""
+
+    def __init__(self, d: int, ff: int, dtype=torch.float32, *,
+                 generator=None, device=None):
+        super().__init__(init_gelu_mlp(generator, d, ff, dtype, device))
+
+    def forward(self, x: Tensor) -> Tensor:
+        return gelu_mlp_fwd(self, x)

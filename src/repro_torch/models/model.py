@@ -1,15 +1,18 @@
 """Model assembly of the port: config -> module / forward / decode step.
 
-Port of ``src/repro/models/model.py`` for the ``rwkv`` layer kind. The
-reference stacks each period's parameters on a leading axis and runs the
-layers as a ``lax.scan``; the port keeps one module per layer
-(:class:`LM` holds an ``nn.ModuleList`` of :class:`Block`) and runs them in
-a plain loop. Training (``train_forward``) recomputes each layer of the
-scanned periods in the backward pass (``torch.utils.checkpoint``, the
-reference's ``jax.checkpoint`` of the period body) and computes the
+Port of ``src/repro/models/model.py`` for the ``rwkv`` layer kind and the
+dense attention kinds (``attn``, ``attn_dense``, ``local_attn``: GQA with
+rotary positions and a SwiGLU MLP, or a GELU MLP and LayerNorms in the
+audio family). The reference stacks each period's parameters on a leading
+axis and runs the layers as a ``lax.scan``; the port keeps one module per
+layer (:class:`LM` holds an ``nn.ModuleList`` of :class:`Block`) and runs
+them in a plain loop. Training (``train_forward``) recomputes each layer
+of the scanned periods in the backward pass (``torch.utils.checkpoint``,
+the reference's ``jax.checkpoint`` of the period body) and computes the
 cross-entropy in sequence chunks (``chunked_ce_loss``). Decode caches are
-a list with one entry per layer. The attention, MLA, MoE, RG-LRU and
-Whisper kinds are not ported yet (ROADMAP queue 1 item 2.2).
+a list with one entry per layer; an attention layer's ``length`` is a
+host int. M-RoPE, MLA, MoE, RG-LRU, the multi-token head and the Whisper
+encoder-decoder are not ported yet (ROADMAP queue 1 item 2.2).
 """
 from __future__ import annotations
 
@@ -27,8 +30,9 @@ from .config import ArchConfig
 
 Tensor = torch.Tensor
 Cache = list[dict[str, Any]]
-_NOT_PORTED = ("layer kind {!r} is not ported yet (ROADMAP queue 1 item 2.2: "
-               "only the rwkv kind has landed)")
+ATTN_KINDS = ("attn", "attn_dense", "local_attn")
+_NOT_PORTED = ("{} is not ported yet (ROADMAP queue 1 item 2.2: the rwkv "
+               "and dense attention kinds have landed)")
 
 
 def _norm(x: Tensor, p, eps: float) -> Tensor:
@@ -36,36 +40,77 @@ def _norm(x: Tensor, p, eps: float) -> Tensor:
     return L.layernorm(x, p, eps) if "bias" in p else L.rmsnorm(x, p, eps)
 
 
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(_NOT_PORTED.format(what))
+
+
 # ---------------------------------------------------------------------------
 # per-layer init/apply dispatch
 # ---------------------------------------------------------------------------
 
-class Block(nn.Module):
-    """One ``rwkv`` layer: ln1, time mix (``mixer``), ln2, channel mix
-    (``ffn``), the names of the reference's per-layer param tree."""
+def _init_block_norm(cfg: ArchConfig, dtype, device=None) -> nn.ParameterDict:
+    return L.param_dict(L.init_layernorm(cfg.d_model, dtype, device)
+                        if cfg.family == "audio"
+                        else L.init_rmsnorm(cfg.d_model, dtype, device))
 
-    def __init__(self, cfg: ArchConfig, dtype, *, generator=None,
+
+def _ffn_fwd(p, x: Tensor) -> Tensor:
+    if "router" in p:
+        raise _not_ported("the MoE feed-forward")
+    if "w1" in p:
+        return L.gelu_mlp_fwd(p, x)
+    return L.swiglu_fwd(p, x)
+
+
+class Block(nn.Module):
+    """One layer under the names of the reference's per-layer param tree:
+    ``ln1``, ``mixer``, ``ln2``, ``ffn``. An ``rwkv`` layer: LayerNorms,
+    the time mix and the channel mix. An attention layer: the block norms
+    (:func:`_init_block_norm`), :class:`layers.Attention` and a SwiGLU MLP
+    (a GELU MLP in the audio family)."""
+
+    def __init__(self, cfg: ArchConfig, kind: str, dtype, *, generator=None,
                  device=None):
         super().__init__()
         d = cfg.d_model
-        self.ln1 = L.param_dict(L.init_layernorm(d, dtype, device))
-        self.mixer = L.RWKV6TimeMix(cfg, dtype, generator=generator,
-                                    device=device)
-        self.ln2 = L.param_dict(L.init_layernorm(d, dtype, device))
-        self.ffn = L.RWKV6ChannelMix(cfg, dtype, generator=generator,
+        if kind == "rwkv":
+            self.ln1 = L.param_dict(L.init_layernorm(d, dtype, device))
+            self.mixer = L.RWKV6TimeMix(cfg, dtype, generator=generator,
+                                        device=device)
+            self.ln2 = L.param_dict(L.init_layernorm(d, dtype, device))
+            self.ffn = L.RWKV6ChannelMix(cfg, dtype, generator=generator,
+                                         device=device)
+        elif kind in ATTN_KINDS:
+            if cfg.mla is not None:
+                raise _not_ported("MLA (the mla config of an attention kind)")
+            if cfg.moe is not None and kind == "attn":
+                raise _not_ported("the MoE feed-forward")
+            self.ln1 = _init_block_norm(cfg, dtype, device)
+            self.ln2 = _init_block_norm(cfg, dtype, device)
+            self.mixer = L.Attention(cfg, dtype, generator=generator,
                                      device=device)
-
-
-def init_layer(gen, cfg: ArchConfig, kind: str, dtype, device=None) -> Block:
-    if kind == "rwkv":
-        return Block(cfg, dtype, generator=gen, device=device)
-    raise NotImplementedError(_NOT_PORTED.format(kind))
+            mlp = L.GeluMLP if cfg.family == "audio" else L.SwiGLU
+            self.ffn = mlp(d, cfg.d_ff, dtype, generator=generator,
+                           device=device)
+        else:
+            raise _not_ported(f"layer kind {kind!r}")
 
 
 def apply_layer(p: Block, x: Tensor, cfg: ArchConfig, kind: str, *,
-                cache=None) -> tuple[Tensor, dict | None]:
+                pos: Tensor | None = None, cache=None
+                ) -> tuple[Tensor, dict | None]:
+    """One layer; ``pos`` [B, S] are the positions an attention layer
+    rotates by (the ``rwkv`` kind takes none)."""
+    if kind in ATTN_KINDS:
+        h = _norm(x, p.ln1, cfg.norm_eps)
+        window = cfg.local_window if kind == "local_attn" else None
+        a, new_cache = L.attention_fwd(p.mixer, h, cfg, pos=pos, cache=cache,
+                                       causal=True, window=window)
+        x = x + a
+        h = _norm(x, p.ln2, cfg.norm_eps)
+        return x + _ffn_fwd(p.ffn, h), new_cache
     if kind != "rwkv":
-        raise NotImplementedError(_NOT_PORTED.format(kind))
+        raise _not_ported(f"layer kind {kind!r}")
     h = L.layernorm(x, p.ln1, cfg.norm_eps)
     a, c1 = L.rwkv6_timemix_fwd(p.mixer, h, cfg, cache=(
         cache["tm"] if cache is not None else None))
@@ -112,6 +157,13 @@ class LM(nn.Module):
     def __init__(self, cfg: ArchConfig, dtype=torch.float32, *,
                  generator=None, device=None):
         super().__init__()
+        for what, present in (("the encoder-decoder", cfg.enc_dec),
+                              ("the multi-token head", cfg.mtp),
+                              ("M-RoPE", cfg.pos == "mrope"),
+                              ("the vision stub",
+                               cfg.frontend == "vision_stub")):
+            if present:
+                raise _not_ported(what)
         d = cfg.d_model
         self.cfg = cfg
         self.embed = nn.Parameter(L._dense_init(
@@ -126,7 +178,7 @@ class LM(nn.Module):
                 generator, (d, cfg.vocab), 0.02, dtype, device),
                 requires_grad=False)
         self.blocks = nn.ModuleList(
-            init_layer(generator, cfg, kind, dtype, device)
+            Block(cfg, kind, dtype, generator=generator, device=device)
             for kind in cfg.layer_kinds)
 
     def unembedding(self) -> Tensor:
@@ -168,27 +220,40 @@ def _scanned_layers(cfg: ArchConfig) -> range:
 # forward
 # ---------------------------------------------------------------------------
 
+def positions(cfg: ArchConfig, b: int, s: int, device,
+              offset: int = 0) -> Tensor | None:
+    """The positions [B, S] (``offset`` .. ``offset + S - 1`` in every row)
+    that the layers rotate by for ``cfg.pos == "rope"``; None for a model
+    that takes none (``"none"``: the ``rwkv`` kind)."""
+    if cfg.pos == "none":
+        return None
+    if cfg.pos != "rope":
+        raise _not_ported(f"positions of kind {cfg.pos!r}")
+    return (torch.arange(s, device=device) + offset).expand(b, s)
+
+
 def _run_layers(params: LM, x: Tensor, cfg: ArchConfig, *,
-                remat: bool = False) -> Tensor:
-    """The blocks in order. With ``remat`` (and autograd recording), each
-    layer of the scanned periods keeps only its input for the backward
-    pass and runs again there, as the reference's ``jax.checkpoint`` of
-    its period body; prefix and tail layers are not recomputed, as
-    there."""
+                pos: Tensor | None = None, remat: bool = False) -> Tensor:
+    """The blocks in order, attention layers rotating by ``pos``. With
+    ``remat`` (and autograd recording), each layer of the scanned periods
+    keeps only its input for the backward pass and runs again there, as
+    the reference's ``jax.checkpoint`` of its period body; prefix and tail
+    layers are not recomputed, as there."""
     scanned = _scanned_layers(cfg)
     remat = remat and torch.is_grad_enabled()
     for i, (blk, kind) in enumerate(zip(params.blocks, cfg.layer_kinds)):
         if remat and i in scanned:
             # the forward draws no random numbers: no RNG state to replay
-            x = checkpoint(_layer_out, blk, x, cfg, kind,
+            x = checkpoint(_layer_out, blk, x, cfg, kind, pos,
                            use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _layer_out(blk, x, cfg, kind)
+            x = _layer_out(blk, x, cfg, kind, pos)
     return x
 
 
-def _layer_out(blk: Block, x: Tensor, cfg: ArchConfig, kind: str) -> Tensor:
-    return apply_layer(blk, x, cfg, kind)[0]
+def _layer_out(blk: Block, x: Tensor, cfg: ArchConfig, kind: str,
+               pos: Tensor | None) -> Tensor:
+    return apply_layer(blk, x, cfg, kind, pos=pos)[0]
 
 
 def _logits(x: Tensor, unembed: Tensor) -> Tensor:
@@ -199,8 +264,9 @@ def _logits(x: Tensor, unembed: Tensor) -> Tensor:
 
 def forward_logits(params: LM, tokens: Tensor, cfg: ArchConfig) -> Tensor:
     """Full-sequence logits [B, S, V] float32 of ``tokens`` [B, S]."""
+    b, s = tokens.shape
     x = params.embed[tokens]
-    x = _run_layers(params, x, cfg)
+    x = _run_layers(params, x, cfg, pos=positions(cfg, b, s, tokens.device))
     x = _norm(x, params.final_norm, cfg.norm_eps)
     return _logits(x, params.unembedding())
 
@@ -234,12 +300,16 @@ def train_forward(params: LM, batch: dict[str, Tensor], cfg: ArchConfig,
                   *, remat: bool = True) -> Tensor:
     """Training loss of one (micro)batch: ``tokens``, ``labels`` and
     ``mask`` [B, S] -> the mean next-token cross-entropy, a 0-d float32
-    tensor on the batch's device. The port's layer kind (``rwkv``) takes
-    no positions; the vision, M-RoPE, encoder-decoder and multi-token
-    parts of the reference's ``train_forward`` come with the layer kinds
-    that use them (no config the port can build has them)."""
-    x = F.embedding(batch["tokens"], params.embed)
-    x = _run_layers(params, x, cfg, remat=remat)
+    tensor on the batch's device. Attention layers rotate by positions
+    0 .. S-1 (the ``rwkv`` kind takes none); the vision, M-RoPE,
+    encoder-decoder and multi-token parts of the reference's
+    ``train_forward`` come with the layer kinds that use them (no config
+    the port can build has them)."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = F.embedding(tokens, params.embed)
+    x = _run_layers(params, x, cfg, pos=positions(cfg, b, s, tokens.device),
+                    remat=remat)
     x = _norm(x, params.final_norm, cfg.norm_eps)
     return chunked_ce_loss(x, params.unembedding(), batch["labels"],
                            batch["mask"])
@@ -251,33 +321,79 @@ def train_forward(params: LM, batch: dict[str, Tensor], cfg: ArchConfig,
 
 def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
                       dtype=torch.bfloat16, *, device="cuda") -> Cache:
-    """One cache per layer: the time mix's last token (``dtype``) and
-    [B, H, hd, hd] float32 state, the channel mix's last token. The
-    recurrent state does not grow with the sequence, so ``max_len`` (the
-    attention kinds' cache length) sizes nothing here."""
+    """One cache per layer. An ``rwkv`` layer: the time mix's last token
+    (``dtype``) and [B, H, hd, hd] float32 state, the channel mix's last
+    token. An attention layer: ``k`` and ``v`` [B, S_max, Hk, hd]
+    (``dtype``) and ``length``, a host int (0), with S_max = ``max_len``;
+    a ``local_attn`` layer's is a ring buffer of S_max = min(max_len,
+    local_window) slots with ``pos`` [B, S_max] int32, -1 where unwritten."""
     dev = resolve_device(device)
-    d, hd = cfg.d_model, cfg.rwkv_head_dim
     cache = []
     for kind in cfg.layer_kinds:
-        if kind != "rwkv":
-            raise NotImplementedError(_NOT_PORTED.format(kind))
-        cache.append({
-            "tm": {"x_prev": torch.zeros((batch, d), dtype=dtype, device=dev),
-                   "state": torch.zeros((batch, d // hd, hd, hd),
-                                        dtype=torch.float32, device=dev)},
-            "cm": {"x_prev": torch.zeros((batch, d), dtype=dtype,
-                                         device=dev)}})
+        if kind == "rwkv":
+            d, hd = cfg.d_model, cfg.rwkv_head_dim
+            cache.append({
+                "tm": {"x_prev": torch.zeros((batch, d), dtype=dtype,
+                                             device=dev),
+                       "state": torch.zeros((batch, d // hd, hd, hd),
+                                            dtype=torch.float32, device=dev)},
+                "cm": {"x_prev": torch.zeros((batch, d), dtype=dtype,
+                                             device=dev)}})
+        elif kind in ATTN_KINDS and cfg.mla is None:
+            s_max = (min(max_len, cfg.local_window) if kind == "local_attn"
+                     else max_len)
+            shape = (batch, s_max, cfg.n_kv_heads, cfg.head_dim)
+            c = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=dtype, device=dev),
+                 "length": 0}
+            if kind == "local_attn":
+                c["pos"] = torch.full((batch, s_max), -1, dtype=torch.int32,
+                                      device=dev)
+            cache.append(c)
+        else:
+            raise _not_ported(f"the decode cache of layer kind {kind!r}"
+                              + (" with MLA" if cfg.mla is not None else ""))
     return cache
 
 
-def decode_step(params: LM, cache: Cache, tokens: Tensor,
-                cfg: ArchConfig) -> tuple[Tensor, Cache]:
+def _cache_length(cache: Cache, cfg: ArchConfig) -> int:
+    """The reference's decode position: the length of the first layer's
+    cache if it has one (a prefix layer), else of the first attention
+    layer of the scanned period, else 0."""
+    groups = layer_groups(cfg)
+    lo = len(groups.prefix_kinds)
+    if lo and "length" in cache[0]:
+        return cache[0]["length"]
+    if groups.n_periods:
+        for si, kind in enumerate(groups.period):
+            if kind in ATTN_KINDS:
+                return cache[lo + si]["length"]
+    return 0
+
+
+def decode_step(params: LM, cache: Cache, tokens: Tensor, cfg: ArchConfig,
+                *, pos: Tensor | None = None) -> tuple[Tensor, Cache]:
     """Tokens [B, S] (one token, or a whole prompt for a cache-writing
-    prefill) -> (logits [B, S, V] float32, new cache)."""
+    prefill) -> (logits [B, S, V] float32, new cache). ``pos`` [B, S] are
+    the tokens' positions for the rotary embedding; by default (as in the
+    reference) every token takes the cache's length
+    (:func:`_cache_length`). That is the right position for one token; for
+    S > 1 the reference rotates every token of the prompt alike while its
+    causal mask places them at length + i, so with rope attention layers
+    the port asks for ``pos`` instead (ValueError)."""
+    b, s = tokens.shape
+    if pos is None and cfg.pos == "rope":
+        if s > 1 and any(k in ATTN_KINDS for k in cfg.layer_kinds):
+            raise ValueError(
+                f"decode_step of {s} tokens: pass pos [B, S] (e.g. length + "
+                "arange(S)); without it every token would be rotated by the "
+                "cache length, as the reference does")
+        pos = positions(cfg, b, s, tokens.device,
+                        offset=_cache_length(cache, cfg))
     x = params.embed[tokens]
     new_cache = []
     for blk, kind, c in zip(params.blocks, cfg.layer_kinds, cache):
-        x, nc = apply_layer(blk, x, cfg, kind, cache=c)
+        x, nc = apply_layer(blk, x, cfg, kind, pos=pos, cache=c)
         new_cache.append(nc)
     x = _norm(x, params.final_norm, cfg.norm_eps)
     return _logits(x, params.unembedding()), new_cache

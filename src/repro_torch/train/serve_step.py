@@ -5,7 +5,8 @@ Port of ``src/repro/train/serve_step.py``. PyTorch runs eagerly, so the
 steps are plain closures (no jit). They run under ``torch.no_grad()``, so
 no autograd graph is kept and the recurrence takes the ``rwkv_scan``
 kernel even for a model whose parameters require gradients (one being
-trained).
+trained). Attention layers keep a KV cache whose length is a host int,
+so a decode step makes no blocking transfer.
 """
 from __future__ import annotations
 
@@ -21,12 +22,17 @@ Tensor = torch.Tensor
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:
     """Forward over the full prompt producing last-position logits [B, V]
-    float32. (The cache-writing prefill is ``decode_step`` with S > 1.)"""
+    float32, attention layers rotating by positions 0 .. S-1. (The
+    cache-writing prefill is ``decode_step`` with S > 1, given ``pos`` where
+    the model has rope attention layers.)"""
 
     @torch.no_grad()
     def prefill(params: M.LM, batch: dict[str, Tensor]) -> Tensor:
-        x = params.embed[batch["tokens"]]
-        x = M._run_layers(params, x, cfg)
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = params.embed[tokens]
+        x = M._run_layers(params, x, cfg,
+                          pos=M.positions(cfg, b, s, tokens.device))
         x = M._norm(x[:, -1], params.final_norm, cfg.norm_eps)
         return M._logits(x, params.unembedding())
 
@@ -35,8 +41,9 @@ def make_prefill_step(cfg: ArchConfig) -> Callable:
 
 def make_decode_step(cfg: ArchConfig) -> Callable:
     @torch.no_grad()
-    def decode(params: M.LM, cache: M.Cache, tokens: Tensor):
-        return M.decode_step(params, cache, tokens, cfg)
+    def decode(params: M.LM, cache: M.Cache, tokens: Tensor,
+               pos: Tensor | None = None):
+        return M.decode_step(params, cache, tokens, cfg, pos=pos)
     return decode
 
 

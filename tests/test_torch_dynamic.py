@@ -32,6 +32,17 @@ from repro_torch.kernels.ref import brute_force_search
 D2_ATOL = 1e-6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this module runs: its many small tensor
+    operations stall on thread barriers when the test workers share the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _drift(rng, pts, sigma):
     return np.clip(pts + rng.normal(0, sigma, pts.shape), 0.0,
                    1.0).astype(np.float32)

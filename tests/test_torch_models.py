@@ -249,17 +249,23 @@ def test_count_params_full_config_on_meta():
 
 
 def test_other_layer_kinds_are_not_ported():
+    """The kinds still to come: RG-LRU, and MLA (an attention kind with
+    ``cfg.mla``)."""
     import dataclasses
-    cfg = dataclasses.replace(T_CFG, layer_pattern=("attn",))
-    with pytest.raises(NotImplementedError, match="queue 1 item 2.2"):
-        TM.init_params(cfg, device="meta")
+    from repro_torch.models.config import MLAConfig
+    mla = MLAConfig(q_rank=32, kv_rank=16, d_nope=16, d_rope=8, d_v=16)
+    for cfg in (dataclasses.replace(T_CFG, layer_pattern=("rglru",)),
+                dataclasses.replace(T_CFG, layer_pattern=("attn",),
+                                    mla=mla)):
+        with pytest.raises(NotImplementedError, match="queue 1 item 2.2"):
+            TM.init_params(cfg, device="meta")
 
 
 def test_serve_lm_smoke_on_cpu():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve_lm", "--smoke",
-         "--device", "cpu"], env=env, capture_output=True, text=True,
+         "--arch", "rwkv6-7b", "--device", "cpu"], env=env, capture_output=True, text=True,
         timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "arch=rwkv6-7b-smoke on cpu generated (4, 32) tokens" in proc.stdout

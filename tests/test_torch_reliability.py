@@ -50,6 +50,17 @@ P_B = SearchParams(radius=0.15, k=4, knn_window="exact")
 CPU = "cpu"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this module runs: its many small tensor
+    operations stall on thread barriers when the test workers share the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def clean(monkeypatch):
     monkeypatch.delenv("REPRO_FAULTS", raising=False)

@@ -377,9 +377,17 @@ def test_train_cli_smoke_on_cpu(tmp_path, capsys):
     assert "step     4 loss=" in resumed
 
 
-def test_train_cli_default_arch_is_not_ported():
+def test_train_cli_default_arch_is_not_ported(monkeypatch):
+    """The launcher's default ``--arch`` is the reference's ``lm-100m``,
+    which trains since its attention layers were ported
+    (``tests/test_torch_dense_train.py``); an arch whose layer kind is
+    still not ported (here RG-LRU) raises through the launcher."""
+    from repro_torch.models import config as C
+    rglru = dataclasses.replace(get_config("lm-100m"), name="rglru-test",
+                                layer_pattern=("rglru",))
+    monkeypatch.setitem(C._REGISTRY, rglru.name, rglru)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        train_cli.main(["--device", "cpu"])
+        train_cli.main(["--arch", rglru.name, "--smoke", "--device", "cpu"])
 
 
 # ---------------------------------------------------------------------------
