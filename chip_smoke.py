@@ -88,6 +88,23 @@ and checks each against the brute-force oracle or against itself:
   cache-writing prefill and 16 decode steps against the parallel forward,
   peak memory. No hand-written kernel runs there (the reference's
   attention is einsum math);
+- M-RoPE with the vision stub and Multi-head Latent Attention (phase
+  ``lm_mla_vlm``, after ``lm_dense``): the smoke ``minicpm3-4b`` and
+  ``qwen2-vl-7b`` on the card against the CPU (prefill logits, with
+  ``pos3`` and ``vision_embeds`` for the VLM; token-by-token decode
+  against the parallel forward, MLA through the absorbed decode and the
+  VLM with explicit ``pos3``; a train step); ``minicpm3-4b`` at full width
+  and depth (float32, 17.0 GB): a 1 x 2048 prefill, a decode step at cache
+  length 2047 against the prefill's last position with no blocking
+  transfer, layer 0's absorbed decode against the expanded one for the
+  record, ``greedy_generate`` at ``serve_lm``'s defaults, decode steps,
+  a profiled step, peak memory, ``launch/serve_lm.py --arch minicpm3-4b``
+  in a subprocess; ``minicpm3-4b`` cut to 8 layers and ``qwen2-vl-7b`` cut
+  to 2 layers trained (step time, tokens/s, peak memory, FLOP share, the
+  loss falling, no blocking transfer); ``qwen2-vl-7b`` at full width and
+  depth (30.5 GB): a 1 x 2048 prefill with 1024 vision-stub tokens, decode
+  steps with explicit text ``pos3`` against the parallel forward, peak
+  memory. No hand-written kernel runs there either;
 - the neighbor-query service (phase ``serve``, run before ``lm_serve``):
   ``repro_torch.serve`` on three 1M-point KITTI-like scenes, knn and
   range, 256 requests of 1,024-16,384 rows on a simulated 2,000
@@ -229,6 +246,26 @@ SDPA_RTOL = 1e-5               # F.scaled_dot_product_attention vs _sdpa:
 # of float32 weights; 80 layers, 1.1e11, would take 444 GB)
 QWEN_ARCH, QWEN_LAYERS = "qwen1.5-110b", 2
 QWEN_PREFILL, QWEN_DECODE = 2048, 16
+
+# Multi-head Latent Attention and M-RoPE with the vision stub (phase
+# ``lm_mla_vlm``): minicpm3-4b (src/repro_torch/configs/minicpm3_4b.py) at
+# full width and depth for serving (4.26e9 parameters, 17.0 GB of float32
+# weights), its depth cut from 62 to 8 layers for training (0.88e9 x 16
+# bytes of weights, gradients and AdamW moments = 14 GB; the 62 layers take
+# 68 GB before activations); qwen2-vl-7b (configs/qwen2_vl_7b.py) at full
+# width and depth for serving (7.62e9, 30.5 GB), its depth cut from 28 to 2
+# layers for training (1.56e9 x 16 bytes = 25 GB; 28 layers: 122 GB)
+MLA_ARCH, VLM_ARCH = "minicpm3-4b", "qwen2-vl-7b"
+MLA_PREFILL = 2048            # a 1 x 2048 prefill; decode at cache length 2047
+MLA_TRAIN_LAYERS, MLA_TRAIN = 8, (4, 512, 2)       # batch, seq, --n-micro
+VLM_PREFILL, VLM_DECODE = 2048, 8   # 1024 vision-stub tokens, then text;
+                                    # decode steps with explicit text pos3
+VLM_TRAIN_LAYERS, VLM_TRAIN = 2, (2, 2048, 2)      # seq > n_vision_tokens:
+                              # a sequence of at most 1024 is all masked
+MLA_VLM_TIMED = 5             # train steps timed after one warm-up, on one
+                              # batch: the loss must fall over the 6
+ABSORBED_RTOL = 1e-4          # absorbed vs expanded MLA decode, one layer:
+                              # max|diff| <= ABSORBED_RTOL * max(1, max|exp|)
 
 # FP32 operations per (b, h, t) and state cell that rwkv_scan needs at
 # least: r_i*S_ij and its add to out_j, k_i*v_j, w_i*S_ij and the add of
@@ -3126,6 +3163,410 @@ def phase_lm_dense() -> dict:
     return row
 
 
+def mla_vlm_small_vs_cpu(arch: str) -> dict:
+    """The smoke-size ``arch`` with one set of weights on the card and on
+    the CPU (the path the CPU tests hold against the JAX reference): the
+    prefill step (with ``pos3`` and ``vision_embeds`` for the VLM) within
+    LM_CPU_TOL; token-by-token decode on the card against the card's
+    parallel forward within LM_DECODE_TOL (MLA through the absorbed
+    decode, the VLM with explicit ``pos3``); one train step within the CPU
+    tests' tolerances (``train_small_vs_cpu``)."""
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import model as M
+    from repro_torch.models.config import get_config
+    from repro_torch.train.serve_step import make_prefill_step
+    small = smoke_config(get_config(arch))
+    cpu_lm = M.init_params(small, LM_SEED, device="cpu")
+    card_lm = M.init_params(small, LM_SEED, device="cpu").to("cuda")
+    batch = make_batch(small, 2, 37, torch.Generator().manual_seed(LM_SEED),
+                       device="cpu")
+    card_batch = {k: v.cuda() for k, v in batch.items()}
+    prefill = make_prefill_step(small)
+    gaps = {"prefill": allclose_gap(prefill(card_lm, card_batch).cpu(),
+                                    prefill(cpu_lm, batch), LM_CPU_TOL)}
+    toks, pos3 = card_batch["tokens"], card_batch.get("pos3")
+    with torch.no_grad():
+        x = M._run_layers(card_lm, card_lm.embed[toks], small, pos=(
+            M.positions(small, *toks.shape, "cuda") if pos3 is None
+            else pos3))
+        want = M._logits(M._norm(x, card_lm.final_norm, small.norm_eps),
+                         card_lm.unembedding())
+    cache = M.init_decode_cache(small, 2, toks.shape[1] + 1, torch.float32)
+    steps = []
+    for i in range(toks.shape[1]):
+        logits, cache = M.decode_step(
+            card_lm, cache, toks[:, i:i + 1], small,
+            pos=None if pos3 is None else pos3[:, i:i + 1])
+        steps.append(logits)
+    gaps["decode_vs_forward"] = allclose_gap(torch.cat(steps, 1), want,
+                                             LM_DECODE_TOL)
+    for key, (gap, ok) in gaps.items():
+        check(ok, f"lm_mla_vlm: smoke {arch} {key} off by {gap}")
+    row = {"arch": small.name, "max_abs_err": {k: g for k, (g, _) in
+                                               gaps.items()},
+           "tol": {"prefill": LM_CPU_TOL, "decode_vs_forward": LM_DECODE_TOL},
+           "train_step": train_small_vs_cpu(small)}
+    emit("lm_mla_vlm_small_vs_cpu", **row)
+    return row
+
+
+def timed_ms(fn):
+    """(``fn()``'s result, its milliseconds by CUDA events)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def mla_serve() -> dict:
+    """``minicpm3-4b`` at full width and depth (float32): a 1 x MLA_PREFILL
+    prefill, timed; a cache-writing prefill of MLA_PREFILL - 1 tokens then
+    one decode step (the absorbed decode) at cache length MLA_PREFILL - 1,
+    its logits against the prefill's last position, no blocking transfer
+    in it, and it timed; layer 0's absorbed decode against the expanded
+    one on that cache, for the record; ``greedy_generate`` at
+    ``serve_lm``'s defaults three times with identical tokens, and
+    LM_TIMED_TOKENS single decode steps at B = LM_REQUESTS; peak memory;
+    a profiled decode step at B = LM_REQUESTS; then ``launch/serve_lm.py
+    --arch minicpm3-4b`` in a subprocess."""
+    import os
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models.config import get_config
+    from repro_torch.train.serve_step import (greedy_generate,
+                                              make_decode_step,
+                                              make_prefill_step)
+    cfg = get_config(MLA_ARCH)
+    m = cfg.mla
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, LM_SEED, device="cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == M.count_params(cfg) == 4_261_902_848,
+          f"lm_mla_vlm: {MLA_ARCH} parameter count {n_params}")
+    gen = torch.Generator(device="cuda").manual_seed(LM_SEED)
+    toks = torch.randint(0, cfg.vocab, (1, MLA_PREFILL), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    head = {"tokens": toks}
+    last = prefill(params, head)
+    check(last.shape == (1, cfg.vocab) and bool(torch.isfinite(last).all()),
+          "lm_mla_vlm: minicpm3 prefill logits")
+    prefill_ms = cuda_time_ms(lambda: prefill(params, head),
+                              LM_TIMED_PREFILLS)
+    n = MLA_PREFILL - 1
+    cache = M.init_decode_cache(cfg, 1, MLA_PREFILL, torch.float32)
+    (_, cache), cache_prefill_ms = timed_ms(lambda: decode(
+        params, cache, toks[:, :n], torch.arange(n, device="cuda")[None]))
+    res = []
+    syncs = sync_warnings(lambda: res.append(decode(params, cache,
+                                                    toks[:, n:])))
+    step_logits, _ = res.pop()
+    gap, ok = allclose_gap(step_logits[:, 0], last, LM_DECODE_TOL)
+    check(ok, f"lm_mla_vlm: {MLA_ARCH} decode at cache length {n} against "
+          f"the prefill's last position off by {gap}")
+    check(not syncs, f"lm_mla_vlm: blocking transfers in a decode step: "
+          f"{syncs}")
+    # the step writes new tensors, so the same cache is decoded again
+    long_ms = cuda_time_ms(lambda: decode(params, cache, toks[:, n:]), 5)
+
+    # for the record: layer 0's absorbed decode against the expanded one
+    blk, c0 = params.blocks[0].mixer, cache[0]
+    with torch.no_grad():
+        h = torch.randn((1, 1, cfg.d_model), generator=gen, device="cuda")
+        q_nope, q_rope, lat, k_rope = L.mla_project(
+            blk, h, cfg, torch.full((1, 1), n, device="cuda"))
+        lat_c = L._write(c0["latent"], lat, n)
+        kr_c = L._write(c0["k_rope"], k_rope, n)
+        args = (blk, q_nope, q_rope, lat_c, kr_c, n, m)
+        absorbed = L._mla_absorbed_decode(*args)
+        expanded = L.mla_expanded(*args)
+        scale = max(1.0, float(expanded.abs().max()))
+        diff = float((absorbed - expanded).abs().max())
+        record = {"layer": 0, "cache_length": n, "max_abs_diff": diff,
+                  "scale": scale, "rtol": ABSORBED_RTOL,
+                  "absorbed_ms": cuda_time_ms(
+                      lambda: L._mla_absorbed_decode(*args), 20),
+                  "expanded_ms": cuda_time_ms(
+                      lambda: L.mla_expanded(*args), 20)}
+    check(diff <= ABSORBED_RTOL * scale, f"lm_mla_vlm: absorbed decode off "
+          f"the expanded one by {diff} (scale {scale})")
+    emit("lm_mla_vlm_absorbed", **record)
+    del cache, res, step_logits, lat_c, kr_c, absorbed, expanded
+
+    prompts = torch.randint(0, cfg.vocab, (LM_REQUESTS, LM_PROMPT),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    cache_len = LM_PROMPT + LM_MAX_NEW + 1
+    served = greedy_generate(params, cfg, prompts, LM_MAX_NEW, cache_len)
+    gen_ms = []
+    for _ in range(2):
+        out, ms = timed_ms(lambda: greedy_generate(
+            params, cfg, prompts, LM_MAX_NEW, cache_len))
+        gen_ms.append(ms)
+        check(torch.equal(out, served), "lm_mla_vlm: greedy tokens differ "
+              "between runs")
+    cache = M.init_decode_cache(cfg, LM_REQUESTS, cache_len, torch.float32)
+    tok, lat_ms = prompts[:, :1], []
+    for _ in range(LM_TIMED_TOKENS):
+        (step_logits, cache), ms = timed_ms(lambda: decode(params, cache,
+                                                           tok))
+        lat_ms.append(ms)
+        tok = torch.argmax(step_logits[:, -1], dim=-1)[:, None].to(
+            torch.int32)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode(params, cache, tok)
+        torch.cuda.synchronize()
+    decode_device = device_breakdown(prof, kernel="softmax")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params, cache, step_logits, last, prof
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_lm", "--arch",
+         MLA_ARCH], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0 and f"arch={MLA_ARCH} on " in proc.stdout,
+          f"lm_mla_vlm: launch/serve_lm --arch {MLA_ARCH}: "
+          f"{proc.returncode} {proc.stdout[-800:]} {proc.stderr[-1500:]}")
+    n_tok = LM_REQUESTS * LM_MAX_NEW
+    row = {
+        "arch": cfg.name, "params": n_params, "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model, "heads": cfg.n_heads,
+        "mla": dataclasses.asdict(m), "vocab": cfg.vocab,
+        "weight_gb": n_params * 4 / 1e9, "prefill_shape": [1, MLA_PREFILL],
+        "prefill_ms": prefill_ms,
+        "prefill_tokens_per_s": MLA_PREFILL / prefill_ms * 1e3,
+        "cache_prefill_ms": cache_prefill_ms,
+        "decode_at_length": n, "decode_at_length_ms": long_ms,
+        "decode_at_length_max_abs_err": gap, "tol": LM_DECODE_TOL,
+        "decode_blocking_transfers": syncs, "requests": LM_REQUESTS,
+        "prompt_len": LM_PROMPT, "max_new": LM_MAX_NEW,
+        "generate_ms": gen_ms, "tokens_per_s": n_tok / min(gen_ms) * 1e3,
+        "decode_step_ms": lat_ms,
+        "decode_step_median_ms": sorted(lat_ms)[len(lat_ms) // 2],
+        "decode_device": decode_device,
+        "first_tokens": served[:, :8].tolist(), "peak_memory_gb": peak,
+        "cli": {"args": ["--arch", MLA_ARCH], "seconds": cli_s,
+                "summary": [ln for ln in proc.stdout.splitlines()
+                            if ln.startswith("arch=")]}}
+    emit("lm_mla_vlm_minicpm3_serve", **row)
+    return row
+
+
+def cut_train(arch: str, n_layers: int, shape) -> dict:
+    """``arch`` at full width, its depth cut to ``n_layers``, float32:
+    ``make_train_step`` with remat and ``OptConfig`` defaults on one
+    ``synthetic_stream`` batch of ``shape`` (batch, seq, microbatches;
+    ``pos3`` and ``vision_embeds`` for the VLM), 1 + MLA_VLM_TIMED steps
+    (the loss must fall), their median after the first, tokens/s, peak
+    memory, no blocking transfer in a step, and the model FLOPs' share of
+    the float32 peak."""
+    import torch
+    from repro_torch.data.pipeline import synthetic_stream
+    from repro_torch.models import model as M
+    from repro_torch.models.config import get_config
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, LM_SEED, device="cuda", requires_grad=True)
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == M.count_params(cfg), f"lm_mla_vlm: {arch} cut "
+          "parameter count")
+    opt_cfg = OptConfig()
+    opt = init_opt_state(params, opt_cfg)
+    b, s, n_micro = shape
+    batch = {k: v.reshape((n_micro, b // n_micro) + v.shape[1:])
+             for k, v in next(synthetic_stream(cfg, b, s, seed=LM_SEED,
+                                               device="cuda")).items()}
+    step = make_train_step(cfg, opt_cfg)
+    losses, times = [], []
+    for _ in range(1 + MLA_VLM_TIMED):
+        (params, opt, metrics), ms = timed_ms(lambda: step(params, opt,
+                                                           batch))
+        losses.append(metrics["loss"])
+        times.append(ms)
+    losses = torch.stack(losses).cpu().tolist()
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"lm_mla_vlm: {arch} loss not finite or not falling over "
+          f"{len(losses)} steps on one batch: {losses}")
+    step_ms = sorted(times[1:])[len(times[1:]) // 2]
+    res = []
+    in_step = sync_warnings(lambda: res.append(step(params, opt, batch)))
+    check(not in_step, f"lm_mla_vlm: blocking transfers in {arch}'s train "
+          f"step: {in_step}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # 6 x (matmul parameters: all but the embedding table) x tokens, plus
+    # causal-free attention: q.k and p.v, forward and backward
+    tokens = b * s
+    if cfg.mla is not None:
+        d_qk, d_v = cfg.mla.d_nope + cfg.mla.d_rope, cfg.mla.d_v
+    else:
+        d_qk = d_v = cfg.head_dim
+    matmul_params = n_params - params.embed.numel()
+    attn_flops = 6 * n_layers * b * s * s * cfg.n_heads * (d_qk + d_v)
+    flops = 6 * matmul_params * tokens + attn_flops
+    del params, opt, batch, res
+    torch.cuda.empty_cache()
+    row = {
+        "arch": cfg.name, "n_layers": n_layers, "full_layers": full.n_layers,
+        "d_model": cfg.d_model, "params": n_params,
+        "full_params": M.count_params(full), "batch": b, "seq": s,
+        "n_micro": n_micro, "tokens": tokens, "remat": True,
+        "opt": dataclasses.asdict(opt_cfg), "step_ms": step_ms,
+        "step_ms_all": times, "tokens_per_s": tokens / step_ms * 1e3,
+        "peak_memory_gb": peak, "losses": losses,
+        "blocking_transfers_in_step": in_step, "model_flops": flops,
+        "attention_flops": attn_flops,
+        "model_flops_formula": "6 x (params - embedding table) x tokens + "
+        "6 x L x B x S^2 x H x (d_qk + d_v)",
+        "flops_per_s": flops / step_ms * 1e3,
+        "fp32_peak_share": flops / (step_ms / 1e3) / PEAK_FP32}
+    if cfg.frontend == "vision_stub":
+        row["vision_tokens"] = min(cfg.n_vision_tokens, s)
+    emit(f"lm_mla_vlm_train_{arch}", **row)
+    return row
+
+
+def vlm_serve() -> dict:
+    """``qwen2-vl-7b`` at full width and depth (float32): a 1 x VLM_PREFILL
+    prefill through ``make_prefill_step`` with the first 1024 positions
+    the vision stub's (``vision_embeds``, grid ``pos3``), timed; a
+    cache-writing prefill of the same tokens at their ``pos3``, then
+    VLM_DECODE decode steps with explicit text ``pos3``, timed, their
+    logits (and the prefill's last) against the parallel forward at the
+    same positions; no blocking transfer in a decode step; one more step
+    profiled; peak memory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import model as M
+    from repro_torch.models.config import get_config
+    from repro_torch.train.serve_step import (make_decode_step,
+                                              make_prefill_step)
+    cfg = get_config(VLM_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, LM_SEED, device="cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == M.count_params(cfg) == 7_615_616_512,
+          f"lm_mla_vlm: {VLM_ARCH} parameter count {n_params}")
+    gen = torch.Generator(device="cuda").manual_seed(LM_SEED)
+    batch = make_batch(cfg, 1, VLM_PREFILL, gen, device="cuda")
+    nv = batch["vision_embeds"].shape[1]
+    check(nv == cfg.n_vision_tokens == 1024, "lm_mla_vlm: vision tokens")
+    pre = {k: batch[k] for k in ("tokens", "pos3", "vision_embeds")}
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    last = prefill(params, pre)
+    check(last.shape == (1, cfg.vocab) and bool(torch.isfinite(last).all()),
+          "lm_mla_vlm: qwen2-vl prefill logits")
+    prefill_ms = cuda_time_ms(lambda: prefill(params, pre),
+                              LM_TIMED_PREFILLS)
+    n = VLM_PREFILL + VLM_DECODE
+    toks = torch.cat([batch["tokens"], torch.randint(
+        0, cfg.vocab, (1, VLM_DECODE), generator=gen, device="cuda",
+        dtype=torch.int32)], 1)
+    text = torch.arange(VLM_PREFILL, n, dtype=torch.int32, device="cuda")
+    pos3 = torch.cat([batch["pos3"], text[None, :, None].expand(
+        1, VLM_DECODE, 3)], 1)
+    cache = M.init_decode_cache(cfg, 1, n + 1, torch.float32)
+    (whole, cache), cache_prefill_ms = timed_ms(lambda: decode(
+        params, cache, toks[:, :VLM_PREFILL], pos3[:, :VLM_PREFILL]))
+    steps, lat_ms = [whole[:, -1:]], []
+    for i in range(VLM_PREFILL, n):
+        (step_logits, cache), ms = timed_ms(lambda: decode(
+            params, cache, toks[:, i:i + 1], pos3[:, i:i + 1]))
+        steps.append(step_logits)
+        lat_ms.append(ms)
+    del whole
+    res = []
+    syncs = sync_warnings(lambda: res.append(decode(
+        params, M.init_decode_cache(cfg, 1, 4, torch.float32),
+        toks[:, :1], pos3[:, :1])))
+    check(not syncs, f"lm_mla_vlm: blocking transfers in a qwen2-vl decode "
+          f"step: {syncs}")
+    with torch.no_grad():
+        x = M._run_layers(params, params.embed[toks], cfg, pos=pos3)
+        want = M._logits(M._norm(x[:, VLM_PREFILL - 1:], params.final_norm,
+                                 cfg.norm_eps), params.unembedding())
+    gap, ok = allclose_gap(torch.cat(steps, 1), want, LM_DECODE_TOL)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode(params, cache, toks[:, -1:], torch.full(
+            (1, 1, 3), n, dtype=torch.int32, device="cuda"))
+        torch.cuda.synchronize()
+    decode_device = device_breakdown(prof, kernel="softmax")
+    del prof
+    check(ok, f"lm_mla_vlm: {VLM_ARCH} decode with pos3 against the "
+          f"parallel forward off by {gap} (atol = rtol = {LM_DECODE_TOL})")
+    row = {
+        "arch": cfg.name, "params": n_params, "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model, "heads": cfg.n_heads,
+        "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+        "vocab": cfg.vocab, "weight_gb": n_params * 4 / 1e9,
+        "prefill_shape": [1, VLM_PREFILL], "vision_tokens": nv,
+        "prefill_ms": prefill_ms,
+        "prefill_tokens_per_s": VLM_PREFILL / prefill_ms * 1e3,
+        "cache_prefill_ms": cache_prefill_ms, "decode_steps": VLM_DECODE,
+        "decode_step_ms": lat_ms,
+        "decode_step_median_ms": sorted(lat_ms)[len(lat_ms) // 2],
+        "decode_vs_forward_max_abs_err": gap, "tol": LM_DECODE_TOL,
+        "decode_blocking_transfers": syncs, "decode_device": decode_device,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit("lm_mla_vlm_qwen2_vl_serve", **row)
+    del params, cache, steps, want, x, res, last
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_lm_mla_vlm() -> dict:
+    """Multi-head Latent Attention and M-RoPE with the vision stub. The
+    smoke ``minicpm3-4b`` and ``qwen2-vl-7b`` on the card against the CPU
+    (``mla_vlm_small_vs_cpu``); ``minicpm3-4b`` at full width and depth
+    served (``mla_serve``) and cut to MLA_TRAIN_LAYERS layers trained;
+    ``qwen2-vl-7b`` at full width and depth served (``vlm_serve``) and cut
+    to VLM_TRAIN_LAYERS layers trained (``cut_train``). Each model is
+    freed before the next is built. None of the hand-written kernels runs
+    (the reference's M-RoPE, MLA and absorbed decode are einsum math)."""
+    from repro_torch.kernels import distance_tile as tdist
+    from repro_torch.kernels import knn_tile as knn_mod
+    from repro_torch.kernels import range_tile as trange
+    from repro_torch.kernels import rwkv_scan as scan
+    from repro_torch.kernels import update_tile as upd
+    t_phase = time.perf_counter()
+    counters = [scan.rwkv_scan, knn_mod.knn_tile_anchored, knn_mod.knn_tile,
+                upd.bin_disp_tile, trange.range_count, tdist.distance_tile]
+    for fn in counters:
+        fn.launches = 0
+    row = {"small_vs_cpu": [mla_vlm_small_vs_cpu(a)
+                            for a in (MLA_ARCH, VLM_ARCH)],
+           "minicpm3_serve": mla_serve(),
+           "minicpm3_train": cut_train(MLA_ARCH, MLA_TRAIN_LAYERS,
+                                       MLA_TRAIN),
+           "qwen2_vl_serve": vlm_serve(),
+           "qwen2_vl_train": cut_train(VLM_ARCH, VLM_TRAIN_LAYERS,
+                                       VLM_TRAIN)}
+    launches = {fn.__name__: fn.launches for fn in counters}
+    check(all(v == 0 for v in launches.values()),
+          f"lm_mla_vlm: a hand-written kernel ran: {launches}")
+    row["kernel_launches"] = launches
+    row["seconds"] = time.perf_counter() - t_phase
+    emit("lm_mla_vlm", **{k: row[k] for k in ("kernel_launches",
+                                              "seconds")})
+    return row
+
+
 def serve_trace(scenes: dict, signatures: list, rng):
     """The serve phase's request trace: (arrival gap, scene id, signature,
     rows) per request, the rows drawn from the scene's own points."""
@@ -3585,6 +4026,7 @@ def main() -> int:
     lm = phase_lm_serve(reports.get("rwkv_scan", ""))
     phase_lm_train()
     phase_lm_dense()
+    phase_lm_mla_vlm()
 
     rows = [("knn_tile_anchored", dict(
         launches=m["launches"], err=max(m["err"], hp_err, any_k_err,

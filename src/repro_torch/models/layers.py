@@ -1,14 +1,15 @@
-"""Layer library of the port: what the ``rwkv`` and the dense attention
-layer kinds need.
+"""Layer library of the port: what the ``rwkv`` and the attention layer
+kinds (dense, M-RoPE, MLA) need.
 
 Port of ``src/repro/models/layers.py``: the dense init, the two norms,
-rotary embeddings, grouped-query attention with its linear and
-ring-buffer KV caches, the SwiGLU and GELU MLPs, and the RWKV-6 (Finch)
-time mix and channel mix. ``init_*`` returns a dict of tensors as the
+rotary embeddings (standard and M-RoPE), grouped-query attention with its
+linear and ring-buffer KV caches, Multi-head Latent Attention with its
+latent cache, the SwiGLU and GELU MLPs, and the RWKV-6 (Finch) time mix
+and channel mix. ``init_*`` returns a dict of tensors as the
 reference's returns a param dict; the ``*_fwd`` functions apply a mapping
 of parameters by name (a dict, an ``nn.ParameterDict`` or one of the
 modules below) and return what the reference's return. :class:`Attention`,
-:class:`SwiGLU`, :class:`GeluMLP`, :class:`RWKV6TimeMix` and
+:class:`MLA`, :class:`SwiGLU`, :class:`GeluMLP`, :class:`RWKV6TimeMix` and
 :class:`RWKV6ChannelMix` hold the parameters as ``nn.Module``s under the
 reference's names. Parameters are made for serving: they require
 gradients only after ``requires_grad_()`` (which
@@ -17,9 +18,13 @@ mix runs its recurrence through ``kernels.rwkv_scan.rwkv_scan`` (no
 backward) when no gradient is needed, and through
 :func:`rwkv_chunked_core`, plain tensor operations that autograd
 differentiates, when one is. Attention is plain tensor operations, as the
-reference's is einsum math (no Pallas kernel stands behind it). M-RoPE,
-MLA, MoE, RG-LRU and the Whisper layers are not ported yet (ROADMAP queue
-1 item 2.2).
+reference's is einsum math (no Pallas kernel stands behind it): grouped
+attention with rotary (``apply_rope``) or multimodal rotary
+(``apply_mrope``, Qwen2-VL's M-RoPE) positions, and Multi-head Latent
+Attention (``mla_fwd``, :class:`MLA`: DeepSeek-V2 / MiniCPM3), whose
+decode cache holds the compressed latent and whose single-token decode
+attends in the latent space (``_mla_absorbed_decode``). MoE, RG-LRU and
+the Whisper layers are not ported yet (ROADMAP queue 1 item 2.2).
 """
 from __future__ import annotations
 
@@ -102,11 +107,48 @@ def apply_rope(x: Tensor, pos: Tensor, theta: float) -> Tensor:
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, x.device)                # [D/2]
     ang = pos[..., None].to(torch.float32) * freqs        # [B,S,D/2]
+    return _rotate(x, ang)
+
+
+def _rotate(x: Tensor, ang: Tensor) -> Tensor:
+    """x [B,S,H,D] rotated by the float32 angles ``ang`` [B,S,D/2]: the
+    first half against the second, cast back to x's dtype."""
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
     return out.to(x.dtype)
+
+
+def mrope_sections(hd: int) -> tuple[int, int, int]:
+    """The (temporal, height, width) split of a head's ``hd / 2``
+    frequencies that the reference's attention uses: ``(hd/2 - 2 *
+    floor(hd/6), floor(hd/6), floor(hd/6))``, (22, 21, 21) at hd 128.
+    (Qwen2-VL publishes (16, 24, 24); the port mirrors the reference.)"""
+    third = hd // 2 // 3
+    return (hd // 2 - 2 * third, third, third)
+
+
+def apply_mrope(x: Tensor, pos3: Tensor, theta: float,
+                sections: tuple[int, int, int]) -> Tensor:
+    """Qwen2-VL M-RoPE: the head dim's frequencies are split into
+    (temporal, height, width) sections, each rotated by its own position
+    stream. x [B,S,H,D], pos3 [B,S,3] int -> rotated x. Frequency j takes
+    the stream of the section that covers it (the first ``sections[0]``
+    the temporal one, and so on; any beyond their sum the temporal one, as
+    in the reference)."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = rope_freqs(d, theta, x.device)                # [half]
+    sec = torch.zeros(half, dtype=torch.int64, device=x.device)
+    off = 0
+    for i, n in enumerate(sections):
+        sec[off:off + n] = i
+        off += n
+    b, s = pos3.shape[:2]
+    pos_per_freq = pos3.to(torch.float32).gather(
+        -1, sec.expand(b, s, half))                       # [B,S,half]
+    return _rotate(x, pos_per_freq * freqs)
 
 
 # ---------------------------------------------------------------------------
@@ -192,8 +234,9 @@ def attention_fwd(p: Mapping[str, Tensor], x: Tensor, cfg, *,
                   pos: Tensor | None, cache: Cache | None = None,
                   causal: bool = True, window: int | None = None
                   ) -> tuple[Tensor, Cache | None]:
-    """Returns (out [B,S,d], new_cache). ``pos`` [B,S] are the tokens'
-    positions for the rotary embedding (``cfg.pos == "rope"``).
+    """Returns (out [B,S,d], new_cache). ``pos`` are the tokens' positions
+    for the rotary embedding: [B,S] for ``cfg.pos == "rope"``, [B,S,3]
+    (temporal, height, width) for ``"mrope"``.
 
     ``cache`` is ``{"k", "v" [B, S_max, Hk, D], "length": int}`` (decode
     appends at ``length``, a host int, so a step makes no blocking
@@ -214,8 +257,9 @@ def attention_fwd(p: Mapping[str, Tensor], x: Tensor, cfg, *,
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
     elif cfg.pos == "mrope":
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP queue "
-                                  "1 item 2.2)")
+        sections = mrope_sections(hd)
+        q = apply_mrope(q, pos, cfg.rope_theta, sections)
+        k = apply_mrope(k, pos, cfg.rope_theta, sections)
 
     if cache is None:
         out = _sdpa(q, k, v, causal=causal, window=window)
@@ -242,6 +286,129 @@ def attention_fwd(p: Mapping[str, Tensor], x: Tensor, cfg, *,
         new_cache = {"k": ck, "v": cv, "length": length + s}
     o = out.reshape(b, s, h * hd) @ p["wo"].reshape(h * hd, d)
     return o, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Multi-head Latent Attention (DeepSeek-V2/V3, MiniCPM3)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen, cfg, dtype, device=None) -> dict[str, Any]:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    return {
+        "q_a": _dense_init(gen, (d, m.q_rank), None, dtype, device),
+        "q_norm": init_rmsnorm(m.q_rank, dtype, device),
+        "q_b": _dense_init(gen, (m.q_rank, h, m.d_nope + m.d_rope), None,
+                           dtype, device),
+        "kv_a": _dense_init(gen, (d, m.kv_rank + m.d_rope), None, dtype,
+                            device),
+        "kv_norm": init_rmsnorm(m.kv_rank, dtype, device),
+        "kv_b": _dense_init(gen, (m.kv_rank, h, m.d_nope + m.d_v), None,
+                            dtype, device),
+        "wo": _dense_init(gen, (h, m.d_v, d), 1.0 / math.sqrt(h * m.d_v),
+                          dtype, device),
+    }
+
+
+def _einsum(eq: str, *ops: Tensor) -> Tensor:
+    """``torch.einsum`` with the operands promoted to one dtype, as
+    ``jnp.einsum`` promotes (a bfloat16 cache against float32 weights)."""
+    dt = ops[0].dtype
+    for t in ops[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return torch.einsum(eq, *(t.to(dt) for t in ops))
+
+
+def mla_project(p: Mapping[str, Any], x: Tensor, cfg, pos: Tensor
+                ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The per-token part of MLA: the low-rank query (``q_a``, RMSNorm,
+    ``q_b``) split into ``q_nope`` [B,S,H,d_nope] and the rotated
+    ``q_rope`` [B,S,H,d_rope], and the compressed KV (``kv_a``) split into
+    the RMS-normed ``latent`` [B,S,kv_rank] and the shared rotated key
+    ``k_rope`` [B,S,1,d_rope]."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    q = rmsnorm(x @ p["q_a"], p["q_norm"], cfg.norm_eps)
+    q = (q @ p["q_b"].reshape(m.q_rank, -1)).reshape(
+        b, s, h, m.d_nope + m.d_rope)
+    q_nope = q[..., : m.d_nope]
+    q_rope = apply_rope(q[..., m.d_nope:], pos, cfg.rope_theta)
+    kv = x @ p["kv_a"]
+    latent = rmsnorm(kv[..., : m.kv_rank], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(kv[..., None, m.kv_rank:], pos, cfg.rope_theta)
+    return q_nope, q_rope, latent, k_rope
+
+
+def mla_expanded(p: Mapping[str, Any], q_nope: Tensor, q_rope: Tensor,
+                 latent: Tensor, k_rope: Tensor, q_offset: int, m
+                 ) -> Tensor:
+    """Attention over the latent expanded to full keys and values: K/V =
+    ``latent @ kv_b`` [B,Sk,H,d_nope+d_v], each head's key completed with
+    the shared ``k_rope``, then causal ``_sdpa`` (q/k head dim d_nope +
+    d_rope, v's d_v) with the queries at ``q_offset`` + i.
+    -> [B,Sq,H,d_v]."""
+    kv_full = _einsum("bsr,rhk->bshk", latent, p["kv_b"])
+    k_nope, v = kv_full[..., : m.d_nope], kv_full[..., m.d_nope:]
+    k = torch.cat([k_nope, k_rope.to(k_nope.dtype).expand(
+        *k_nope.shape[:3], m.d_rope)], -1)
+    q = torch.cat([q_nope, q_rope], -1)
+    return _sdpa(q, k, v, causal=True, window=None, q_offset=q_offset)
+
+
+def _mla_absorbed_decode(p: Mapping[str, Any], q_nope: Tensor,
+                         q_rope: Tensor, latent: Tensor, k_rope: Tensor,
+                         length: int, m) -> Tensor:
+    """Absorbed MLA decode (DeepSeek-V2 section 2.1.3): ``kv_b``'s key half
+    is absorbed into the query and its value half into the output, so
+    attention stays in the kv_rank-dim latent space and the cache is never
+    expanded. Scores in float32 over sqrt(d_nope + d_rope), the cache
+    slots up to ``length`` (the new token's) attended, probabilities cast
+    to the cache's dtype. q_nope [B,1,H,d_nope], q_rope [B,1,H,d_rope],
+    latent [B,S_max,kv_rank], k_rope [B,S_max,1,d_rope] -> [B,1,H,d_v]."""
+    kv_b_k = p["kv_b"][..., : m.d_nope]            # [r, H, d_nope]
+    kv_b_v = p["kv_b"][..., m.d_nope:]             # [r, H, d_v]
+    q_lat = _einsum("bshk,rhk->bshr", q_nope, kv_b_k)
+    f32 = torch.float32
+    scores = torch.einsum("bshr,btr->bhst", q_lat.to(f32), latent.to(f32))
+    scores = scores + torch.einsum("bshk,btk->bhst", q_rope.to(f32),
+                                   k_rope[:, :, 0].to(f32))
+    scores = scores / math.sqrt(m.d_nope + m.d_rope)
+    valid = torch.arange(latent.shape[1], device=latent.device) <= length
+    scores = torch.where(valid, scores, scores.new_full((), _MASKED))
+    probs = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhst,btr->bshr", probs.to(latent.dtype), latent)
+    return _einsum("bshr,rhv->bshv", o_lat, kv_b_v)
+
+
+def mla_fwd(p: Mapping[str, Any], x: Tensor, cfg, *, pos: Tensor,
+            cache: Cache | None = None) -> tuple[Tensor, Cache | None]:
+    """MLA forward: (out [B,S,d], new_cache). ``pos`` [B,S] are the
+    positions the rotary parts turn by. The decode cache is
+    ``{"latent" [B,S_max,kv_rank], "k_rope" [B,S_max,1,d_rope], "length":
+    int}``: only the compressed latent and the shared rotary key a token,
+    written at ``length`` (clamped as :func:`_write` clamps). Without a
+    cache, and for a cache-writing step of S > 1 tokens (over the whole
+    S_max latent, queries at ``length`` + i), attention runs on the
+    expanded keys and values (:func:`mla_expanded`); a single-token step
+    runs :func:`_mla_absorbed_decode`."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    q_nope, q_rope, latent, k_rope = mla_project(p, x, cfg, pos)
+    new_cache, q_offset = None, 0
+    if cache is not None:
+        length = cache["length"]
+        latent = _write(cache["latent"], latent, length)
+        k_rope = _write(cache["k_rope"], k_rope, length)
+        new_cache = {"latent": latent, "k_rope": k_rope,
+                     "length": length + s}
+        q_offset = length
+    if cache is not None and s == 1:
+        out = _mla_absorbed_decode(p, q_nope, q_rope, latent, k_rope,
+                                   length, m)
+    else:
+        out = mla_expanded(p, q_nope, q_rope, latent, k_rope, q_offset, m)
+    return _einsum("bshv,hvd->bsd", out, p["wo"]), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -522,6 +689,21 @@ class Attention(_Params):
                 cache: Cache | None = None, window: int | None = None):
         return attention_fwd(self, x, self.cfg, pos=pos, cache=cache,
                              window=window)
+
+
+class MLA(_Params):
+    """MLA's parameters (:func:`init_mla`: ``q_a``, ``q_norm``, ``q_b``,
+    ``kv_a``, ``kv_norm``, ``kv_b``, ``wo``; the two norms nested, as
+    ``q_norm.scale``); ``forward(x, pos, cache)`` is :func:`mla_fwd`."""
+
+    def __init__(self, cfg, dtype=torch.float32, *, generator=None,
+                 device=None):
+        super().__init__(init_mla(generator, cfg, dtype, device))
+        self.cfg = cfg
+
+    def forward(self, x: Tensor, pos: Tensor | None = None,
+                cache: Cache | None = None):
+        return mla_fwd(self, x, self.cfg, pos=pos, cache=cache)
 
 
 class SwiGLU(_Params):

@@ -1,9 +1,12 @@
 """Model assembly of the port: config -> module / forward / decode step.
 
 Port of ``src/repro/models/model.py`` for the ``rwkv`` layer kind and the
-dense attention kinds (``attn``, ``attn_dense``, ``local_attn``: GQA with
-rotary positions and a SwiGLU MLP, or a GELU MLP and LayerNorms in the
-audio family). The reference stacks each period's parameters on a leading
+attention kinds (``attn``, ``attn_dense``, ``local_attn``: GQA with rotary
+or M-RoPE positions, or Multi-head Latent Attention where ``cfg.mla`` is
+set, and a SwiGLU MLP, or a GELU MLP and LayerNorms in the audio family),
+with the vision stub (``cfg.frontend == "vision_stub"``: the first
+``n_vision_tokens`` embeddings replaced by precomputed patch
+embeddings). The reference stacks each period's parameters on a leading
 axis and runs the layers as a ``lax.scan``; the port keeps one module per
 layer (:class:`LM` holds an ``nn.ModuleList`` of :class:`Block`) and runs
 them in a plain loop. Training (``train_forward``) recomputes each layer
@@ -11,8 +14,12 @@ of the scanned periods in the backward pass (``torch.utils.checkpoint``,
 the reference's ``jax.checkpoint`` of the period body) and computes the
 cross-entropy in sequence chunks (``chunked_ce_loss``). Decode caches are
 a list with one entry per layer; an attention layer's ``length`` is a
-host int. M-RoPE, MLA, MoE, RG-LRU, the multi-token head and the Whisper
-encoder-decoder are not ported yet (ROADMAP queue 1 item 2.2).
+host int. An M-RoPE model rotates by ``pos3`` [B, S, 3] (temporal,
+height, width), which the caller passes (the batch's ``pos3``, or
+``decode_step``'s ``pos``); where none is given the port raises
+``ValueError`` (:func:`positions`), as the reference fails there too. MoE,
+RG-LRU, the multi-token head and the Whisper encoder-decoder are not
+ported yet (ROADMAP queue 1 item 2.2).
 """
 from __future__ import annotations
 
@@ -32,7 +39,11 @@ Tensor = torch.Tensor
 Cache = list[dict[str, Any]]
 ATTN_KINDS = ("attn", "attn_dense", "local_attn")
 _NOT_PORTED = ("{} is not ported yet (ROADMAP queue 1 item 2.2: the rwkv "
-               "and dense attention kinds have landed)")
+               "and attention kinds, M-RoPE and MLA included, have landed)")
+_NEEDS_POS3 = ("{} rotates by M-RoPE positions: pass pos3 [B, S, 3] "
+               "(temporal, height, width; a batch's 'pos3', or decode_step's "
+               "pos). The reference fails on this call too: it rotates by "
+               "[B, S] positions there")
 
 
 def _norm(x: Tensor, p, eps: float) -> Tensor:
@@ -66,8 +77,9 @@ class Block(nn.Module):
     """One layer under the names of the reference's per-layer param tree:
     ``ln1``, ``mixer``, ``ln2``, ``ffn``. An ``rwkv`` layer: LayerNorms,
     the time mix and the channel mix. An attention layer: the block norms
-    (:func:`_init_block_norm`), :class:`layers.Attention` and a SwiGLU MLP
-    (a GELU MLP in the audio family)."""
+    (:func:`_init_block_norm`), :class:`layers.Attention` (or
+    :class:`layers.MLA` where ``cfg.mla`` is set) and a SwiGLU MLP (a GELU
+    MLP in the audio family)."""
 
     def __init__(self, cfg: ArchConfig, kind: str, dtype, *, generator=None,
                  device=None):
@@ -81,14 +93,13 @@ class Block(nn.Module):
             self.ffn = L.RWKV6ChannelMix(cfg, dtype, generator=generator,
                                          device=device)
         elif kind in ATTN_KINDS:
-            if cfg.mla is not None:
-                raise _not_ported("MLA (the mla config of an attention kind)")
             if cfg.moe is not None and kind == "attn":
                 raise _not_ported("the MoE feed-forward")
             self.ln1 = _init_block_norm(cfg, dtype, device)
             self.ln2 = _init_block_norm(cfg, dtype, device)
-            self.mixer = L.Attention(cfg, dtype, generator=generator,
-                                     device=device)
+            mixer = L.MLA if cfg.mla is not None else L.Attention
+            self.mixer = mixer(cfg, dtype, generator=generator,
+                               device=device)
             mlp = L.GeluMLP if cfg.family == "audio" else L.SwiGLU
             self.ffn = mlp(d, cfg.d_ff, dtype, generator=generator,
                            device=device)
@@ -99,13 +110,17 @@ class Block(nn.Module):
 def apply_layer(p: Block, x: Tensor, cfg: ArchConfig, kind: str, *,
                 pos: Tensor | None = None, cache=None
                 ) -> tuple[Tensor, dict | None]:
-    """One layer; ``pos`` [B, S] are the positions an attention layer
-    rotates by (the ``rwkv`` kind takes none)."""
+    """One layer; ``pos`` are the positions an attention layer rotates by,
+    [B, S] (or [B, S, 3] for M-RoPE; the ``rwkv`` kind takes none)."""
     if kind in ATTN_KINDS:
         h = _norm(x, p.ln1, cfg.norm_eps)
         window = cfg.local_window if kind == "local_attn" else None
-        a, new_cache = L.attention_fwd(p.mixer, h, cfg, pos=pos, cache=cache,
-                                       causal=True, window=window)
+        if cfg.mla is not None:
+            a, new_cache = L.mla_fwd(p.mixer, h, cfg, pos=pos, cache=cache)
+        else:
+            a, new_cache = L.attention_fwd(p.mixer, h, cfg, pos=pos,
+                                           cache=cache, causal=True,
+                                           window=window)
         x = x + a
         h = _norm(x, p.ln2, cfg.norm_eps)
         return x + _ffn_fwd(p.ffn, h), new_cache
@@ -158,10 +173,7 @@ class LM(nn.Module):
                  generator=None, device=None):
         super().__init__()
         for what, present in (("the encoder-decoder", cfg.enc_dec),
-                              ("the multi-token head", cfg.mtp),
-                              ("M-RoPE", cfg.pos == "mrope"),
-                              ("the vision stub",
-                               cfg.frontend == "vision_stub")):
+                              ("the multi-token head", cfg.mtp)):
             if present:
                 raise _not_ported(what)
         d = cfg.d_model
@@ -224,9 +236,12 @@ def positions(cfg: ArchConfig, b: int, s: int, device,
               offset: int = 0) -> Tensor | None:
     """The positions [B, S] (``offset`` .. ``offset + S - 1`` in every row)
     that the layers rotate by for ``cfg.pos == "rope"``; None for a model
-    that takes none (``"none"``: the ``rwkv`` kind)."""
+    that takes none (``"none"``: the ``rwkv`` kind). An M-RoPE model's
+    positions are the caller's ``pos3`` [B, S, 3]: ValueError."""
     if cfg.pos == "none":
         return None
+    if cfg.pos == "mrope":
+        raise ValueError(_NEEDS_POS3.format(cfg.name))
     if cfg.pos != "rope":
         raise _not_ported(f"positions of kind {cfg.pos!r}")
     return (torch.arange(s, device=device) + offset).expand(b, s)
@@ -263,7 +278,9 @@ def _logits(x: Tensor, unembed: Tensor) -> Tensor:
 
 
 def forward_logits(params: LM, tokens: Tensor, cfg: ArchConfig) -> Tensor:
-    """Full-sequence logits [B, S, V] float32 of ``tokens`` [B, S]."""
+    """Full-sequence logits [B, S, V] float32 of ``tokens`` [B, S], at
+    positions 0 .. S-1 (ValueError on an M-RoPE model, which needs
+    ``pos3``: :func:`positions`)."""
     b, s = tokens.shape
     x = params.embed[tokens]
     x = _run_layers(params, x, cfg, pos=positions(cfg, b, s, tokens.device))
@@ -301,15 +318,29 @@ def train_forward(params: LM, batch: dict[str, Tensor], cfg: ArchConfig,
     """Training loss of one (micro)batch: ``tokens``, ``labels`` and
     ``mask`` [B, S] -> the mean next-token cross-entropy, a 0-d float32
     tensor on the batch's device. Attention layers rotate by positions
-    0 .. S-1 (the ``rwkv`` kind takes none); the vision, M-RoPE,
+    0 .. S-1 (the ``rwkv`` kind takes none), or, with M-RoPE or the vision
+    stub, by the batch's ``pos3`` [B, S, 3]. With the vision stub the
+    first ``n_vision_tokens`` embeddings are replaced by the batch's
+    ``vision_embeds`` (cast to the embedding's dtype), as the reference
+    does (``x[:, n_vision_tokens:]`` follows them, so a sequence of at
+    most ``n_vision_tokens`` is the vision embeddings alone). The
     encoder-decoder and multi-token parts of the reference's
     ``train_forward`` come with the layer kinds that use them (no config
     the port can build has them)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = F.embedding(tokens, params.embed)
-    x = _run_layers(params, x, cfg, pos=positions(cfg, b, s, tokens.device),
-                    remat=remat)
+    if cfg.frontend == "vision_stub":
+        nv = cfg.n_vision_tokens
+        if nv:
+            x = torch.cat([batch["vision_embeds"].to(x.dtype), x[:, nv:]],
+                          dim=1)
+        pos = batch["pos3"]
+    elif cfg.pos == "mrope":
+        pos = batch["pos3"]
+    else:
+        pos = positions(cfg, b, s, tokens.device)
+    x = _run_layers(params, x, cfg, pos=pos, remat=remat)
     x = _norm(x, params.final_norm, cfg.norm_eps)
     return chunked_ce_loss(x, params.unembedding(), batch["labels"],
                            batch["mask"])
@@ -326,7 +357,10 @@ def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
     token. An attention layer: ``k`` and ``v`` [B, S_max, Hk, hd]
     (``dtype``) and ``length``, a host int (0), with S_max = ``max_len``;
     a ``local_attn`` layer's is a ring buffer of S_max = min(max_len,
-    local_window) slots with ``pos`` [B, S_max] int32, -1 where unwritten."""
+    local_window) slots with ``pos`` [B, S_max] int32, -1 where unwritten;
+    an MLA layer's (``cfg.mla``) holds ``latent`` [B, S_max, kv_rank] and
+    ``k_rope`` [B, S_max, 1, d_rope] (``dtype``) instead of ``k`` and
+    ``v``."""
     dev = resolve_device(device)
     cache = []
     for kind in cfg.layer_kinds:
@@ -339,7 +373,15 @@ def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
                                             dtype=torch.float32, device=dev)},
                 "cm": {"x_prev": torch.zeros((batch, d), dtype=dtype,
                                              device=dev)}})
-        elif kind in ATTN_KINDS and cfg.mla is None:
+        elif kind in ("attn", "attn_dense") and cfg.mla is not None:
+            m = cfg.mla
+            cache.append({
+                "latent": torch.zeros((batch, max_len, m.kv_rank),
+                                      dtype=dtype, device=dev),
+                "k_rope": torch.zeros((batch, max_len, 1, m.d_rope),
+                                      dtype=dtype, device=dev),
+                "length": 0})
+        elif kind in ATTN_KINDS:
             s_max = (min(max_len, cfg.local_window) if kind == "local_attn"
                      else max_len)
             shape = (batch, s_max, cfg.n_kv_heads, cfg.head_dim)
@@ -351,8 +393,7 @@ def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
                                       device=dev)
             cache.append(c)
         else:
-            raise _not_ported(f"the decode cache of layer kind {kind!r}"
-                              + (" with MLA" if cfg.mla is not None else ""))
+            raise _not_ported(f"the decode cache of layer kind {kind!r}")
     return cache
 
 
@@ -374,16 +415,18 @@ def _cache_length(cache: Cache, cfg: ArchConfig) -> int:
 def decode_step(params: LM, cache: Cache, tokens: Tensor, cfg: ArchConfig,
                 *, pos: Tensor | None = None) -> tuple[Tensor, Cache]:
     """Tokens [B, S] (one token, or a whole prompt for a cache-writing
-    prefill) -> (logits [B, S, V] float32, new cache). ``pos`` [B, S] are
-    the tokens' positions for the rotary embedding; by default (as in the
-    reference) every token takes the cache's length
+    prefill) -> (logits [B, S, V] float32, new cache). ``pos`` are the
+    tokens' positions for the rotary embedding, [B, S] (or [B, S, 3] for an
+    M-RoPE model, which must be given them: ValueError otherwise); by
+    default (as in the reference) every token takes the cache's length
     (:func:`_cache_length`). That is the right position for one token; for
     S > 1 the reference rotates every token of the prompt alike while its
     causal mask places them at length + i, so with rope attention layers
-    the port asks for ``pos`` instead (ValueError)."""
+    (MLA's included) the port asks for ``pos`` instead (ValueError)."""
     b, s = tokens.shape
-    if pos is None and cfg.pos == "rope":
-        if s > 1 and any(k in ATTN_KINDS for k in cfg.layer_kinds):
+    if pos is None and cfg.pos != "none":
+        if (cfg.pos == "rope" and s > 1
+                and any(k in ATTN_KINDS for k in cfg.layer_kinds)):
             raise ValueError(
                 f"decode_step of {s} tokens: pass pos [B, S] (e.g. length + "
                 "arange(S)); without it every token would be rotated by the "

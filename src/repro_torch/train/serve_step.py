@@ -22,17 +22,27 @@ Tensor = torch.Tensor
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:
     """Forward over the full prompt producing last-position logits [B, V]
-    float32, attention layers rotating by positions 0 .. S-1. (The
-    cache-writing prefill is ``decode_step`` with S > 1, given ``pos`` where
-    the model has rope attention layers.)"""
+    float32, attention layers rotating by positions 0 .. S-1, or, for an
+    M-RoPE model, by the batch's ``pos3`` [B, S, 3]. With the vision stub
+    the batch's ``vision_embeds`` [B, min(n_vision_tokens, S), d] take the
+    place of the first embeddings, as in the reference. (The cache-writing
+    prefill is ``decode_step`` with S > 1, given ``pos`` where the model
+    has rope or M-RoPE attention layers.)"""
 
     @torch.no_grad()
     def prefill(params: M.LM, batch: dict[str, Tensor]) -> Tensor:
         tokens = batch["tokens"]
         b, s = tokens.shape
         x = params.embed[tokens]
-        x = M._run_layers(params, x, cfg,
-                          pos=M.positions(cfg, b, s, tokens.device))
+        if cfg.pos == "mrope":
+            pos = batch["pos3"]
+        else:
+            pos = M.positions(cfg, b, s, tokens.device)
+        if cfg.frontend == "vision_stub" and cfg.n_vision_tokens:
+            nv = min(cfg.n_vision_tokens, s)
+            x = torch.cat([batch["vision_embeds"].to(x.dtype), x[:, nv:]],
+                          dim=1)
+        x = M._run_layers(params, x, cfg, pos=pos)
         x = M._norm(x[:, -1], params.final_norm, cfg.norm_eps)
         return M._logits(x, params.unembedding())
 
@@ -40,6 +50,10 @@ def make_prefill_step(cfg: ArchConfig) -> Callable:
 
 
 def make_decode_step(cfg: ArchConfig) -> Callable:
+    """Returns ``decode(params, cache, tokens, pos=None)``: ``decode_step``
+    without autograd; ``pos`` [B, S, 3] for an M-RoPE model (the
+    reference's ``pos3``)."""
+
     @torch.no_grad()
     def decode(params: M.LM, cache: M.Cache, tokens: Tensor,
                pos: Tensor | None = None):
@@ -52,7 +66,9 @@ def greedy_generate(params: M.LM, cfg: ArchConfig, prompt: Tensor,
                     max_new: int, cache_len: int,
                     dtype=torch.float32) -> Tensor:
     """Simple batched greedy loop: ``prompt`` [B, P] -> [B, max_new] int32
-    tokens, on the prompt's device."""
+    tokens, on the prompt's device. Every step takes ``decode_step``'s
+    default position, so an M-RoPE model raises there (ValueError), as
+    the reference's loop fails on one."""
     b = prompt.shape[0]
     cache = M.init_decode_cache(cfg, b, cache_len, dtype,
                                 device=prompt.device)

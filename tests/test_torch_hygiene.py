@@ -42,7 +42,9 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.data.pipeline", "repro_torch.launch.train",
             "repro_torch.configs.lm_100m", "repro_torch.configs.command_r_35b",
             "repro_torch.configs.command_r_plus_104b",
-            "repro_torch.configs.qwen1_5_110b"} <= set(names)
+            "repro_torch.configs.qwen1_5_110b",
+            "repro_torch.configs.minicpm3_4b",
+            "repro_torch.configs.qwen2_vl_7b"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"
