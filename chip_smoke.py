@@ -105,6 +105,22 @@ and checks each against the brute-force oracle or against itself:
   depth (30.5 GB): a 1 x 2048 prefill with 1024 vision-stub tokens, decode
   steps with explicit text ``pos3`` against the parallel forward, peak
   memory. No hand-written kernel runs there either;
+- Mixture of Experts and DeepSeek-V3's multi-token head (phase
+  ``lm_moe``, after ``lm_mla_vlm``): the smoke ``grok-1-314b`` and
+  ``deepseek-v3-671b`` (dropless) on the card against the CPU (prefill,
+  decode against the parallel forward, a train step); both at full width
+  with every expert and capacity factor 1.25, depth cut (grok to 2 layers,
+  45.8 GB; deepseek to its 3 dense-prefix layers and 1 MoE layer, MLA,
+  57.6 GB): a 1 x 2048 prefill, a cache-writing prefill and 16 decode
+  steps at B = 4 against the bandwidth bound of the weights a step reads,
+  the share of assignments dropped, the first MoE layer against
+  ``moe_fwd_plain`` on the prefill's and a decode step's input and split
+  by stage (route, dispatch, expert GEMMs, combine, shared), no blocking
+  transfer, peak memory; both trained cut by depth and expert count (grok
+  1 layer of 4 experts, deepseek 1 + 1 layers of 32 experts with the
+  head; int8 moments; the loss falling, step time, peak memory, FLOP
+  shares by active parameters and by the capacity slots run). No
+  hand-written kernel runs there;
 - the neighbor-query service (phase ``serve``, run before ``lm_serve``):
   ``repro_torch.serve`` on three 1M-point KITTI-like scenes, knn and
   range, 256 requests of 1,024-16,384 rows on a simulated 2,000
@@ -124,6 +140,7 @@ exits non-zero; without a CUDA device it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -266,6 +283,34 @@ MLA_VLM_TIMED = 5             # train steps timed after one warm-up, on one
                               # batch: the loss must fall over the 6
 ABSORBED_RTOL = 1e-4          # absorbed vs expanded MLA decode, one layer:
                               # max|diff| <= ABSORBED_RTOL * max(1, max|exp|)
+
+# Mixture of Experts and the multi-token head (phase ``lm_moe``):
+# grok-1-314b (src/repro_torch/configs/grok_1_314b.py) and deepseek-v3-671b
+# (configs/deepseek_v3_671b.py) at full width, float32. Served with every
+# expert and the config's top-k and capacity factor 1.25, depth cut: grok
+# from 64 to 2 layers (1.145e10 parameters, 45.8 GB; 64 layers take 1.27
+# TB), deepseek from 61 to 4 (its 3 dense-prefix layers and 1 MoE layer,
+# MLA, the multi-token head held but unused in serving: 1.439e10, 57.6 GB;
+# 61 layers take 2.68 TB). Trained cut by depth first, then by expert count
+# (top-k kept): grok 1 layer of 4 of its 8 experts (4.11e9 parameters),
+# deepseek 1 dense-prefix and 1 MoE layer of 32 of its 256 experts with the
+# multi-token head (4.06e9); 16 bytes a parameter with float32 moments
+# would pass the card's 80 GB, so the moments are int8 (OptConfig
+# quantize_moments=True): about 41 GB of weights, gradients and moments
+MOE_ARCHS = ("grok-1-314b", "deepseek-v3-671b")
+MOE_SERVE = {"grok-1-314b": (2, 11_450_578_944),
+             "deepseek-v3-671b": (4, 14_388_066_560)}   # layers, parameters
+MOE_PREFILL = 2048            # a 1 x 2048 prefill: cap 640 (grok), 80 (ds)
+MOE_DECODE_B = 4              # decode at B = 4: cap 2 (grok), 1 (deepseek)
+MOE_DECODE_STEPS = 16         # single decode steps after a cache-writing
+                              # prefill of LM_PROMPT tokens a row
+MOE_PLAIN_RTOL = 1e-4         # moe_fwd vs moe_fwd_plain, one layer:
+                              # max|diff| <= MOE_PLAIN_RTOL * max(1, max|plain|)
+MOE_TRAIN = (4, 512, 2)       # batch, seq, microbatches
+MOE_TRAIN_CUT = {"grok-1-314b": dict(n_layers=1, n_experts=4),
+                 "deepseek-v3-671b": dict(n_layers=2, dense_prefix=1,
+                                          n_experts=32)}
+MOE_PEAK_GB = 72.0            # a training peak above this halves the experts
 
 # FP32 operations per (b, h, t) and state cell that rwkv_scan needs at
 # least: r_i*S_ij and its add to out_j, k_i*v_j, w_i*S_ij and the add of
@@ -3163,7 +3208,7 @@ def phase_lm_dense() -> dict:
     return row
 
 
-def mla_vlm_small_vs_cpu(arch: str) -> dict:
+def mla_vlm_small_vs_cpu(arch: str, phase: str = "lm_mla_vlm") -> dict:
     """The smoke-size ``arch`` with one set of weights on the card and on
     the CPU (the path the CPU tests hold against the JAX reference): the
     prefill step (with ``pos3`` and ``vision_embeds`` for the VLM) within
@@ -3203,12 +3248,12 @@ def mla_vlm_small_vs_cpu(arch: str) -> dict:
     gaps["decode_vs_forward"] = allclose_gap(torch.cat(steps, 1), want,
                                              LM_DECODE_TOL)
     for key, (gap, ok) in gaps.items():
-        check(ok, f"lm_mla_vlm: smoke {arch} {key} off by {gap}")
+        check(ok, f"{phase}: smoke {arch} {key} off by {gap}")
     row = {"arch": small.name, "max_abs_err": {k: g for k, (g, _) in
                                                gaps.items()},
            "tol": {"prefill": LM_CPU_TOL, "decode_vs_forward": LM_DECODE_TOL},
            "train_step": train_small_vs_cpu(small)}
-    emit("lm_mla_vlm_small_vs_cpu", **row)
+    emit(f"{phase}_small_vs_cpu", **row)
     return row
 
 
@@ -3363,29 +3408,34 @@ def mla_serve() -> dict:
     return row
 
 
-def cut_train(arch: str, n_layers: int, shape) -> dict:
-    """``arch`` at full width, its depth cut to ``n_layers``, float32:
-    ``make_train_step`` with remat and ``OptConfig`` defaults on one
-    ``synthetic_stream`` batch of ``shape`` (batch, seq, microbatches;
-    ``pos3`` and ``vision_embeds`` for the VLM), 1 + MLA_VLM_TIMED steps
-    (the loss must fall), their median after the first, tokens/s, peak
-    memory, no blocking transfer in a step, and the model FLOPs' share of
-    the float32 peak."""
+def cut_train(arch: str, n_layers: int, shape, *, cfg=None, opt_cfg=None,
+              phase: str = "lm_mla_vlm") -> dict:
+    """``arch`` at full width, its depth cut to ``n_layers`` (or the cut
+    ``cfg`` given), float32: ``make_train_step`` with remat and
+    ``opt_cfg`` (``OptConfig`` defaults) on one ``synthetic_stream`` batch
+    of ``shape`` (batch, seq, microbatches; ``pos3`` and ``vision_embeds``
+    for the VLM), 1 + MLA_VLM_TIMED steps (the loss must fall), their
+    median after the first, tokens/s, peak memory, no blocking transfer in
+    a step, and the model FLOPs' share of the float32 peak (active
+    parameters: an MoE counts its top-k experts; with the expert GEMMs'
+    capacity slots also counted as run)."""
     import torch
     from repro_torch.data.pipeline import synthetic_stream
+    from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.models.config import get_config
     from repro_torch.train.optimizer import OptConfig, init_opt_state
     from repro_torch.train.train_step import make_train_step
     full = get_config(arch)
-    cfg = dataclasses.replace(full, n_layers=n_layers)
+    if cfg is None:
+        cfg = dataclasses.replace(full, n_layers=n_layers)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = M.init_params(cfg, LM_SEED, device="cuda", requires_grad=True)
     n_params = sum(p.numel() for p in params.parameters())
-    check(n_params == M.count_params(cfg), f"lm_mla_vlm: {arch} cut "
+    check(n_params == M.count_params(cfg), f"{phase}: {arch} cut "
           "parameter count")
-    opt_cfg = OptConfig()
+    opt_cfg = opt_cfg or OptConfig()
     opt = init_opt_state(params, opt_cfg)
     b, s, n_micro = shape
     batch = {k: v.reshape((n_micro, b // n_micro) + v.shape[1:])
@@ -3400,28 +3450,49 @@ def cut_train(arch: str, n_layers: int, shape) -> dict:
         times.append(ms)
     losses = torch.stack(losses).cpu().tolist()
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
-          f"lm_mla_vlm: {arch} loss not finite or not falling over "
+          f"{phase}: {arch} loss not finite or not falling over "
           f"{len(losses)} steps on one batch: {losses}")
     step_ms = sorted(times[1:])[len(times[1:]) // 2]
     res = []
     in_step = sync_warnings(lambda: res.append(step(params, opt, batch)))
-    check(not in_step, f"lm_mla_vlm: blocking transfers in {arch}'s train "
+    check(not in_step, f"{phase}: blocking transfers in {arch}'s train "
           f"step: {in_step}")
     peak = torch.cuda.max_memory_allocated() / 1e9
-    # 6 x (matmul parameters: all but the embedding table) x tokens, plus
-    # causal-free attention: q.k and p.v, forward and backward
+    # 6 x (active matmul parameters: all but the embedding table and the
+    # experts a token skips) x tokens, plus causal-free attention: q.k and
+    # p.v, forward and backward, in every layer and the multi-token head's
     tokens = b * s
     if cfg.mla is not None:
         d_qk, d_v = cfg.mla.d_nope + cfg.mla.d_rope, cfg.mla.d_v
     else:
         d_qk = d_v = cfg.head_dim
-    matmul_params = n_params - params.embed.numel()
-    attn_flops = 6 * n_layers * b * s * s * cfg.n_heads * (d_qk + d_v)
+    matmul_params = (M.count_params(cfg, active_only=True)
+                     - params.embed.numel())
+    attn_layers = cfg.n_layers + int(cfg.mtp)
+    attn_flops = 6 * attn_layers * b * s * s * cfg.n_heads * (d_qk + d_v)
     flops = 6 * matmul_params * tokens + attn_flops
+    moe = {}
+    if cfg.moe is not None:
+        # the expert GEMMs as run: E x cap rows a microbatch, every slot
+        # computed whether filled or not, against the t x k routed rows
+        mo = cfg.moe
+        t_micro = b // n_micro * s
+        cap = L.moe_capacity(t_micro, mo)
+        per_row = 6 * 3 * cfg.d_model * (mo.d_expert or cfg.d_ff)
+        n_moe = sum(M._layer_uses_moe(cfg, k) for k in cfg.layer_kinds)
+        routed = n_moe * n_micro * per_row * t_micro * mo.top_k
+        slots = n_moe * n_micro * per_row * mo.n_experts * cap
+        moe = {"n_experts": mo.n_experts, "full_experts":
+               full.moe.n_experts, "top_k": mo.top_k, "cap": cap,
+               "expert_flops_routed": routed, "expert_flops_slots": slots,
+               "model_flops_as_run": flops - routed + slots,
+               "fp32_peak_share_as_run": (flops - routed + slots)
+               / (step_ms / 1e3) / PEAK_FP32}
     del params, opt, batch, res
     torch.cuda.empty_cache()
     row = {
-        "arch": cfg.name, "n_layers": n_layers, "full_layers": full.n_layers,
+        "arch": cfg.name, "n_layers": cfg.n_layers,
+        "full_layers": full.n_layers,
         "d_model": cfg.d_model, "params": n_params,
         "full_params": M.count_params(full), "batch": b, "seq": s,
         "n_micro": n_micro, "tokens": tokens, "remat": True,
@@ -3430,13 +3501,13 @@ def cut_train(arch: str, n_layers: int, shape) -> dict:
         "peak_memory_gb": peak, "losses": losses,
         "blocking_transfers_in_step": in_step, "model_flops": flops,
         "attention_flops": attn_flops,
-        "model_flops_formula": "6 x (params - embedding table) x tokens + "
-        "6 x L x B x S^2 x H x (d_qk + d_v)",
+        "model_flops_formula": "6 x (active params - embedding table) x "
+        "tokens + 6 x L x B x S^2 x H x (d_qk + d_v)",
         "flops_per_s": flops / step_ms * 1e3,
-        "fp32_peak_share": flops / (step_ms / 1e3) / PEAK_FP32}
+        "fp32_peak_share": flops / (step_ms / 1e3) / PEAK_FP32, **moe}
     if cfg.frontend == "vision_stub":
         row["vision_tokens"] = min(cfg.n_vision_tokens, s)
-    emit(f"lm_mla_vlm_train_{arch}", **row)
+    emit(f"{phase}_train_{arch}", **row)
     return row
 
 
@@ -3564,6 +3635,303 @@ def phase_lm_mla_vlm() -> dict:
     row["seconds"] = time.perf_counter() - t_phase
     emit("lm_mla_vlm", **{k: row[k] for k in ("kernel_launches",
                                               "seconds")})
+    return row
+
+
+@contextlib.contextmanager
+def moe_inputs():
+    """Records what every MoE feed-forward of the model is called with,
+    ``(parameters, x)``, into the list it yields: ``layers.moe_fwd`` (the
+    name the model calls) is wrapped for the ``with`` block's length."""
+    from repro_torch.models import layers as L
+    orig, seen = L.moe_fwd, []
+
+    def recorded(p, x, cfg):
+        seen.append((p, x))
+        return orig(p, x, cfg)
+
+    L.moe_fwd = recorded
+    try:
+        yield seen
+    finally:
+        L.moe_fwd = orig
+
+
+def drop_share(seen, cfg) -> dict:
+    """The share of top-k assignments dropped by the capacity over the
+    recorded MoE calls (``moe_inputs``), and the calls' caps."""
+    import torch
+    from repro_torch.models import layers as L
+    dropped = total = 0
+    caps = set()
+    with torch.no_grad():
+        for p, x in seen:
+            route = L.moe_route(p, x.reshape(-1, x.shape[-1]), cfg)
+            dropped += int((~route.keep).sum())
+            total += route.keep.numel()
+            caps.add(route.cap)
+    return {"dropped": dropped, "assignments": total,
+            "share": dropped / total, "caps": sorted(caps),
+            "calls": len(seen)}
+
+
+def moe_vs_plain(p, x, cfg, tag: str) -> dict:
+    """One layer's ``moe_fwd`` against ``moe_fwd_plain`` (each expert's
+    first ``cap`` assignments in flat order, no sort) on ``x``: max|diff|
+    within MOE_PLAIN_RTOL x max(1, max|plain|)."""
+    import torch
+    from repro_torch.models import layers as L
+    with torch.no_grad():
+        got = L.moe_fwd(p, x, cfg)
+        want = L.moe_fwd_plain(p, x, cfg)
+        route = L.moe_route(p, x.reshape(-1, x.shape[-1]), cfg)
+    scale = max(1.0, float(want.abs().max()))
+    diff = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()) and diff <= MOE_PLAIN_RTOL * scale,
+          f"lm_moe: moe_fwd off moe_fwd_plain ({tag}) by {diff} (scale "
+          f"{scale})")
+    return {"tokens": route.experts.shape[0], "cap": route.cap,
+            "dropped": int((~route.keep).sum()), "max_abs_diff": diff,
+            "scale": scale, "rtol": MOE_PLAIN_RTOL}
+
+
+def moe_split(p, x, cfg, reps: int = 3) -> dict:
+    """One MoE layer on ``x`` stage by stage, each stage's device time
+    (milliseconds of kernel time a call, the mean of ``reps`` calls in a
+    ``torch.profiler`` run after one warm-up call; a run that recorded no
+    kernel is repeated once) and kernels a call: the router, top-k and
+    sort (``moe_route``); the dispatch into [E, cap, d]; the three expert
+    GEMMs; the combine; the shared experts where the layer has them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import layers as L
+    mo = cfg.moe
+    xf = x.reshape(-1, x.shape[-1])
+    out = {}
+    with torch.no_grad():
+        route = L.moe_route(p, xf, cfg)
+        buf = L.moe_dispatch(xf, route, mo.n_experts)
+        eo = L.moe_experts(p, buf)
+        stages = {"route": lambda: L.moe_route(p, xf, cfg),
+                  "dispatch": lambda: L.moe_dispatch(xf, route,
+                                                     mo.n_experts),
+                  "experts": lambda: L.moe_experts(p, buf),
+                  "combine": lambda: L.moe_combine(eo, route, x.dtype)}
+        if "shared" in p:
+            stages["shared"] = lambda: L.swiglu_fwd(p["shared"], xf)
+        for name, fn in stages.items():
+            fn()
+            torch.cuda.synchronize()
+            for _ in range(2):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize()
+                evts = [e for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and not getattr(e, "is_user_annotation", False)]
+                if evts:
+                    break
+            out[name] = {"device_ms": sum(e.time_range.elapsed_us()
+                                          for e in evts) / 1e3 / reps,
+                         "kernels": len(evts) / reps}
+    total = sum(v["device_ms"] for v in out.values())
+    for v in out.values():
+        v["share"] = v["device_ms"] / total if total else 0.0
+    return {"tokens": xf.shape[0], "cap": route.cap, "stages": out,
+            "device_ms": total}
+
+
+def moe_serve(arch: str) -> dict:
+    """``arch`` at full width with every expert, its depth cut
+    (MOE_SERVE), float32: a 1 x MOE_PREFILL prefill, timed, its MoE
+    layers' drop share, the first MoE layer against ``moe_fwd_plain`` on
+    the prefill's input and its stage split; a cache-writing prefill of
+    LM_PROMPT tokens a row at B = MOE_DECODE_B, then MOE_DECODE_STEPS
+    decode steps timed (their median against the bandwidth bound of the
+    weights a step reads), run again recording their drop share, the last
+    step's MoE input against the plain computation and split; no blocking
+    transfer in a decode step; one step profiled; peak memory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as M
+    from repro_torch.models.config import get_config
+    from repro_torch.train.serve_step import (make_decode_step,
+                                              make_prefill_step)
+    full = get_config(arch)
+    n_layers, want_params = MOE_SERVE[arch]
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, LM_SEED, device="cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == M.count_params(cfg) == want_params,
+          f"lm_moe: {arch} cut to {n_layers} layers has {n_params} "
+          "parameters")
+    gen = torch.Generator(device="cuda").manual_seed(LM_SEED)
+    toks = torch.randint(0, cfg.vocab, (1, MOE_PREFILL), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    head = {"tokens": toks}
+    with moe_inputs() as seen:
+        last = prefill(params, head)
+    check(last.shape == (1, cfg.vocab) and bool(torch.isfinite(last).all()),
+          f"lm_moe: {arch} prefill logits")
+    prefill_drops = drop_share(seen, cfg)
+    prefill_plain = moe_vs_plain(*seen[0], cfg, f"{arch} prefill")
+    prefill_split = moe_split(*seen[0], cfg)
+    del seen
+    prefill_ms = cuda_time_ms(lambda: prefill(params, head),
+                              LM_TIMED_PREFILLS)
+
+    b, p_len = MOE_DECODE_B, LM_PROMPT
+    prompts = torch.randint(0, cfg.vocab, (b, p_len + MOE_DECODE_STEPS),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    max_len = p_len + MOE_DECODE_STEPS + 1
+    pos = torch.arange(p_len, device="cuda").expand(b, p_len)
+
+    def start():
+        cache = M.init_decode_cache(cfg, b, max_len, torch.float32)
+        return decode(params, cache, prompts[:, :p_len], pos)
+
+    (logits, cache), cache_prefill_ms = timed_ms(start)
+    lat_ms = []
+    for i in range(p_len, p_len + MOE_DECODE_STEPS):
+        (logits, cache), ms = timed_ms(lambda: decode(
+            params, cache, prompts[:, i:i + 1]))
+        lat_ms.append(ms)
+    check(logits.shape == (b, 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"lm_moe: {arch} decode logits")
+    _, cache = start()
+    with moe_inputs() as seen:
+        for i in range(p_len, p_len + MOE_DECODE_STEPS):
+            _, cache = decode(params, cache, prompts[:, i:i + 1])
+    n_moe = sum(M._layer_uses_moe(cfg, k) for k in cfg.layer_kinds)
+    decode_drops = drop_share(seen, cfg)
+    decode_plain = moe_vs_plain(*seen[-n_moe], cfg, f"{arch} decode")
+    decode_split = moe_split(*seen[-n_moe], cfg)
+    del seen
+    _, cache = start()
+    res = []
+    syncs = sync_warnings(lambda: res.append(decode(
+        params, cache, prompts[:, p_len:p_len + 1])))
+    check(not syncs, f"lm_moe: blocking transfers in a {arch} decode step: "
+          f"{syncs}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode(params, cache, prompts[:, p_len:p_len + 1])
+        torch.cuda.synchronize()
+    decode_device = device_breakdown(prof, kernel="sort")
+    del prof, res
+    # a decode step reads every weight of the layers, the final norm and
+    # the unembedding once, and b rows of the embedding (the multi-token
+    # head is not used in serving): the capacity dispatch runs every expert
+    # on its cap slots
+    read = [*params.blocks.parameters(), *params.final_norm.values(),
+            params.unembedding()]
+    step_bytes = 4 * (sum(t.numel() for t in read) + b * cfg.d_model)
+    bound_ms = step_bytes / PEAK_BYTES * 1e3
+    med = sorted(lat_ms)[len(lat_ms) // 2]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    row = {
+        "arch": cfg.name, "params": n_params,
+        "full_params": M.count_params(full), "n_layers": n_layers,
+        "full_layers": full.n_layers, "layer_kinds": list(cfg.layer_kinds),
+        "n_experts": cfg.moe.n_experts, "full_experts": full.moe.n_experts,
+        "top_k": cfg.moe.top_k, "capacity_factor": cfg.moe.capacity_factor,
+        "mla": cfg.mla is not None, "mtp_held": cfg.mtp,
+        "d_model": cfg.d_model, "weight_gb": n_params * 4 / 1e9,
+        "cut": {"n_layers": [full.n_layers, n_layers], "why": (
+            f"{M.count_params(full):.3e} float32 parameters take "
+            f"{M.count_params(full) * 4 / 1e12:.2f} TB; {n_layers} layers "
+            f"with the embedding and unembedding take "
+            f"{n_params * 4 / 1e9:.1f} GB of the card's 80 GB")},
+        "prefill_shape": [1, MOE_PREFILL], "prefill_ms": prefill_ms,
+        "prefill_tokens_per_s": MOE_PREFILL / prefill_ms * 1e3,
+        "prefill_drops": prefill_drops, "prefill_vs_plain": prefill_plain,
+        "prefill_moe_split": prefill_split,
+        "decode_batch": b, "prompt_len": p_len,
+        "cache_prefill_ms": cache_prefill_ms,
+        "decode_steps": MOE_DECODE_STEPS, "decode_step_ms": lat_ms,
+        "decode_step_median_ms": med, "decode_bytes": step_bytes,
+        "decode_bound_ms": bound_ms, "decode_bound_share": bound_ms / med,
+        "decode_drops": decode_drops, "decode_vs_plain": decode_plain,
+        "decode_moe_split": decode_split,
+        "decode_blocking_transfers": syncs, "decode_device": decode_device,
+        "peak_memory_gb": peak}
+    emit(f"lm_moe_serve_{arch}", **row)
+    del params, cache, logits, last
+    torch.cuda.empty_cache()
+    return row
+
+
+def moe_train(arch: str) -> dict:
+    """``arch`` at full width cut by depth and then by expert count
+    (MOE_TRAIN_CUT; top-k kept), trained with int8 moments on MOE_TRAIN
+    (``cut_train``); if its peak passes MOE_PEAK_GB, again with half the
+    experts, the halving recorded."""
+    import torch
+    from repro_torch.models.config import get_config
+    from repro_torch.train.optimizer import OptConfig
+    full = get_config(arch)
+    cut = dict(MOE_TRAIN_CUT[arch])
+    n_exp = cut.pop("n_experts")
+    halved = []
+    while True:
+        cfg = dataclasses.replace(full, **cut, moe=dataclasses.replace(
+            full.moe, n_experts=n_exp))
+        why = None
+        try:
+            row = cut_train(arch, cfg.n_layers, MOE_TRAIN, cfg=cfg,
+                            opt_cfg=OptConfig(quantize_moments=True),
+                            phase="lm_moe")
+            peak = row["peak_memory_gb"]
+        except torch.cuda.OutOfMemoryError as exc:
+            row, peak, why = None, float("inf"), str(exc).splitlines()[0]
+        if peak <= MOE_PEAK_GB:
+            break
+        torch.cuda.empty_cache()
+        halved.append({"n_experts": n_exp, "peak_memory_gb": peak,
+                       "out_of_memory": why})
+        check(n_exp // 2 >= full.moe.top_k, f"lm_moe: {arch} training does "
+              f"not fit in {MOE_PEAK_GB} GB: {halved}")
+        n_exp //= 2
+    row["experts_halved"] = halved
+    return row
+
+
+def phase_lm_moe() -> dict:
+    """Mixture of Experts and DeepSeek-V3's multi-token head. The smoke
+    ``grok-1-314b`` and ``deepseek-v3-671b`` on the card against the CPU
+    (``mla_vlm_small_vs_cpu``: dropless, so decode equals the parallel
+    forward); both at full width with every expert served, depth cut
+    (``moe_serve``); both trained cut by depth and expert count
+    (``moe_train``). Each model is freed before the next is built. None of
+    the hand-written kernels runs (the reference's router, dispatch and
+    expert GEMMs are einsum math)."""
+    from repro_torch.kernels import distance_tile as tdist
+    from repro_torch.kernels import knn_tile as knn_mod
+    from repro_torch.kernels import range_tile as trange
+    from repro_torch.kernels import rwkv_scan as scan
+    from repro_torch.kernels import update_tile as upd
+    t_phase = time.perf_counter()
+    counters = [scan.rwkv_scan, knn_mod.knn_tile_anchored, knn_mod.knn_tile,
+                upd.bin_disp_tile, trange.range_count, tdist.distance_tile]
+    for fn in counters:
+        fn.launches = 0
+    row = {"small_vs_cpu": [mla_vlm_small_vs_cpu(a, phase="lm_moe")
+                            for a in MOE_ARCHS]}
+    for arch in MOE_ARCHS:
+        row[f"{arch}_serve"] = moe_serve(arch)
+    for arch in MOE_ARCHS:
+        row[f"{arch}_train"] = moe_train(arch)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    check(all(v == 0 for v in launches.values()),
+          f"lm_moe: a hand-written kernel ran: {launches}")
+    row["kernel_launches"] = launches
+    row["seconds"] = time.perf_counter() - t_phase
+    emit("lm_moe", **{k: row[k] for k in ("kernel_launches", "seconds")},
+         nvidia_smi=smi_line())
     return row
 
 
@@ -4027,6 +4395,7 @@ def main() -> int:
     phase_lm_train()
     phase_lm_dense()
     phase_lm_mla_vlm()
+    phase_lm_moe()
 
     rows = [("knn_tile_anchored", dict(
         launches=m["launches"], err=max(m["err"], hp_err, any_k_err,

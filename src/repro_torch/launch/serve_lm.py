@@ -9,7 +9,10 @@ Port of ``src/repro/launch/serve_lm.py`` with its flags and defaults
 without a card, and the CPU runs only with ``--device cpu``, e.g.
 ``--smoke --device cpu``). ``--arch rwkv6-7b`` serves RWKV-6 and
 ``--arch minicpm3-4b`` Multi-head Latent Attention (single-token steps
-through the absorbed decode). ``--arch qwen2-vl-7b`` exits non-zero with
+through the absorbed decode); ``--arch grok-1-314b`` and ``--arch
+deepseek-v3-671b`` the MoE feed-forward (with ``--smoke``: the full
+configs take 1.27 TB and 2.68 TB of float32 weights, more than a card
+holds). ``--arch qwen2-vl-7b`` exits non-zero with
 a ``ValueError``, as the reference's launcher fails on it: the greedy
 loop steps at the cache's length, and an M-RoPE model needs explicit
 ``pos3`` positions (``train/serve_step.make_decode_step`` takes them).

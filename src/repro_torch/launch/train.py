@@ -9,7 +9,10 @@ Port of ``src/repro/launch/train.py`` with its flags and defaults
 ``--device cpu``, e.g. ``--smoke --device cpu``); ``--arch rwkv6-7b``
 trains RWKV-6, ``--arch minicpm3-4b`` Multi-head Latent Attention and
 ``--arch qwen2-vl-7b`` M-RoPE with the vision stub (the synthetic batches
-carry ``pos3`` and ``vision_embeds``). Fault tolerance comes from ``ResilientLoop``
+carry ``pos3`` and ``vision_embeds``), ``--arch grok-1-314b`` the MoE
+feed-forward and ``--arch deepseek-v3-671b`` MLA, the MoE with a shared
+expert and the aux-free router bias, and the multi-token head (both with
+``--smoke``: the full configs do not fit on one card). Fault tolerance comes from ``ResilientLoop``
 (checkpoint/restart + straggler monitor) when ``--ckpt-dir`` is given.
 """
 from __future__ import annotations

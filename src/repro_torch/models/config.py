@@ -92,8 +92,8 @@ class ArchConfig:
         return model.count_params(self)
 
     def active_param_count(self) -> int:
-        # no config the port builds has MoE, so every parameter is active
-        return self.param_count()
+        from . import model
+        return model.count_params(self, active_only=True)
 
 
 def register(cfg: ArchConfig) -> ArchConfig:

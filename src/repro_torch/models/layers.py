@@ -1,17 +1,20 @@
 """Layer library of the port: what the ``rwkv`` and the attention layer
-kinds (dense, M-RoPE, MLA) need.
+kinds (dense, M-RoPE, MLA, MoE) need.
 
 Port of ``src/repro/models/layers.py``: the dense init, the two norms,
 rotary embeddings (standard and M-RoPE), grouped-query attention with its
 linear and ring-buffer KV caches, Multi-head Latent Attention with its
-latent cache, the SwiGLU and GELU MLPs, and the RWKV-6 (Finch) time mix
-and channel mix. ``init_*`` returns a dict of tensors as the
-reference's returns a param dict; the ``*_fwd`` functions apply a mapping
-of parameters by name (a dict, an ``nn.ParameterDict`` or one of the
-modules below) and return what the reference's return. :class:`Attention`,
-:class:`MLA`, :class:`SwiGLU`, :class:`GeluMLP`, :class:`RWKV6TimeMix` and
-:class:`RWKV6ChannelMix` hold the parameters as ``nn.Module``s under the
-reference's names. Parameters are made for serving: they require
+latent cache, the SwiGLU and GELU MLPs, the Mixture of Experts
+feed-forward (top-k routing, sorted capacity dispatch: ``moe_fwd`` as
+``moe_route``, ``moe_dispatch``, ``moe_experts``, ``moe_combine``;
+``moe_aux_loss``), and the RWKV-6 (Finch) time mix and channel mix.
+``init_*`` returns a dict of tensors as the reference's returns a param
+dict; the ``*_fwd`` functions apply a mapping of parameters by name (a
+dict, an ``nn.ParameterDict`` or one of the modules below) and return
+what the reference's return. :class:`Attention`, :class:`MLA`,
+:class:`SwiGLU`, :class:`MoE`, :class:`GeluMLP`, :class:`RWKV6TimeMix`
+and :class:`RWKV6ChannelMix` hold the parameters as ``nn.Module``s under
+the reference's names. Parameters are made for serving: they require
 gradients only after ``requires_grad_()`` (which
 ``models.model.init_params(..., requires_grad=True)`` calls). The time
 mix runs its recurrence through ``kernels.rwkv_scan.rwkv_scan`` (no
@@ -23,13 +26,17 @@ attention with rotary (``apply_rope``) or multimodal rotary
 (``apply_mrope``, Qwen2-VL's M-RoPE) positions, and Multi-head Latent
 Attention (``mla_fwd``, :class:`MLA`: DeepSeek-V2 / MiniCPM3), whose
 decode cache holds the compressed latent and whose single-token decode
-attends in the latent space (``_mla_absorbed_decode``). MoE, RG-LRU and
-the Whisper layers are not ported yet (ROADMAP queue 1 item 2.2).
+attends in the latent space (``_mla_absorbed_decode``). The MoE is
+plain tensor operations too (the reference's expert GEMMs are batched
+einsums): a stable sort by expert, ranks and capacity drops exactly as
+the reference's, the expert GEMMs as ``torch.bmm``, and a deterministic
+combine. RG-LRU and the Whisper layers are not ported yet (ROADMAP queue
+1 item 2.2).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Mapping
+from typing import Any, Mapping, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -444,6 +451,191 @@ def gelu_mlp_fwd(p: Mapping[str, Tensor], x: Tensor) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Mixture of Experts (top-k routing, sorted capacity dispatch)
+# ---------------------------------------------------------------------------
+
+def init_moe(gen, cfg, dtype, device=None) -> dict[str, Any]:
+    mo = cfg.moe
+    d = cfg.d_model
+    ff = mo.d_expert or cfg.d_ff
+    e = mo.n_experts
+    p = {
+        "router": _dense_init(gen, (d, e), 0.02, torch.float32, device),
+        "w_gate": _dense_init(gen, (e, d, ff), None, dtype, device),
+        "w_up": _dense_init(gen, (e, d, ff), None, dtype, device),
+        "w_down": _dense_init(gen, (e, ff, d), None, dtype, device),
+    }
+    if mo.router_aux_free:
+        p["router_bias"] = torch.zeros((e,), dtype=torch.float32,
+                                       device=device)
+    if mo.n_shared:
+        p["shared"] = init_swiglu(gen, d, ff * mo.n_shared, dtype, device)
+    return p
+
+
+def top_k_ids(scores: Tensor, k: int) -> Tensor:
+    """The indices of the ``k`` largest ``scores`` along the last axis,
+    largest first and, among equal values, the lower index first, as
+    ``jax.lax.top_k`` orders them (``torch.topk`` promises no order among
+    ties): a stable descending sort."""
+    return torch.sort(scores, dim=-1, descending=True, stable=True)[1][
+        ..., :k]
+
+
+class MoERoute(NamedTuple):
+    """Where each of the ``t * k`` assignments of :func:`moe_route` goes.
+    ``experts`` and ``probs`` [t, k] are each token's chosen experts and
+    gates; the rest are over the assignments in expert-sorted order:
+    ``order`` the flat index ``token * k + j`` at each sorted position,
+    ``rank`` its place within its expert's group, ``keep`` whether it fits
+    in the expert's ``cap`` slots, ``slot`` its row of the [E * cap]
+    dispatch buffer (``E * cap``, the spare row, if dropped)."""
+    experts: Tensor
+    probs: Tensor
+    order: Tensor
+    rank: Tensor
+    keep: Tensor
+    slot: Tensor
+    cap: int
+
+
+def moe_capacity(t: int, mo) -> int:
+    """Slots per expert for ``t`` tokens: ceil(t k / E x capacity_factor)."""
+    return int(math.ceil(t * mo.top_k / mo.n_experts * mo.capacity_factor))
+
+
+def moe_route(p: Mapping[str, Any], xf: Tensor, cfg) -> MoERoute:
+    """Router and sorted capacity assignment of tokens ``xf`` [t, d]: the
+    router logits in float32; the top-k experts of ``logits +
+    router_bias`` (DeepSeek-V3's aux-free bias shifts the selection only);
+    gates the softmax of the unbiased logits at those experts; a stable
+    sort of the flat expert ids, so that among one expert's assignments
+    the earlier flat index ranks first and keeps its slot."""
+    mo = cfg.moe
+    t = xf.shape[0]
+    logits = xf.to(torch.float32) @ p["router"]
+    sel = logits + p["router_bias"] if "router_bias" in p else logits
+    experts = top_k_ids(sel, mo.top_k)                        # [t, k]
+    probs = torch.softmax(torch.gather(logits, 1, experts), dim=-1)
+    flat_e = experts.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    first = torch.searchsorted(sorted_e, sorted_e, side="left")
+    rank = torch.arange(t * mo.top_k, device=xf.device) - first
+    cap = moe_capacity(t, mo)
+    keep = rank < cap
+    slot = torch.where(keep, sorted_e * cap + rank,
+                       torch.full_like(rank, mo.n_experts * cap))
+    return MoERoute(experts, probs, order, rank, keep, slot, cap)
+
+
+def moe_dispatch(xf: Tensor, route: MoERoute, n_experts: int) -> Tensor:
+    """Tokens gathered into their experts' slots, [E, cap, d]; an empty
+    slot is zero, and dropped assignments land in a spare row that is cut
+    off."""
+    d = xf.shape[1]
+    k = route.experts.shape[1]
+    buf = xf.new_zeros((n_experts * route.cap + 1, d))
+    buf = buf.index_put((route.slot,), xf[route.order // k])
+    return buf[:-1].reshape(n_experts, route.cap, d)
+
+
+def moe_experts(p: Mapping[str, Any], buf: Tensor) -> Tensor:
+    """Every expert's SwiGLU on its ``cap`` slots, as three batched GEMMs
+    over [E, cap, d] (empty slots included, as in the reference)."""
+    h = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
+    return torch.bmm(h, p["w_down"])
+
+
+def moe_combine(eo: Tensor, route: MoERoute, dtype) -> Tensor:
+    """Each token's gate-weighted sum of its kept experts' outputs, in
+    float32, cast to ``dtype``: [t, d]. Deterministic: every assignment
+    gathers its slot's row (the appended zero row if dropped), and the
+    ``k`` rows of a token are summed along an axis (the reference
+    scatter-adds them)."""
+    t, k = route.experts.shape
+    d = eo.shape[-1]
+    rows = torch.cat([eo.reshape(-1, d), eo.new_zeros((1, d))])
+    slot_of = torch.empty_like(route.slot).index_put_(
+        (route.order,), route.slot)                     # by flat index
+    contrib = rows[slot_of].to(torch.float32) * route.probs.reshape(-1, 1)
+    return contrib.reshape(t, k, d).sum(dim=1).to(dtype)
+
+
+def moe_fwd(p: Mapping[str, Any], x: Tensor, cfg) -> Tensor:
+    """Top-k MoE with *sorted* capacity dispatch: x [B, S, d] -> [B, S, d].
+
+    Tokens are sorted by routed expert before the expert GEMMs, the
+    reference's coherence transformation (its section-4 query scheduling
+    applied to expert-route divergence). ``cap`` depends on t = B * S, so
+    a prefill and a decode step drop differently at capacity factor 1.25.
+    The shared experts (``p["shared"]``, DeepSeekMoE) are added after."""
+    mo = cfg.moe
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    route = moe_route(p, xf, cfg)
+    eo = moe_experts(p, moe_dispatch(xf, route, mo.n_experts))
+    out = moe_combine(eo, route, x.dtype)
+    if "shared" in p:
+        out = out + swiglu_fwd(p["shared"], xf)
+    return out.reshape(b, s, d)
+
+
+def moe_fwd_plain(p: Mapping[str, Any], x: Tensor, cfg) -> Tensor:
+    """:func:`moe_fwd`'s function stated expert by expert, without the
+    sort: the top-k by repeated first-maximum ``argmax``; for each expert,
+    its assignments in flat order (token, then choice), the first ``cap``
+    kept, run through that expert's SwiGLU and added with their gates in
+    float32; then the shared experts. What ``moe_fwd`` is held to."""
+    mo = cfg.moe
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    t = xf.shape[0]
+    logits = xf.to(torch.float32) @ p["router"]
+    sel = logits + p["router_bias"] if "router_bias" in p else logits
+    picks, masked = [], sel.clone()
+    for _ in range(mo.top_k):
+        j = torch.argmax(masked, dim=-1)
+        picks.append(j)
+        masked[torch.arange(t, device=x.device), j] = -torch.inf
+    experts = torch.stack(picks, 1)
+    gates = torch.softmax(torch.gather(logits, 1, experts), dim=-1)
+    cap = moe_capacity(t, mo)
+    out = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    flat_e, flat_g = experts.reshape(-1), gates.reshape(-1)
+    for e in range(mo.n_experts):
+        fidx = torch.nonzero(flat_e == e)[:, 0][:cap]
+        if fidx.numel() == 0:
+            continue
+        tok = fidx // mo.top_k
+        y = swiglu_fwd({"w_gate": p["w_gate"][e], "w_up": p["w_up"][e],
+                        "w_down": p["w_down"][e]}, xf[tok])
+        out.index_add_(0, tok, y.to(torch.float32) * flat_g[fidx, None])
+    out = out.to(x.dtype)
+    if "shared" in p:
+        out = out + swiglu_fwd(p["shared"], xf)
+    return out.reshape(b, s, d)
+
+
+def moe_aux_loss(p: Mapping[str, Any], x: Tensor, cfg) -> Tensor:
+    """Load-balancing auxiliary loss (Switch-style), a 0-d float32 tensor:
+    E x sum over experts of (share of the top-k assignments) x (mean
+    router probability). The top-k is of the unbiased logits, as in the
+    reference. Nothing on the training path adds it to the loss, as in
+    the reference."""
+    mo = cfg.moe
+    t = x.shape[0] * x.shape[1]
+    logits = (x.to(torch.float32) @ p["router"]).reshape(t, mo.n_experts)
+    probs = torch.softmax(logits, dim=-1)
+    experts = top_k_ids(logits, mo.top_k)
+    counts = torch.zeros((mo.n_experts,), dtype=torch.float32,
+                         device=x.device).index_add_(
+        0, experts.reshape(-1), torch.ones(t * mo.top_k, device=x.device))
+    frac_tokens = counts / (t * mo.top_k)
+    return mo.n_experts * torch.sum(frac_tokens * probs.mean(0))
+
+
+# ---------------------------------------------------------------------------
 # RWKV-6 (Finch): data-dependent decay time-mix + channel-mix
 # ---------------------------------------------------------------------------
 
@@ -716,6 +908,22 @@ class SwiGLU(_Params):
 
     def forward(self, x: Tensor) -> Tensor:
         return swiglu_fwd(self, x)
+
+
+class MoE(_Params):
+    """The MoE feed-forward's parameters (:func:`init_moe`: ``router`` [d,
+    E] float32, ``w_gate``/``w_up`` [E, d, ff], ``w_down`` [E, ff, d],
+    ``router_bias`` [E] float32 with ``router_aux_free``, the ``shared``
+    SwiGLU nested, as ``shared.w_gate``, with ``n_shared``);
+    ``forward(x)`` is :func:`moe_fwd`."""
+
+    def __init__(self, cfg, dtype=torch.float32, *, generator=None,
+                 device=None):
+        super().__init__(init_moe(generator, cfg, dtype, device))
+        self.cfg = cfg
+
+    def forward(self, x: Tensor) -> Tensor:
+        return moe_fwd(self, x, self.cfg)
 
 
 class GeluMLP(_Params):

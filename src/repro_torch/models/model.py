@@ -4,8 +4,13 @@ Port of ``src/repro/models/model.py`` for the ``rwkv`` layer kind and the
 attention kinds (``attn``, ``attn_dense``, ``local_attn``: GQA with rotary
 or M-RoPE positions, or Multi-head Latent Attention where ``cfg.mla`` is
 set, and a SwiGLU MLP, or a GELU MLP and LayerNorms in the audio family),
-with the vision stub (``cfg.frontend == "vision_stub"``: the first
-``n_vision_tokens`` embeddings replaced by precomputed patch
+with the MoE feed-forward in the ``attn`` layers of a config with
+``cfg.moe`` (:func:`_layer_uses_moe`: DeepSeek's ``attn_dense`` prefix
+keeps its SwiGLU), DeepSeek-V3's multi-token head (``cfg.mtp``: an
+``mtp`` module of ``proj``, an ``attn_dense`` ``block`` and a ``norm``,
+trained by ``train_forward``'s extra term and unused in serving, as in
+the reference) and the vision stub (``cfg.frontend == "vision_stub"``:
+the first ``n_vision_tokens`` embeddings replaced by precomputed patch
 embeddings). The reference stacks each period's parameters on a leading
 axis and runs the layers as a ``lax.scan``; the port keeps one module per
 layer (:class:`LM` holds an ``nn.ModuleList`` of :class:`Block`) and runs
@@ -17,9 +22,9 @@ a list with one entry per layer; an attention layer's ``length`` is a
 host int. An M-RoPE model rotates by ``pos3`` [B, S, 3] (temporal,
 height, width), which the caller passes (the batch's ``pos3``, or
 ``decode_step``'s ``pos``); where none is given the port raises
-``ValueError`` (:func:`positions`), as the reference fails there too. MoE,
-RG-LRU, the multi-token head and the Whisper encoder-decoder are not
-ported yet (ROADMAP queue 1 item 2.2).
+``ValueError`` (:func:`positions`), as the reference fails there too.
+RG-LRU and the Whisper encoder-decoder are not ported yet (ROADMAP queue
+1 item 2.2).
 """
 from __future__ import annotations
 
@@ -39,7 +44,8 @@ Tensor = torch.Tensor
 Cache = list[dict[str, Any]]
 ATTN_KINDS = ("attn", "attn_dense", "local_attn")
 _NOT_PORTED = ("{} is not ported yet (ROADMAP queue 1 item 2.2: the rwkv "
-               "and attention kinds, M-RoPE and MLA included, have landed)")
+               "and attention kinds, M-RoPE, MLA, MoE and the multi-token "
+               "head included, have landed)")
 _NEEDS_POS3 = ("{} rotates by M-RoPE positions: pass pos3 [B, S, 3] "
                "(temporal, height, width; a batch's 'pos3', or decode_step's "
                "pos). The reference fails on this call too: it rotates by "
@@ -65,9 +71,13 @@ def _init_block_norm(cfg: ArchConfig, dtype, device=None) -> nn.ParameterDict:
                         else L.init_rmsnorm(cfg.d_model, dtype, device))
 
 
-def _ffn_fwd(p, x: Tensor) -> Tensor:
+def _layer_uses_moe(cfg: ArchConfig, kind: str) -> bool:
+    return cfg.moe is not None and kind == "attn"
+
+
+def _ffn_fwd(p, x: Tensor, cfg: ArchConfig) -> Tensor:
     if "router" in p:
-        raise _not_ported("the MoE feed-forward")
+        return L.moe_fwd(p, x, cfg)
     if "w1" in p:
         return L.gelu_mlp_fwd(p, x)
     return L.swiglu_fwd(p, x)
@@ -79,7 +89,8 @@ class Block(nn.Module):
     the time mix and the channel mix. An attention layer: the block norms
     (:func:`_init_block_norm`), :class:`layers.Attention` (or
     :class:`layers.MLA` where ``cfg.mla`` is set) and a SwiGLU MLP (a GELU
-    MLP in the audio family)."""
+    MLP in the audio family; :class:`layers.MoE` in an ``attn`` layer of a
+    config with ``cfg.moe``)."""
 
     def __init__(self, cfg: ArchConfig, kind: str, dtype, *, generator=None,
                  device=None):
@@ -93,16 +104,18 @@ class Block(nn.Module):
             self.ffn = L.RWKV6ChannelMix(cfg, dtype, generator=generator,
                                          device=device)
         elif kind in ATTN_KINDS:
-            if cfg.moe is not None and kind == "attn":
-                raise _not_ported("the MoE feed-forward")
             self.ln1 = _init_block_norm(cfg, dtype, device)
             self.ln2 = _init_block_norm(cfg, dtype, device)
             mixer = L.MLA if cfg.mla is not None else L.Attention
             self.mixer = mixer(cfg, dtype, generator=generator,
                                device=device)
-            mlp = L.GeluMLP if cfg.family == "audio" else L.SwiGLU
-            self.ffn = mlp(d, cfg.d_ff, dtype, generator=generator,
-                           device=device)
+            if _layer_uses_moe(cfg, kind):
+                self.ffn = L.MoE(cfg, dtype, generator=generator,
+                                 device=device)
+            else:
+                mlp = L.GeluMLP if cfg.family == "audio" else L.SwiGLU
+                self.ffn = mlp(d, cfg.d_ff, dtype, generator=generator,
+                               device=device)
         else:
             raise _not_ported(f"layer kind {kind!r}")
 
@@ -123,7 +136,7 @@ def apply_layer(p: Block, x: Tensor, cfg: ArchConfig, kind: str, *,
                                            window=window)
         x = x + a
         h = _norm(x, p.ln2, cfg.norm_eps)
-        return x + _ffn_fwd(p.ffn, h), new_cache
+        return x + _ffn_fwd(p.ffn, h, cfg), new_cache
     if kind != "rwkv":
         raise _not_ported(f"layer kind {kind!r}")
     h = L.layernorm(x, p.ln1, cfg.norm_eps)
@@ -163,19 +176,34 @@ def layer_groups(cfg: ArchConfig) -> LayerGroups:
 # init
 # ---------------------------------------------------------------------------
 
+class MTP(nn.Module):
+    """DeepSeek-V3's multi-token head under the reference's names:
+    ``proj`` [2d, d], ``block`` (an ``attn_dense`` :class:`Block`) and
+    ``norm`` (an RMSNorm)."""
+
+    def __init__(self, cfg: ArchConfig, dtype, *, generator=None,
+                 device=None):
+        super().__init__()
+        d = cfg.d_model
+        self.proj = nn.Parameter(L._dense_init(
+            generator, (2 * d, d), None, dtype, device), requires_grad=False)
+        self.block = Block(cfg, "attn_dense", dtype, generator=generator,
+                           device=device)
+        self.norm = L.param_dict(L.init_rmsnorm(d, dtype, device))
+
+
 class LM(nn.Module):
     """The language model: ``embed`` [V, d], ``blocks`` (one per layer, in
-    ``cfg.layer_kinds`` order), ``final_norm`` and, unless the config ties
-    them, ``unembed`` [d, V]. Its parameters are made without gradients
+    ``cfg.layer_kinds`` order), ``final_norm``, unless the config ties
+    them ``unembed`` [d, V], and with ``cfg.mtp`` the multi-token head
+    ``mtp`` (:class:`MTP`). Its parameters are made without gradients
     (serving); ``requires_grad_()`` makes them trainable."""
 
     def __init__(self, cfg: ArchConfig, dtype=torch.float32, *,
                  generator=None, device=None):
         super().__init__()
-        for what, present in (("the encoder-decoder", cfg.enc_dec),
-                              ("the multi-token head", cfg.mtp)):
-            if present:
-                raise _not_ported(what)
+        if cfg.enc_dec:
+            raise _not_ported("the encoder-decoder")
         d = cfg.d_model
         self.cfg = cfg
         self.embed = nn.Parameter(L._dense_init(
@@ -192,6 +220,8 @@ class LM(nn.Module):
         self.blocks = nn.ModuleList(
             Block(cfg, kind, dtype, generator=generator, device=device)
             for kind in cfg.layer_kinds)
+        if cfg.mtp:
+            self.mtp = MTP(cfg, dtype, generator=generator, device=device)
 
     def unembedding(self) -> Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.unembed
@@ -323,10 +353,12 @@ def train_forward(params: LM, batch: dict[str, Tensor], cfg: ArchConfig,
     first ``n_vision_tokens`` embeddings are replaced by the batch's
     ``vision_embeds`` (cast to the embedding's dtype), as the reference
     does (``x[:, n_vision_tokens:]`` follows them, so a sequence of at
-    most ``n_vision_tokens`` is the vision embeddings alone). The
-    encoder-decoder and multi-token parts of the reference's
-    ``train_forward`` come with the layer kinds that use them (no config
-    the port can build has them)."""
+    most ``n_vision_tokens`` is the vision embeddings alone). With
+    ``cfg.mtp`` the multi-token head's loss is added at weight 0.1
+    (:func:`_mtp_loss`). The MoE's auxiliary loss is not added, as in the
+    reference. The encoder-decoder part of the reference's
+    ``train_forward`` comes with that kind (no config the port can build
+    has it)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = F.embedding(tokens, params.embed)
@@ -342,8 +374,33 @@ def train_forward(params: LM, batch: dict[str, Tensor], cfg: ArchConfig,
         pos = positions(cfg, b, s, tokens.device)
     x = _run_layers(params, x, cfg, pos=pos, remat=remat)
     x = _norm(x, params.final_norm, cfg.norm_eps)
-    return chunked_ce_loss(x, params.unembedding(), batch["labels"],
-                           batch["mask"])
+    unembed = params.unembedding()
+    loss = chunked_ce_loss(x, unembed, batch["labels"], batch["mask"])
+    if cfg.mtp:
+        loss = loss + 0.1 * _mtp_loss(params, x, batch, cfg, pos, unembed)
+    return loss
+
+
+def _mtp_loss(params: LM, x: Tensor, batch: dict[str, Tensor],
+              cfg: ArchConfig, pos: Tensor | None, unembed: Tensor
+              ) -> Tensor:
+    """DeepSeek-V3's multi-token prediction: from the final-normed ``x``
+    [B, S, d] concatenated with the embedding of token t+1 (zero at the
+    last position), ``mtp.proj``, the ``attn_dense`` block at the same
+    positions (not recomputed in the backward pass, as in the reference)
+    and ``mtp.norm`` predict token t+2: the chunked cross-entropy against
+    the labels and mask shifted by one (zero at the end)."""
+    tokens, labels, mask = batch["tokens"], batch["labels"], batch["mask"]
+    emb_next = torch.cat([F.embedding(tokens[:, 1:], params.embed),
+                          x.new_zeros((x.shape[0], 1, x.shape[2]))], dim=1)
+    h = torch.cat([x, emb_next.to(x.dtype)], dim=-1) @ params.mtp.proj
+    h, _ = apply_layer(params.mtp.block, h, cfg, "attn_dense", pos=pos)
+    h = L.rmsnorm(h, params.mtp.norm, cfg.norm_eps)
+    labels2 = torch.cat([labels[:, 1:], labels.new_zeros(
+        (labels.shape[0], 1))], dim=1)
+    mask2 = torch.cat([mask[:, 1:], mask.new_zeros((mask.shape[0], 1))],
+                      dim=1)
+    return chunked_ce_loss(h, unembed, labels2, mask2)
 
 
 # ---------------------------------------------------------------------------
@@ -446,8 +503,15 @@ def decode_step(params: LM, cache: Cache, tokens: Tensor, cfg: ArchConfig,
 # parameter counting
 # ---------------------------------------------------------------------------
 
-def count_params(cfg: ArchConfig) -> int:
+def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
     """Parameters of the model, counted on the meta device (nothing is
-    allocated)."""
+    allocated). With ``active_only``, less the experts a token does not
+    use: (E - top_k) x 3 x d x ff in every MoE layer."""
     model = init_params(cfg, device="meta")
-    return sum(p.numel() for p in model.parameters())
+    total = sum(p.numel() for p in model.parameters())
+    if not active_only or cfg.moe is None:
+        return total
+    mo = cfg.moe
+    per_expert = 3 * cfg.d_model * (mo.d_expert or cfg.d_ff)
+    n_moe_layers = sum(_layer_uses_moe(cfg, k) for k in cfg.layer_kinds)
+    return total - n_moe_layers * per_expert * (mo.n_experts - mo.top_k)

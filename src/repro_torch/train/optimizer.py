@@ -10,6 +10,7 @@ block count; the second moment is quantized in sqrt-space with a decode
 floor of one quantization step (the reference's documented bias: tiny
 second moments get conservatively smaller steps). Rounding is half to
 even in both frameworks, so codes equal the reference's on equal inputs.
+A gradient that is None (a parameter no loss reaches) counts as zero.
 
 The step counter, the learning rate and the clip factor stay on the
 device, so a step fetches nothing to the host. :func:`apply_updates`
@@ -61,7 +62,8 @@ def _qencode(x: Tensor) -> dict[str, Tensor]:
     blocks = _blocks(x)
     scale = torch.amax(torch.abs(blocks), dim=-1, keepdim=True) / 127.0
     scale = torch.clamp(scale, min=1e-20)
-    code = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
+    q = blocks / scale
+    code = q.round_().clamp_(-127, 127).to(torch.int8)
     return {"code": code.reshape(_code_shape(blocks)),
             "scale": scale[..., 0].to(torch.float32)}
 
@@ -89,19 +91,28 @@ def _qencode_sqrt(x: Tensor) -> dict[str, Tensor]:
     rounded float32 root (PyTorch's vectorised float32 root on the CPU is
     not: about 0.6 % of values differ by an ulp), so that scales and codes
     equal the reference's."""
-    root = torch.sqrt(torch.clamp(x, min=0.0).to(torch.float64))
+    root = torch.clamp(x, min=0.0).to(torch.float64).sqrt_()
     blocks = _blocks(root.to(torch.float32))
+    del root
     scale = torch.clamp(torch.amax(blocks, dim=-1, keepdim=True) / 127.0,
                         min=1e-20)
-    code = torch.clamp(torch.round(blocks / scale), 0, 127).to(torch.int8)
+    q = blocks / scale
+    code = q.round_().clamp_(0, 127).to(torch.int8)
     return {"code": code.reshape(_code_shape(blocks)),
             "scale": scale[..., 0].to(torch.float32)}
 
 
 def _qdecode_sqrt(q: Mapping[str, Tensor], shape) -> Tensor:
-    # decode floor of one quant step: bounds updates for zero-collapsed v
+    # decode floor of one quant step: bounds updates for zero-collapsed v.
+    # A block that was all zero has scale 1e-20, whose square is subnormal
+    # in float32: the reference's XLA flushes it to zero (on the CPU and
+    # the TPU), so the port does too, or such a block (a parameter that
+    # never gets a gradient) would encode 127s where the reference has 0s
     root = torch.clamp(_code_blocks(q), min=1.0) * q["scale"][..., None]
-    return _decoded(q, root * root, shape)
+    sq = root * root
+    sq = torch.where(sq < torch.finfo(torch.float32).tiny,
+                     sq.new_zeros(()), sq)
+    return _decoded(q, sq, shape)
 
 
 # -- state -------------------------------------------------------------------
@@ -128,9 +139,10 @@ def _named(params) -> dict[str, Tensor]:
     return dict(params)
 
 
-def _global_norm(tree: Mapping[str, Tensor]) -> Tensor:
+def _global_norm(tree: Mapping[str, Tensor | None]) -> Tensor:
+    """The norm over every gradient; a None one adds nothing."""
     return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in tree.values()))
+                          for g in tree.values() if g is not None))
 
 
 def lr_at(cfg: OptConfig, step: Tensor) -> Tensor:
@@ -148,7 +160,8 @@ def apply_updates(params: Mapping[str, Tensor] | torch.nn.Module,
     ``cfg.grad_clip``, bias-corrected moments, and weight decay on a
     parameter of two axes or more. A parameter named in ``stacked`` counts
     one axis more: the reference holds it stacked over its scanned layers
-    (``models.model.scanned_params``), and decays it by that shape.
+    (``models.model.scanned_params``), and decays it by that shape. A
+    gradient that is None is a zero gradient.
     Parameters and float32 moments are updated in place. Returns (params,
     state, metrics), ``metrics`` the device scalars ``grad_norm`` and
     ``lr``."""
@@ -163,21 +176,50 @@ def apply_updates(params: Mapping[str, Tensor] | torch.nn.Module,
     b2c = 1.0 - cfg.b2 ** stepf
     new_m, new_v = {}, {}
     for name, p in params.items():
-        gf = grads[name].to(torch.float32) * clip
-        m, v = state["m"][name], state["v"][name]
-        if cfg.quantize_moments:
-            m_f = cfg.b1 * _qdecode(m, p.shape) + (1 - cfg.b1) * gf
-            v_f = (cfg.b2 * _qdecode_sqrt(v, p.shape)
-                   + (1 - cfg.b2) * gf * gf)
-        else:
-            m_f = m.mul_(cfg.b1).add_((1 - cfg.b1) * gf)
-            v_f = v.mul_(cfg.b2).add_((1 - cfg.b2) * gf * gf)
-        upd = (m_f / b1c) / (torch.sqrt(v_f / b2c) + cfg.eps)
         ndim = p.ndim + (name in stacked)
         wd = cfg.weight_decay if ndim >= 2 else 0.0
-        pf = p.to(torch.float32)
-        p.copy_(pf - lr * (upd + wd * pf))
-        new_m[name] = _qencode(m_f) if cfg.quantize_moments else m_f
-        new_v[name] = _qencode_sqrt(v_f) if cfg.quantize_moments else v_f
+        new_m[name], new_v[name] = _update(
+            p, grads[name], state["m"][name], state["v"][name], wd, clip,
+            lr, b1c, b2c, cfg)
     return (params, {"step": step, "m": new_m, "v": new_v},
             {"grad_norm": gnorm, "lr": lr})
+
+
+def _update(p: Tensor, g: Tensor | None, m, v, wd: float, clip: Tensor,
+            lr: Tensor, b1c: Tensor, b2c: Tensor, cfg: OptConfig):
+    """One parameter's AdamW update, ``p`` in place; returns its new
+    moments. The arithmetic is the reference's, operation by operation
+    (products and sums in its order, each rounded once), with temporaries
+    freed as soon as they are spent and in-place operations where they
+    round alike: at most about five float32 copies of the parameter are
+    alive at once, and none outlives the call."""
+    gf = (torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+          if g is None else g.to(torch.float32) * clip)
+    if cfg.quantize_moments:
+        m_f = cfg.b1 * _qdecode(m, p.shape)
+        m_f += (1 - cfg.b1) * gf
+        v_f = cfg.b2 * _qdecode_sqrt(v, p.shape)
+        g2 = (1 - cfg.b2) * gf
+        g2 *= gf
+        v_f += g2
+        del g2
+    else:
+        m_f = m.mul_(cfg.b1).add_((1 - cfg.b1) * gf)
+        v_f = v.mul_(cfg.b2).add_((1 - cfg.b2) * gf * gf)
+    del gf
+    den = v_f / b2c
+    den.sqrt_()
+    den += cfg.eps
+    upd = m_f / b1c
+    upd /= den
+    del den
+    pf = p.to(torch.float32)
+    upd += wd * pf
+    upd *= lr
+    p.copy_(pf - upd)
+    del upd, pf
+    if not cfg.quantize_moments:
+        return m_f, v_f
+    new_m = _qencode(m_f)
+    del m_f
+    return new_m, _qencode_sqrt(v_f)

@@ -26,9 +26,12 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,
     ``batch`` tensors carry a leading microbatch axis: [n_micro, B_micro,
     ...]. Each microbatch's gradients accumulate, in float32, into the
     parameters' ``.grad`` (float32 parameters; others are refused), which
-    then hold the mean gradient until the next step clears them. The
-    metrics are device scalars: the mean ``loss``, ``grad_norm`` and
-    ``lr``; nothing is fetched to the host."""
+    then hold the mean gradient until the next step clears them. A
+    parameter that no microbatch's loss reaches (an MoE's ``router_bias``,
+    which shifts only the top-k selection) keeps ``.grad`` None, and the
+    optimizer takes it as a zero gradient, as ``jax.grad`` returns zeros
+    there. The metrics are device scalars: the mean ``loss``,
+    ``grad_norm`` and ``lr``; nothing is fetched to the host."""
 
     def train_step(params: LM, opt_state: dict, batch: dict[str, Tensor]):
         named = dict(params.named_parameters())
@@ -50,7 +53,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,
         if n_micro > 1:
             loss = loss / n_micro
             for p in named.values():
-                p.grad.div_(n_micro)
+                if p.grad is not None:
+                    p.grad.div_(n_micro)
         grads = {name: p.grad for name, p in named.items()}
         _, opt_state, opt_metrics = apply_updates(
             named, grads, opt_state, opt_cfg, stacked=scanned_params(params))

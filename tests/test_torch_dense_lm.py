@@ -252,7 +252,8 @@ def test_registered_archs_are_the_references():
     from repro_torch.configs import ALL_ARCHS
     assert set(ALL_ARCHS) == {"rwkv6-7b", "command-r-35b",
                               "command-r-plus-104b", "qwen1.5-110b",
-                              "minicpm3-4b", "qwen2-vl-7b"}
+                              "minicpm3-4b", "qwen2-vl-7b", "grok-1-314b",
+                              "deepseek-v3-671b"}
     assert ALL_ARCHS == [a for a in J_ALL if a in ALL_ARCHS]
     assert "lm-100m" not in ALL_ARCHS
 

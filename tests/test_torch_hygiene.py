@@ -44,7 +44,9 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.configs.command_r_plus_104b",
             "repro_torch.configs.qwen1_5_110b",
             "repro_torch.configs.minicpm3_4b",
-            "repro_torch.configs.qwen2_vl_7b"} <= set(names)
+            "repro_torch.configs.qwen2_vl_7b",
+            "repro_torch.configs.grok_1_314b",
+            "repro_torch.configs.deepseek_v3_671b"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"

@@ -1,8 +1,11 @@
-"""M-RoPE with the vision stub (``qwen2-vl-7b``) and Multi-head Latent
-Attention (``minicpm3-4b``) on the card against the CPU path, at smoke
-size, from one set of weights (drawn on the CPU and moved). The CPU path
-is the one ``tests/test_torch_mrope.py`` and ``tests/test_torch_mla.py``
-hold against the JAX reference; this file imports no JAX.
+"""M-RoPE with the vision stub (``qwen2-vl-7b``), Multi-head Latent
+Attention (``minicpm3-4b``), the MoE feed-forward (``grok-1-314b``) and
+DeepSeek-V3's routed experts with the multi-token head
+(``deepseek-v3-671b``) on the card against the CPU path, at smoke size,
+from one set of weights (drawn on the CPU and moved). The CPU path is the
+one ``tests/test_torch_mrope.py``, ``tests/test_torch_mla.py``,
+``tests/test_torch_moe.py`` and ``tests/test_torch_mtp.py`` hold against
+the JAX reference; this file imports no JAX.
 
 Each test needs a CUDA device (``cuda`` marker) and skips without one.
 Tolerances: ``atol=rtol=1e-4`` on logits card against CPU (float32,
@@ -125,6 +128,47 @@ def test_vlm_on_card_matches_cpu():
     _close(L.apply_mrope(x.cuda(), p3.cuda(), 1e6, sec),
            L.apply_mrope(x, p3, 1e6, sec), CPU_TOL)
     batch = make_batch(cfg, 4, 21, torch.Generator().manual_seed(1),
+                       device="cpu")
+    _train_step_on_both(cfg, {k: v.reshape((2, 2) + v.shape[1:])
+                              for k, v in batch.items()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["grok-1-314b", "deepseek-v3-671b"])
+def test_moe_on_card_matches_cpu(arch):
+    """Smoke ``grok-1-314b`` and ``deepseek-v3-671b`` (dropless, capacity
+    factor 8): logits, the routing of the first MoE layer's input (expert
+    ids, ranks, keep mask) equal to the CPU's, ``moe_fwd`` against
+    ``moe_fwd_plain`` on the card, decode against the parallel forward on
+    the card, and one train step of 2 microbatches (the multi-token head's
+    term in deepseek's loss)."""
+    _card()
+    cfg, cpu, card = _models(arch)
+    toks = torch.randint(0, cfg.vocab, (2, 13), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(0))
+    want = M.forward_logits(cpu, toks, cfg)
+    got = M.forward_logits(card, toks.cuda(), cfg)
+    _close(got, want, CPU_TOL)
+    li = cfg.dense_prefix
+    x = torch.randn((2, 13, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        r_cpu = L.moe_route(cpu.blocks[li].ffn, x.reshape(26, -1), cfg)
+        r_card = L.moe_route(card.blocks[li].ffn, x.reshape(26, -1).cuda(),
+                             cfg)
+        for name in ("experts", "order", "rank", "keep", "slot"):
+            assert torch.equal(getattr(r_card, name).cpu(),
+                               getattr(r_cpu, name)), name
+        _close(L.moe_fwd(card.blocks[li].ffn, x.cuda(), cfg),
+               L.moe_fwd_plain(card.blocks[li].ffn, x.cuda(), cfg), CPU_TOL)
+    cache = M.init_decode_cache(cfg, 2, 14, torch.float32)
+    steps = []
+    for i in range(toks.shape[1]):
+        logits, cache = M.decode_step(card, cache, toks[:, i:i + 1].cuda(),
+                                      cfg)
+        steps.append(logits)
+    _close(torch.cat(steps, 1), got, PARALLEL_TOL)
+    batch = make_batch(cfg, 4, 37, torch.Generator().manual_seed(1),
                        device="cpu")
     _train_step_on_both(cfg, {k: v.reshape((2, 2) + v.shape[1:])
                               for k, v in batch.items()})

@@ -249,14 +249,9 @@ def test_count_params_full_config_on_meta():
 
 
 def test_other_layer_kinds_are_not_ported():
-    """The kinds still to come: RG-LRU, MoE (the feed-forward of an
-    ``attn`` layer with ``cfg.moe``) and the Whisper encoder-decoder."""
+    """The kinds still to come: RG-LRU and the Whisper encoder-decoder."""
     import dataclasses
-    from repro_torch.models.config import MoEConfig
-    moe = MoEConfig(n_experts=4, top_k=2)
     for cfg in (dataclasses.replace(T_CFG, layer_pattern=("rglru",)),
-                dataclasses.replace(T_CFG, layer_pattern=("attn",),
-                                    moe=moe),
                 dataclasses.replace(T_CFG, layer_pattern=("attn",),
                                     enc_dec=True)):
         with pytest.raises(NotImplementedError, match="queue 1 item 2.2"):
