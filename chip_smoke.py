@@ -121,6 +121,24 @@ and checks each against the brute-force oracle or against itself:
   head; int8 moments; the loss falling, step time, peak memory, FLOP
   shares by active parameters and by the capacity slots run). No
   hand-written kernel runs there;
+- RG-LRU with local attention and the Whisper encoder-decoder (phase
+  ``lm_hybrid_audio``, after ``lm_moe``): the smoke ``recurrentgemma-2b``
+  (with its initial RG-LRU ``lam`` and with one negated so that the
+  block recurs) and ``whisper-tiny`` on the card against the CPU
+  (logits or loss, decode against the parallel forward past the window
+  or the cached cross decode against the parallel decoder, a train
+  step); ``recurrentgemma-2b`` at full width and depth (float32, 14.2
+  GB): a 4 x 2048 prefill timed and profiled, one layer's
+  ``_rglru_scan`` at its shape and its share of the prefill, a
+  cache-writing prefill and 16 decode steps at positions 2048-2063 (every
+  ring buffer wrapped) against the parallel forward, no blocking
+  transfer, the decode cache's bytes equal at 2,064 and 524,288
+  positions; trained at full depth with int8 moments (2 x 2048 tokens,
+  the loss falling, step time, peak memory, FLOP share); ``whisper-tiny``
+  at full size: the encoder over 4 x 1500 frames, a greedy decode of 64
+  tokens at B = 4 through the reference's decode pieces
+  (``WhisperDecode``) held against the parallel decoder at every step,
+  and training on 8 x 448 tokens. No hand-written kernel runs there;
 - the neighbor-query service (phase ``serve``, run before ``lm_serve``):
   ``repro_torch.serve`` on three 1M-point KITTI-like scenes, knn and
   range, 256 requests of 1,024-16,384 rows on a simulated 2,000
@@ -311,6 +329,26 @@ MOE_TRAIN_CUT = {"grok-1-314b": dict(n_layers=1, n_experts=4),
                  "deepseek-v3-671b": dict(n_layers=2, dense_prefix=1,
                                           n_experts=32)}
 MOE_PEAK_GB = 72.0            # a training peak above this halves the experts
+
+# RG-LRU with local attention and the Whisper encoder-decoder (phase
+# ``lm_hybrid_audio``): recurrentgemma-2b (configs/recurrentgemma_2b.py) at
+# full width and depth, float32 (3.55e9 parameters, 14.2 GB), served and
+# trained (int8 moments: about 36 GB of weights, gradients and moments
+# before the optimizer's temporaries and activations); whisper-tiny
+# (configs/whisper_tiny.py) at full size (5.7e7 parameters), served through
+# the reference's decode pieces and trained
+HYBRID_ARCH, AUDIO_ARCH = "recurrentgemma-2b", "whisper-tiny"
+HYBRID_PREFILL = (4, 2048)    # batch, tokens: the window of every local layer
+HYBRID_DECODE = 16            # decode steps at positions 2048-2063: every
+                              # ring buffer has wrapped
+HYBRID_LONG = 524_288         # long_500k: the decode cache's bytes there
+                              # equal those at 2048 + HYBRID_DECODE
+HYBRID_TRAIN = (2, 2048, 2)   # batch, seq, microbatches
+HYBRID_PEAK_GB = 72.0         # a training peak above this cuts whole periods
+HYBRID_CUT_LAYERS = 11        # ... to 3 periods and the 2-layer tail
+AUDIO_FRAMES = 4              # encoder_fwd over 4 x enc_context (1500) frames
+AUDIO_PROMPT, AUDIO_NEW = 4, 64   # greedy cross decode at B = AUDIO_FRAMES
+AUDIO_TRAIN = (8, 448, 2)     # batch, seq (the decoder's cap), microbatches
 
 # FP32 operations per (b, h, t) and state cell that rwkv_scan needs at
 # least: r_i*S_ij and its add to out_j, k_i*v_j, w_i*S_ij and the add of
@@ -2183,6 +2221,29 @@ def device_breakdown(prof, kernel: str = "rwkv_scan") -> dict:
             f"{kernel}_launches": sum(kernel in e.name for e in evts)}
 
 
+def profiled_device_ms(fn, reps: int = 3) -> dict:
+    """``fn``'s device time a call (milliseconds of kernel time, the mean
+    of ``reps`` calls in a ``torch.profiler`` run after one warm-up call;
+    a run that recorded no kernel is repeated once) and kernels a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evts = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
+        if evts:
+            break
+    return {"device_ms": sum(e.time_range.elapsed_us()
+                             for e in evts) / 1e3 / reps,
+            "kernels": len(evts) / reps}
+
+
 def allclose_gap(got, want, tol: float):
     """(max |got - want|, whether |got - want| <= tol + tol * |want| holds
     everywhere): numpy's assert_allclose rule with atol = rtol = tol."""
@@ -2509,11 +2570,11 @@ def sync_warnings(fn) -> list:
             if "synchronizing CUDA operation" in str(w.message)]
 
 
-def train_small_vs_cpu(small) -> dict:
+def train_small_vs_cpu(small, prepare=None) -> dict:
     """One train step of the smoke model on the card and on the CPU (the
     path the CPU tests hold against the JAX reference) from the same
-    weights and batch (2 microbatches): loss, gradient norm and every
-    parameter."""
+    weights (changed alike by ``prepare(params)`` if given) and batch (2
+    microbatches): loss, gradient norm and every parameter."""
     import torch
     from repro_torch.data.pipeline import make_batch
     from repro_torch.models import model as M
@@ -2526,7 +2587,10 @@ def train_small_vs_cpu(small) -> dict:
     out = {}
     for dev in ("cpu", "cuda"):
         params = M.init_params(small, LM_SEED, device="cpu",
-                               requires_grad=True).to(dev)
+                               requires_grad=True)
+        if prepare is not None:
+            prepare(params)
+        params = params.to(dev)
         params, _, m = make_train_step(small, opt_cfg)(
             params, init_opt_state(params, opt_cfg),
             {k: v.to(dev) for k, v in batch.items()})
@@ -3460,7 +3524,12 @@ def cut_train(arch: str, n_layers: int, shape, *, cfg=None, opt_cfg=None,
     peak = torch.cuda.max_memory_allocated() / 1e9
     # 6 x (active matmul parameters: all but the embedding table and the
     # experts a token skips) x tokens, plus causal-free attention: q.k and
-    # p.v, forward and backward, in every layer and the multi-token head's
+    # p.v, forward and backward, in every attention layer (not the rglru
+    # ones; a local layer's window of 2048 covers these sequences) and the
+    # multi-token head's. An encoder-decoder's encoder parameters and its
+    # cross keys and values run on the encoder's frames, its position
+    # tables on none; its attention adds the encoder's (frames^2) and the
+    # cross-attention's (S x frames)
     tokens = b * s
     if cfg.mla is not None:
         d_qk, d_v = cfg.mla.d_nope + cfg.mla.d_rope, cfg.mla.d_v
@@ -3468,9 +3537,23 @@ def cut_train(arch: str, n_layers: int, shape, *, cfg=None, opt_cfg=None,
         d_qk = d_v = cfg.head_dim
     matmul_params = (M.count_params(cfg, active_only=True)
                      - params.embed.numel())
-    attn_layers = cfg.n_layers + int(cfg.mtp)
-    attn_flops = 6 * attn_layers * b * s * s * cfg.n_heads * (d_qk + d_v)
+    attn_layers = (sum(k in M.ATTN_KINDS for k in cfg.layer_kinds)
+                   + int(cfg.mtp))
+    per_pair = 6 * cfg.n_heads * (d_qk + d_v)
+    attn_flops = per_pair * attn_layers * b * s * s
     flops = 6 * matmul_params * tokens + attn_flops
+    if cfg.enc_dec:
+        frames = b * cfg.enc_context
+        enc = sum(p.numel() for n, p in params.enc.named_parameters()
+                  if n != "pos")
+        cross_kv = sum(c.attn.wk.numel() + c.attn.wv.numel()
+                       for c in params.cross)
+        tables = params.enc.pos.numel() + params.dec_pos.numel()
+        enc_attn = (per_pair * cfg.n_enc_layers * b * cfg.enc_context ** 2
+                    + per_pair * cfg.n_layers * b * s * cfg.enc_context)
+        attn_flops += enc_attn
+        flops = (6 * (matmul_params - enc - cross_kv - tables) * tokens
+                 + 6 * (enc + cross_kv) * frames + attn_flops)
     moe = {}
     if cfg.moe is not None:
         # the expert GEMMs as run: E x cap rows a microbatch, every slot
@@ -3502,7 +3585,9 @@ def cut_train(arch: str, n_layers: int, shape, *, cfg=None, opt_cfg=None,
         "blocking_transfers_in_step": in_step, "model_flops": flops,
         "attention_flops": attn_flops,
         "model_flops_formula": "6 x (active params - embedding table) x "
-        "tokens + 6 x L x B x S^2 x H x (d_qk + d_v)",
+        "tokens + 6 x L_attn x B x S^2 x H x (d_qk + d_v)" + (
+            "; encoder and cross k/v params x frames, + encoder frames^2 "
+            "and cross S x frames attention" if cfg.enc_dec else ""),
         "flops_per_s": flops / step_ms * 1e3,
         "fp32_peak_share": flops / (step_ms / 1e3) / PEAK_FP32, **moe}
     if cfg.frontend == "vision_stub":
@@ -3703,7 +3788,6 @@ def moe_split(p, x, cfg, reps: int = 3) -> dict:
     sort (``moe_route``); the dispatch into [E, cap, d]; the three expert
     GEMMs; the combine; the shared experts where the layer has them."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import layers as L
     mo = cfg.moe
     xf = x.reshape(-1, x.shape[-1])
@@ -3720,21 +3804,7 @@ def moe_split(p, x, cfg, reps: int = 3) -> dict:
         if "shared" in p:
             stages["shared"] = lambda: L.swiglu_fwd(p["shared"], xf)
         for name, fn in stages.items():
-            fn()
-            torch.cuda.synchronize()
-            for _ in range(2):
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    for _ in range(reps):
-                        fn()
-                    torch.cuda.synchronize()
-                evts = [e for e in prof.events()
-                        if e.device_type == torch.autograd.DeviceType.CUDA
-                        and not getattr(e, "is_user_annotation", False)]
-                if evts:
-                    break
-            out[name] = {"device_ms": sum(e.time_range.elapsed_us()
-                                          for e in evts) / 1e3 / reps,
-                         "kernels": len(evts) / reps}
+            out[name] = profiled_device_ms(fn, reps)
     total = sum(v["device_ms"] for v in out.values())
     for v in out.values():
         v["share"] = v["device_ms"] / total if total else 0.0
@@ -3931,6 +4001,435 @@ def phase_lm_moe() -> dict:
     row["kernel_launches"] = launches
     row["seconds"] = time.perf_counter() - t_phase
     emit("lm_moe", **{k: row[k] for k in ("kernel_launches", "seconds")},
+         nvidia_smi=smi_line())
+    return row
+
+
+def recurring(params):
+    """``params`` with every RG-LRU ``lam`` negated, so that its layers
+    recur (``a_t`` about 0.9-0.9995; the reference's initial ``lam``
+    gives below 3e-8, where a wrong state carry would not show)."""
+    import torch
+    from repro_torch.models import layers as L
+    with torch.no_grad():
+        for blk in params.blocks:
+            if isinstance(blk.mixer, L.RGLRU):
+                blk.mixer.lam.neg_()
+    return params
+
+
+def hybrid_small_vs_cpu() -> list:
+    """The smoke ``recurrentgemma-2b`` with one set of weights on the card
+    and on the CPU, with its initial ``lam`` and with one that recurs:
+    ``forward_logits`` within LM_CPU_TOL; token-by-token decode on the card
+    against the card's parallel forward past the window of 8 (the ring
+    buffers wrap) within LM_DECODE_TOL; one train step within the CPU
+    tests' tolerances (``train_small_vs_cpu``)."""
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.models.config import get_config
+    small = smoke_config(get_config(HYBRID_ARCH))
+    rows = []
+    for lam in ("init", "recur"):
+        prepare = recurring if lam == "recur" else (lambda p: p)
+        cpu_lm = prepare(M.init_params(small, LM_SEED, device="cpu"))
+        card_lm = prepare(M.init_params(small, LM_SEED,
+                                        device="cpu")).to("cuda")
+        toks = torch.randint(0, small.vocab, (2, 13), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(LM_SEED))
+        got = M.forward_logits(card_lm, toks.cuda(), small)
+        gaps = {"forward_logits": allclose_gap(
+            got.cpu(), M.forward_logits(cpu_lm, toks, small), LM_CPU_TOL)}
+        cache = M.init_decode_cache(small, 2, 14, torch.float32)
+        steps = []
+        for i in range(toks.shape[1]):
+            logits, cache = M.decode_step(card_lm, cache,
+                                          toks[:, i:i + 1].cuda(), small)
+            steps.append(logits)
+        gaps["decode_vs_forward"] = allclose_gap(torch.cat(steps, 1), got,
+                                                 LM_DECODE_TOL)
+        for key, (gap, ok) in gaps.items():
+            check(ok, f"lm_hybrid_audio: smoke {HYBRID_ARCH} ({lam} lam) "
+                  f"{key} off by {gap}")
+        row = {"arch": small.name, "lam": lam,
+               "max_abs_err": {k: g for k, (g, _) in gaps.items()},
+               "tol": {"forward_logits": LM_CPU_TOL,
+                       "decode_vs_forward": LM_DECODE_TOL},
+               "train_step": train_small_vs_cpu(
+                   small, prepare=recurring if lam == "recur" else None)}
+        emit("lm_hybrid_audio_small_vs_cpu", **row)
+        rows.append(row)
+    return rows
+
+
+def whisper_parallel(M, L, params, cfg, tokens, enc_in):
+    """The parallel decoder: logits [B, S, V] of ``tokens`` [B, S] over
+    ``encoder_fwd`` of ``enc_in``, with ``dec_pos[:S]`` added."""
+    import torch
+    with torch.no_grad():
+        memory = M.encoder_fwd(params, enc_in, cfg)
+        x = params.embed[tokens] + params.dec_pos[None, :tokens.shape[1]]
+        x, _ = M._dec_layers_with_cross(params, x, memory, cfg, pos=None)
+        return M._logits(L.layernorm(x, params.final_norm, cfg.norm_eps),
+                         params.unembedding())
+
+
+class WhisperDecode:
+    """Whisper served through the reference's own decode pieces (the
+    reference has no serving entry point for an encoder-decoder):
+    ``encoder_fwd`` once and each layer's cross keys and values once
+    (``start``), then per token the embedding plus ``dec_pos[length]``,
+    ``_dec_layers_with_cross`` with the self-attention caches and
+    ``cross_kv``, the final LayerNorm and the unembedding (``step``)."""
+
+    def __init__(self, M, L, params, cfg):
+        self.M, self.L, self.params, self.cfg = M, L, params, cfg
+
+    def start(self, enc_in, max_len: int) -> None:
+        import torch
+        M, p = self.M, self.params
+        with torch.no_grad():
+            memory = M.encoder_fwd(p, enc_in, self.cfg)
+            self.kv = [M._cross_kv(c.attn, memory, self.cfg)
+                       for c in p.cross]
+        self.caches = M.init_decode_cache(self.cfg, enc_in.shape[0], max_len,
+                                          torch.float32)
+
+    def step(self, tok):
+        """Logits [B, 1, V] of ``tok`` [B, 1] at the caches' length."""
+        import torch
+        M, L, p, cfg = self.M, self.L, self.params, self.cfg
+        n = self.caches[0]["length"]
+        with torch.no_grad():
+            x = p.embed[tok] + p.dec_pos[None, n:n + 1]
+            x, self.caches = M._dec_layers_with_cross(
+                p, x, None, cfg, pos=None, self_caches=self.caches,
+                cross_kv=self.kv)
+            return M._logits(L.layernorm(x, p.final_norm, cfg.norm_eps),
+                             p.unembedding())
+
+
+def audio_small_vs_cpu() -> dict:
+    """The smoke ``whisper-tiny`` with one set of weights on the card and
+    on the CPU: the ``train_forward`` loss within LM_CPU_TOL; the cached
+    cross decode (``WhisperDecode``) on the card against the card's
+    parallel decoder within LM_DECODE_TOL; one train step within the CPU
+    tests' tolerances."""
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models.config import get_config
+    small = smoke_config(get_config(AUDIO_ARCH))
+    cpu_lm = M.init_params(small, LM_SEED, device="cpu")
+    card_lm = M.init_params(small, LM_SEED, device="cpu").to("cuda")
+    batch = make_batch(small, 2, 13, torch.Generator().manual_seed(LM_SEED),
+                       device="cpu")
+    card_batch = {k: v.cuda() for k, v in batch.items()}
+    with torch.no_grad():
+        gaps = {"loss": allclose_gap(
+            M.train_forward(card_lm, card_batch, small).cpu(),
+            M.train_forward(cpu_lm, batch, small), LM_CPU_TOL)}
+    toks, enc = card_batch["tokens"], card_batch["enc_input"]
+    want = whisper_parallel(M, L, card_lm, small, toks, enc)
+    dec = WhisperDecode(M, L, card_lm, small)
+    dec.start(enc, toks.shape[1] + 1)
+    steps = [dec.step(toks[:, i:i + 1]) for i in range(toks.shape[1])]
+    gaps["cached_vs_parallel"] = allclose_gap(torch.cat(steps, 1), want,
+                                              LM_DECODE_TOL)
+    for key, (gap, ok) in gaps.items():
+        check(ok, f"lm_hybrid_audio: smoke {AUDIO_ARCH} {key} off by {gap}")
+    row = {"arch": small.name,
+           "max_abs_err": {k: g for k, (g, _) in gaps.items()},
+           "tol": {"loss": LM_CPU_TOL, "cached_vs_parallel": LM_DECODE_TOL},
+           "train_step": train_small_vs_cpu(small)}
+    emit("lm_hybrid_audio_small_vs_cpu", **row)
+    return row
+
+
+def hybrid_serve() -> dict:
+    """``recurrentgemma-2b`` at full width and depth (float32): a
+    HYBRID_PREFILL prefill (``make_prefill_step``), timed and profiled;
+    one layer's ``_rglru_scan`` at the prefill's shape and its share of
+    the prefill; a cache-writing prefill of the same 2048 tokens a row
+    with explicit positions, then HYBRID_DECODE decode steps at positions
+    2048-2063 (every ring buffer wrapped), timed, their logits and the
+    prefill's last against ``forward_logits``' layers over the same 2064
+    tokens within LM_DECODE_TOL (phase ``lm_dense``'s tolerance for
+    qwen1.5-110b); no blocking transfer in a decode step; one step
+    profiled, against the bound of the bytes it reads; the decode cache's
+    bytes at 2064 and HYBRID_LONG positions, which must be equal; peak
+    memory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models.config import get_config
+    from repro_torch.train.serve_step import (make_decode_step,
+                                              make_prefill_step)
+    cfg = get_config(HYBRID_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, LM_SEED, device="cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == M.count_params(cfg) == 3_549_888_000,
+          f"lm_hybrid_audio: {HYBRID_ARCH} parameter count {n_params}")
+    b, s = HYBRID_PREFILL
+    n = s + HYBRID_DECODE
+    gen = torch.Generator(device="cuda").manual_seed(LM_SEED)
+    toks = torch.randint(0, cfg.vocab, (b, n), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    head = {"tokens": toks[:, :s]}
+    last = prefill(params, head)
+    check(last.shape == (b, cfg.vocab) and bool(torch.isfinite(last).all()),
+          f"lm_hybrid_audio: {HYBRID_ARCH} prefill logits")
+    prefill_ms = cuda_time_ms(lambda: prefill(params, head),
+                              LM_TIMED_PREFILLS)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prefill(params, head)
+        torch.cuda.synchronize()
+    prefill_device = device_breakdown(prof, kernel="softmax")
+    del prof
+
+    # one layer's scan at the prefill's shape, on decays that recur
+    d = cfg.d_model
+    xt = torch.randn((b, s, d), generator=gen, device="cuda")
+    a_t = torch.rand((b, s, d), generator=gen, device="cuda") * 0.0995 + 0.9
+    h0 = torch.zeros((b, d), device="cuda")
+    with torch.no_grad():
+        scan = profiled_device_ms(lambda: L._rglru_scan(xt, a_t, h0))
+        scan["ms"] = cuda_time_ms(lambda: L._rglru_scan(xt, a_t, h0), 5)
+    n_rglru = cfg.layer_kinds.count("rglru")
+    scan.update(shape=[b, s, d], rglru_layers=n_rglru,
+                prefill_share=scan["device_ms"] * n_rglru / prefill_ms)
+    del xt, a_t, h0
+
+    pos = torch.arange(s, device="cuda").expand(b, s)
+    cache = M.init_decode_cache(cfg, b, n, torch.float32)
+    (whole, cache), cache_prefill_ms = timed_ms(lambda: decode(
+        params, cache, toks[:, :s], pos))
+    steps, lat_ms = [whole[:, -1:].clone()], []
+    del whole
+    start_cache = cache
+    for i in range(s, n):
+        (logits, cache), ms = timed_ms(lambda: decode(params, cache,
+                                                      toks[:, i:i + 1]))
+        steps.append(logits)
+        lat_ms.append(ms)
+    ring_pos = [int(c["pos"].min()) for kind, c in zip(cfg.layer_kinds,
+                                                        cache)
+                if kind == "local_attn"]
+    check(all(p == n - cfg.local_window for p in ring_pos),
+          f"lm_hybrid_audio: ring buffers not wrapped: {ring_pos}")
+    with torch.no_grad():
+        x = M._run_layers(params, params.embed[toks], cfg,
+                          pos=M.positions(cfg, b, n, "cuda"))
+        want = M._logits(M._norm(x[:, s - 1:], params.final_norm,
+                                 cfg.norm_eps), params.unembedding())
+    del x
+    gap, ok = allclose_gap(torch.cat(steps, 1), want, LM_DECODE_TOL)
+    check(ok, f"lm_hybrid_audio: {HYBRID_ARCH} decode past the window "
+          f"against the parallel forward off by {gap} (atol = rtol = "
+          f"{LM_DECODE_TOL})")
+    prefill_gap, ok = allclose_gap(last, want[:, 0], LM_DECODE_TOL)
+    check(ok, f"lm_hybrid_audio: {HYBRID_ARCH} prefill's last logits off "
+          f"the parallel forward by {prefill_gap}")
+    del steps, want
+    res = []
+    syncs = sync_warnings(lambda: res.append(decode(
+        params, start_cache, toks[:, s:s + 1])))
+    check(not syncs, f"lm_hybrid_audio: blocking transfers in a "
+          f"{HYBRID_ARCH} decode step: {syncs}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode(params, start_cache, toks[:, s:s + 1])
+        torch.cuda.synchronize()
+    decode_device = device_breakdown(prof, kernel="softmax")
+    del prof, res
+    # a decode step reads every weight of the layers, the final norm and
+    # the unembedding once, and b rows of the embedding
+    read = [*params.blocks.parameters(), *params.final_norm.values(),
+            params.unembedding()]
+    step_bytes = 4 * (sum(t.numel() for t in read) + b * d)
+    bound_ms = step_bytes / PEAK_BYTES * 1e3
+    med = sorted(lat_ms)[len(lat_ms) // 2]
+
+    def cache_bytes(max_len):
+        c = M.init_decode_cache(cfg, b, max_len, torch.float32,
+                                device="meta")
+        return sum(t.numel() * t.element_size() for entry in c
+                   for t in entry.values() if isinstance(t, torch.Tensor))
+
+    short, long = cache_bytes(n), cache_bytes(HYBRID_LONG)
+    check(short == long, f"lm_hybrid_audio: decode cache {short} bytes at "
+          f"{n} positions, {long} at {HYBRID_LONG}")
+    row = {
+        "arch": cfg.name, "params": n_params, "n_layers": cfg.n_layers,
+        "full_layers": cfg.n_layers, "layer_kinds": list(cfg.layer_kinds),
+        "d_model": d, "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+        "head_dim": cfg.head_dim, "local_window": cfg.local_window,
+        "vocab": cfg.vocab, "weight_gb": n_params * 4 / 1e9,
+        "prefill_shape": [b, s], "prefill_ms": prefill_ms,
+        "prefill_tokens_per_s": b * s / prefill_ms * 1e3,
+        "prefill_device": prefill_device, "rglru_scan": scan,
+        "cache_prefill_ms": cache_prefill_ms, "decode_batch": b,
+        "decode_positions": [s, n - 1], "ring_min_pos": ring_pos,
+        "decode_step_ms": lat_ms, "decode_step_median_ms": med,
+        "decode_vs_forward_max_abs_err": gap,
+        "prefill_vs_forward_max_abs_err": prefill_gap, "tol": LM_DECODE_TOL,
+        "decode_bytes": step_bytes, "decode_bound_ms": bound_ms,
+        "decode_bound_share": bound_ms / med,
+        "decode_blocking_transfers": syncs, "decode_device": decode_device,
+        "cache_bytes": {str(n): short, str(HYBRID_LONG): long},
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit("lm_hybrid_audio_recurrentgemma_serve", **row)
+    del params, cache, start_cache, last
+    torch.cuda.empty_cache()
+    return row
+
+
+def hybrid_train() -> dict:
+    """``recurrentgemma-2b`` at full depth trained with int8 moments on
+    HYBRID_TRAIN (``cut_train``); if the step runs out of memory or its
+    peak passes HYBRID_PEAK_GB, again cut to HYBRID_CUT_LAYERS layers (whole
+    periods and the tail), the cut recorded."""
+    import torch
+    from repro_torch.models.config import get_config
+    from repro_torch.train.optimizer import OptConfig
+    full = get_config(HYBRID_ARCH)
+    cuts = []
+    for n_layers in (full.n_layers, HYBRID_CUT_LAYERS):
+        why = None
+        try:
+            row = cut_train(HYBRID_ARCH, n_layers, HYBRID_TRAIN,
+                            opt_cfg=OptConfig(quantize_moments=True),
+                            phase="lm_hybrid_audio")
+            peak = row["peak_memory_gb"]
+        except torch.cuda.OutOfMemoryError as exc:
+            row, peak, why = None, float("inf"), str(exc).splitlines()[0]
+        if peak <= HYBRID_PEAK_GB:
+            break
+        torch.cuda.empty_cache()
+        cuts.append({"n_layers": n_layers, "peak_memory_gb": peak,
+                     "out_of_memory": why})
+    check(row is not None and row["peak_memory_gb"] <= HYBRID_PEAK_GB,
+          f"lm_hybrid_audio: {HYBRID_ARCH} training does not fit: {cuts}")
+    row["cuts"] = cuts
+    return row
+
+
+def audio_serve() -> dict:
+    """``whisper-tiny`` at full size (float32): ``encoder_fwd`` over
+    AUDIO_FRAMES x 1500 frames, timed; a greedy decode of AUDIO_NEW tokens
+    from an AUDIO_PROMPT-token prompt at B = AUDIO_FRAMES through
+    ``WhisperDecode`` (the prompt fed one token a step), each step timed,
+    every step's logits against the parallel decoder over the same tokens
+    within LM_DECODE_TOL; no blocking transfer in a step; one step
+    profiled."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models.config import get_config
+    cfg = get_config(AUDIO_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, LM_SEED, device="cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == M.count_params(cfg) == 57_126_144,
+          f"lm_hybrid_audio: {AUDIO_ARCH} parameter count {n_params}")
+    gen = torch.Generator(device="cuda").manual_seed(LM_SEED)
+    b = AUDIO_FRAMES
+    enc = torch.randn((b, cfg.enc_context, cfg.d_model), generator=gen,
+                      device="cuda") * 0.02
+    with torch.no_grad():
+        enc_ms = cuda_time_ms(lambda: M.encoder_fwd(params, enc, cfg), 3)
+    prompt = torch.randint(0, cfg.vocab, (b, AUDIO_PROMPT), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    n = AUDIO_PROMPT + AUDIO_NEW
+    dec = WhisperDecode(M, L, params, cfg)
+    (_, start_ms) = timed_ms(lambda: dec.start(enc, n))
+    toks, steps, lat_ms = [prompt[:, i:i + 1] for i in range(AUDIO_PROMPT)], [], []
+    for i in range(n - 1):
+        logits, ms = timed_ms(lambda: dec.step(toks[i]))
+        steps.append(logits)
+        lat_ms.append(ms)
+        if i + 1 >= AUDIO_PROMPT:
+            toks.append(torch.argmax(logits[:, -1], dim=-1)[:, None].to(
+                torch.int32))
+    tokens = torch.cat(toks, 1)
+    want = whisper_parallel(M, L, params, cfg, tokens[:, :-1], enc)
+    gap, ok = allclose_gap(torch.cat(steps, 1), want, LM_DECODE_TOL)
+    check(ok, f"lm_hybrid_audio: {AUDIO_ARCH} cached cross decode against "
+          f"the parallel decoder off by {gap} (atol = rtol = "
+          f"{LM_DECODE_TOL})")
+    syncs = sync_warnings(lambda: dec.step(toks[-1]))
+    check(not syncs, f"lm_hybrid_audio: blocking transfers in a "
+          f"{AUDIO_ARCH} decode step: {syncs}")
+    dec.start(enc, n)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        dec.step(toks[0])
+        torch.cuda.synchronize()
+    step_device = device_breakdown(prof, kernel="softmax")
+    del prof
+    med = sorted(lat_ms)[len(lat_ms) // 2]
+    row = {
+        "arch": cfg.name, "params": n_params, "n_layers": cfg.n_layers,
+        "enc_layers": cfg.n_enc_layers, "d_model": cfg.d_model,
+        "heads": cfg.n_heads, "vocab": cfg.vocab,
+        "encoder_shape": [b, cfg.enc_context, cfg.d_model],
+        "encoder_ms": enc_ms, "start_ms": start_ms,
+        "batch": b, "prompt_len": AUDIO_PROMPT, "max_new": AUDIO_NEW,
+        "decode_step_ms": lat_ms, "decode_step_median_ms": med,
+        "tokens_per_s": b / med * 1e3,
+        "cached_vs_parallel_max_abs_err": gap, "tol": LM_DECODE_TOL,
+        "decode_blocking_transfers": syncs, "decode_device": step_device,
+        "first_tokens": tokens[:, AUDIO_PROMPT:AUDIO_PROMPT + 8].tolist(),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit("lm_hybrid_audio_whisper_serve", **row)
+    del params, dec, enc, steps, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_lm_hybrid_audio() -> dict:
+    """RG-LRU with local attention and the Whisper encoder-decoder. The
+    smoke ``recurrentgemma-2b`` (with a ``lam`` that recurs as well as its
+    initial one) and ``whisper-tiny`` on the card against the CPU
+    (``hybrid_small_vs_cpu``, ``audio_small_vs_cpu``); ``recurrentgemma-2b``
+    at full width and depth served (``hybrid_serve``) and trained
+    (``hybrid_train``); ``whisper-tiny`` at full size served through its
+    decode pieces (``audio_serve``) and trained (``cut_train``, float32
+    moments). Each model is freed before the next is built. None of the
+    hand-written kernels runs (the reference's RG-LRU is an associative
+    scan and einsums, its encoder and cross-attention einsum math)."""
+    from repro_torch.kernels import distance_tile as tdist
+    from repro_torch.kernels import knn_tile as knn_mod
+    from repro_torch.kernels import range_tile as trange
+    from repro_torch.kernels import rwkv_scan as scan
+    from repro_torch.kernels import update_tile as upd
+    from repro_torch.models.config import get_config
+    t_phase = time.perf_counter()
+    counters = [scan.rwkv_scan, knn_mod.knn_tile_anchored, knn_mod.knn_tile,
+                upd.bin_disp_tile, trange.range_count, tdist.distance_tile]
+    for fn in counters:
+        fn.launches = 0
+    row = {"small_vs_cpu": hybrid_small_vs_cpu() + [audio_small_vs_cpu()],
+           "recurrentgemma_serve": hybrid_serve(),
+           "recurrentgemma_train": hybrid_train(),
+           "whisper_serve": audio_serve(),
+           "whisper_train": cut_train(
+               AUDIO_ARCH, get_config(AUDIO_ARCH).n_layers, AUDIO_TRAIN,
+               phase="lm_hybrid_audio")}
+    launches = {fn.__name__: fn.launches for fn in counters}
+    check(all(v == 0 for v in launches.values()),
+          f"lm_hybrid_audio: a hand-written kernel ran: {launches}")
+    row["kernel_launches"] = launches
+    row["seconds"] = time.perf_counter() - t_phase
+    emit("lm_hybrid_audio", **{k: row[k] for k in ("kernel_launches",
+                                                   "seconds")},
          nvidia_smi=smi_line())
     return row
 
@@ -4396,6 +4895,7 @@ def main() -> int:
     phase_lm_dense()
     phase_lm_mla_vlm()
     phase_lm_moe()
+    phase_lm_hybrid_audio()
 
     rows = [("knn_tile_anchored", dict(
         launches=m["launches"], err=max(m["err"], hp_err, any_k_err,

@@ -155,14 +155,17 @@ def _is_quantized(v) -> bool:
 
 
 def _flatten(tree, prefix: str = "") -> dict:
-    """A nested dict as ``{"a.b.c": leaf}``; a quantized moment
-    (``{"code", "scale"}``) is one leaf."""
+    """A nested dict as ``{"a.b.c": leaf}``, a list's items named by their
+    index (``"a.0.b"``, as an ``nn.ModuleList`` names them: Whisper's
+    ``enc.layers`` and ``cross``); a quantized moment (``{"code",
+    "scale"}``) is one leaf."""
     out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict) and not _is_quantized(v):
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list)) and not _is_quantized(v):
             out.update(_flatten(v, f"{prefix}{k}."))
         else:
-            out[prefix + k] = v
+            out[f"{prefix}{k}"] = v
     return out
 
 
@@ -171,7 +174,9 @@ def lm_arrays_by_name(cfg, tree) -> dict:
     gradients, or one optimizer moment, as numpy arrays) by the port's
     parameter names (``LM.named_parameters()``): the stacked body unstacked
     into ``blocks.<layer>.``, a quantized moment's ``code`` and ``scale``
-    unstacked alike and kept together."""
+    unstacked alike and kept together, the lists of an encoder-decoder
+    (``enc.layers``, ``cross``; not stacked there) as ``enc.layers.<i>.``
+    and ``cross.<i>.``."""
     top = {k: v for k, v in tree.items()
            if k not in ("prefix", "body", "tail")}
     out = _flatten(top)

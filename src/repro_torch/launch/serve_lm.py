@@ -7,15 +7,19 @@ RWKV-6 recurrent cache), on the card.
 Port of ``src/repro/launch/serve_lm.py`` with its flags and defaults
 (``--arch lm-100m``), plus ``--device`` (default ``cuda``; it raises
 without a card, and the CPU runs only with ``--device cpu``, e.g.
-``--smoke --device cpu``). ``--arch rwkv6-7b`` serves RWKV-6 and
-``--arch minicpm3-4b`` Multi-head Latent Attention (single-token steps
-through the absorbed decode); ``--arch grok-1-314b`` and ``--arch
+``--smoke --device cpu``). ``--arch rwkv6-7b`` serves RWKV-6,
+``--arch recurrentgemma-2b`` RG-LRU with local attention (ring-buffer
+caches of the window) and ``--arch minicpm3-4b`` Multi-head Latent
+Attention (single-token steps through the absorbed decode); ``--arch grok-1-314b`` and ``--arch
 deepseek-v3-671b`` the MoE feed-forward (with ``--smoke``: the full
 configs take 1.27 TB and 2.68 TB of float32 weights, more than a card
 holds). ``--arch qwen2-vl-7b`` exits non-zero with
 a ``ValueError``, as the reference's launcher fails on it: the greedy
 loop steps at the cache's length, and an M-RoPE model needs explicit
-``pos3`` positions (``train/serve_step.make_decode_step`` takes them).
+``pos3`` positions (``train/serve_step.make_decode_step`` takes them);
+so does ``--arch whisper-tiny``, where the reference's loop runs the
+decoder without its encoder: an encoder-decoder model is served by its
+pieces (``models.model.encoder_fwd``, ``_dec_layers_with_cross``).
 The first run is a warmup (it builds the ``rwkv_scan`` kernel where the
 model runs it, and warms the libraries) and is reported apart; the
 second is the steady state. On the card both are timed with CUDA events; on the CPU

@@ -7,7 +7,9 @@ Port of ``src/repro/launch/train.py`` with its flags and defaults
 (``--arch lm-100m``, an attention model), plus ``--device`` (default
 ``cuda``; it raises without a card, and the CPU runs only with
 ``--device cpu``, e.g. ``--smoke --device cpu``); ``--arch rwkv6-7b``
-trains RWKV-6, ``--arch minicpm3-4b`` Multi-head Latent Attention and
+trains RWKV-6, ``--arch recurrentgemma-2b`` RG-LRU with local attention,
+``--arch whisper-tiny`` the encoder-decoder (the synthetic batches carry
+``enc_input``), ``--arch minicpm3-4b`` Multi-head Latent Attention and
 ``--arch qwen2-vl-7b`` M-RoPE with the vision stub (the synthetic batches
 carry ``pos3`` and ``vision_embeds``), ``--arch grok-1-314b`` the MoE
 feed-forward and ``--arch deepseek-v3-671b`` MLA, the MoE with a shared

@@ -1,5 +1,6 @@
-"""Layer library of the port: what the ``rwkv`` and the attention layer
-kinds (dense, M-RoPE, MLA, MoE) need.
+"""Layer library of the port: what the ``rwkv``, ``rglru`` and attention
+layer kinds (dense, M-RoPE, MLA, MoE) and the Whisper encoder-decoder
+need.
 
 Port of ``src/repro/models/layers.py``: the dense init, the two norms,
 rotary embeddings (standard and M-RoPE), grouped-query attention with its
@@ -7,13 +8,14 @@ linear and ring-buffer KV caches, Multi-head Latent Attention with its
 latent cache, the SwiGLU and GELU MLPs, the Mixture of Experts
 feed-forward (top-k routing, sorted capacity dispatch: ``moe_fwd`` as
 ``moe_route``, ``moe_dispatch``, ``moe_experts``, ``moe_combine``;
-``moe_aux_loss``), and the RWKV-6 (Finch) time mix and channel mix.
+``moe_aux_loss``), the RG-LRU recurrent block (Griffin) and the RWKV-6
+(Finch) time mix and channel mix.
 ``init_*`` returns a dict of tensors as the reference's returns a param
 dict; the ``*_fwd`` functions apply a mapping of parameters by name (a
 dict, an ``nn.ParameterDict`` or one of the modules below) and return
 what the reference's return. :class:`Attention`, :class:`MLA`,
-:class:`SwiGLU`, :class:`MoE`, :class:`GeluMLP`, :class:`RWKV6TimeMix`
-and :class:`RWKV6ChannelMix` hold the parameters as ``nn.Module``s under
+:class:`SwiGLU`, :class:`MoE`, :class:`GeluMLP`, :class:`RGLRU`,
+:class:`RWKV6TimeMix` and :class:`RWKV6ChannelMix` hold the parameters as ``nn.Module``s under
 the reference's names. Parameters are made for serving: they require
 gradients only after ``requires_grad_()`` (which
 ``models.model.init_params(..., requires_grad=True)`` calls). The time
@@ -30,8 +32,10 @@ attends in the latent space (``_mla_absorbed_decode``). The MoE is
 plain tensor operations too (the reference's expert GEMMs are batched
 einsums): a stable sort by expert, ranks and capacity drops exactly as
 the reference's, the expert GEMMs as ``torch.bmm``, and a deterministic
-combine. RG-LRU and the Whisper layers are not ported yet (ROADMAP queue
-1 item 2.2).
+combine. The RG-LRU block is plain tensor operations too (the reference's
+is an associative scan and einsums): its recurrence is a doubling scan
+(``_rglru_scan``) that autograd differentiates. The Whisper encoder and
+cross-attention reuse the attention, LayerNorm and GELU MLP above.
 """
 from __future__ import annotations
 
@@ -636,6 +640,95 @@ def moe_aux_loss(p: Mapping[str, Any], x: Tensor, cfg) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
+# RG-LRU recurrent block (RecurrentGemma / Griffin)
+# ---------------------------------------------------------------------------
+
+def init_rglru_block(gen, cfg, dtype, device=None) -> dict[str, Tensor]:
+    """The reference's names, shapes and dtypes: ``lam`` [d] float32 from
+    u ~ U(0.9, 0.999) (``log(u^(1/8) / (1 - u^(1/8)))``), ``b_a`` and
+    ``b_i`` float32 zeros, the weights in ``dtype``."""
+    d = cfg.d_model
+    dr = d  # lru width = d_model in RecurrentGemma-2B
+    c = 8.0
+    u = torch.rand((dr,), generator=gen, dtype=torch.float32,
+                   device=device) * (0.999 - 0.9) + 0.9
+    lam = torch.log(u ** (1 / c) / (1 - u ** (1 / c)))
+    return {
+        "w_x": _dense_init(gen, (d, dr), None, dtype, device),   # linear
+        "w_y": _dense_init(gen, (d, dr), None, dtype, device),   # gate
+        "conv_w": _dense_init(gen, (4, dr), 0.5, dtype, device),
+        "lam": lam,
+        "w_a": _dense_init(gen, (dr, dr), 0.02, dtype, device),
+        "b_a": torch.zeros((dr,), dtype=torch.float32, device=device),
+        "w_i": _dense_init(gen, (dr, dr), 0.02, dtype, device),
+        "b_i": torch.zeros((dr,), dtype=torch.float32, device=device),
+        "w_out": _dense_init(gen, (dr, d), None, dtype, device),
+    }
+
+
+def _rglru_scan(xt: Tensor, a_t: Tensor, h0: Tensor) -> tuple[Tensor, Tensor]:
+    """The linear recurrence h_t = a_t h_{t-1} + sqrt(max(1 - a_t^2,
+    1e-12)) x_t from ``h0``: xt, a_t [B, S, D] float32, h0 [B, D] ->
+    (h [B, S, D], h [:, -1]). The reference's associative scan, as a
+    doubling (Hillis-Steele) scan of the pairs (a, b) over log2(S) steps
+    of plain tensor operations that autograd differentiates: the prefix
+    products of the a's are only multiplied, so they underflow to 0 (a
+    sum of logs would overflow its exp). Then h0 enters through the
+    prefix products, as there. One token is one multiply-add."""
+    b = torch.sqrt(torch.clamp(1.0 - a_t * a_t, min=1e-12)) * xt
+    a = a_t
+    s, k = xt.shape[1], 1
+    while k < s:
+        # combine(c1, c2) = (a1 a2, a2 b1 + b2), c1 the earlier k steps
+        b = torch.cat([b[:, :k], a[:, k:] * b[:, :-k] + b[:, k:]], dim=1)
+        a = torch.cat([a[:, :k], a[:, :-k] * a[:, k:]], dim=1)
+        k *= 2
+    h = b + a * h0[:, None, :]
+    return h, h[:, -1, :]
+
+
+def rglru_block_fwd(p: Mapping[str, Tensor], x: Tensor, cfg, *,
+                    cache: Cache | None = None
+                    ) -> tuple[Tensor, Cache | None]:
+    """Griffin recurrent block: (conv1d -> RG-LRU) branch gated by a GELU
+    (tanh) branch. ``cache`` = ``{"h" [B, D] float32, "conv" [B, 3, D]}``
+    for decode; the new one holds the last state and the last 3 rows of
+    the conv's padded input (x's dtype), as new tensors. The decay is the
+    reference's ``log a_t = -8 r_t softplus(lam)`` (Griffin's is
+    ``softplus(-lam)``; the port keeps the reference's sign)."""
+    b, s, d = x.shape
+    xb = x @ p["w_x"]
+    yb = F.gelu(x @ p["w_y"], approximate="tanh")
+
+    # depthwise causal conv, kernel 4, summed in the reference's order
+    if cache is None:
+        prev = xb.new_zeros((b, 3, xb.shape[-1]))
+    else:
+        prev = cache["conv"].to(xb.dtype)
+    xpad = torch.cat([prev, xb], dim=1)
+    conv = xpad[:, 0:s] * p["conv_w"][0]
+    for i in range(1, 4):
+        conv = conv + xpad[:, i:i + s] * p["conv_w"][i]
+    new_conv = xpad[:, -3:, :]
+
+    cf = conv.to(torch.float32)
+    r = torch.sigmoid(cf @ p["w_a"].to(torch.float32) + p["b_a"])
+    i = torch.sigmoid(cf @ p["w_i"].to(torch.float32) + p["b_i"])
+    lam = p["lam"]
+    log_a = -8.0 * r * torch.logaddexp(lam, torch.zeros_like(lam))
+    a_t = torch.exp(log_a)
+    gated_x = i * cf
+    h0 = (cf.new_zeros((b, xb.shape[-1])) if cache is None
+          else cache["h"].to(torch.float32))
+    h, h_last = _rglru_scan(gated_x, a_t, h0)
+    h = h.to(x.dtype)
+
+    out = (h * yb) @ p["w_out"]
+    new_cache = None if cache is None else {"h": h_last, "conv": new_conv}
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
 # RWKV-6 (Finch): data-dependent decay time-mix + channel-mix
 # ---------------------------------------------------------------------------
 
@@ -936,3 +1029,17 @@ class GeluMLP(_Params):
 
     def forward(self, x: Tensor) -> Tensor:
         return gelu_mlp_fwd(self, x)
+
+
+class RGLRU(_Params):
+    """The RG-LRU block's parameters (:func:`init_rglru_block`: ``w_x``,
+    ``w_y``, ``conv_w``, ``lam``, ``w_a``, ``b_a``, ``w_i``, ``b_i``,
+    ``w_out``); ``forward(x, cache)`` is :func:`rglru_block_fwd`."""
+
+    def __init__(self, cfg, dtype=torch.float32, *, generator=None,
+                 device=None):
+        super().__init__(init_rglru_block(generator, cfg, dtype, device))
+        self.cfg = cfg
+
+    def forward(self, x: Tensor, cache: Cache | None = None):
+        return rglru_block_fwd(self, x, self.cfg, cache=cache)

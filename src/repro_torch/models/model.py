@@ -1,9 +1,11 @@
 """Model assembly of the port: config -> module / forward / decode step.
 
-Port of ``src/repro/models/model.py`` for the ``rwkv`` layer kind and the
-attention kinds (``attn``, ``attn_dense``, ``local_attn``: GQA with rotary
-or M-RoPE positions, or Multi-head Latent Attention where ``cfg.mla`` is
-set, and a SwiGLU MLP, or a GELU MLP and LayerNorms in the audio family),
+Port of ``src/repro/models/model.py`` for every layer kind of the
+reference: ``rwkv``, ``rglru`` (Griffin's RG-LRU block between RMSNorms,
+with a SwiGLU MLP) and the attention kinds (``attn``, ``attn_dense``,
+``local_attn``: GQA with rotary or M-RoPE positions, or Multi-head Latent
+Attention where ``cfg.mla`` is set, and a SwiGLU MLP, or a GELU MLP and
+LayerNorms in the audio family),
 with the MoE feed-forward in the ``attn`` layers of a config with
 ``cfg.moe`` (:func:`_layer_uses_moe`: DeepSeek's ``attn_dense`` prefix
 keeps its SwiGLU), DeepSeek-V3's multi-token head (``cfg.mtp``: an
@@ -23,8 +25,17 @@ host int. An M-RoPE model rotates by ``pos3`` [B, S, 3] (temporal,
 height, width), which the caller passes (the batch's ``pos3``, or
 ``decode_step``'s ``pos``); where none is given the port raises
 ``ValueError`` (:func:`positions`), as the reference fails there too.
-RG-LRU and the Whisper encoder-decoder are not ported yet (ROADMAP queue
-1 item 2.2).
+
+The Whisper encoder-decoder (``cfg.enc_dec``): :class:`LM` also holds
+``enc`` (:class:`Encoder`), learned decoder positions ``dec_pos`` and one
+``cross`` attention per decoder layer (:class:`CrossAttention`);
+``train_forward`` runs :func:`encoder_fwd` over the batch's
+``enc_input`` and the decoder through :func:`_dec_layers_with_cross`,
+whose ``self_caches`` and ``cross_kv`` arguments are the reference's
+decode pieces. The reference's ``forward_logits``, ``decode_step`` and
+serving steps run such a model's decoder self-attention alone (no
+``dec_pos``, no cross-attention, no encoder); the port raises
+``ValueError`` there instead (:func:`_decoder_only`).
 """
 from __future__ import annotations
 
@@ -43,9 +54,12 @@ from .config import ArchConfig
 Tensor = torch.Tensor
 Cache = list[dict[str, Any]]
 ATTN_KINDS = ("attn", "attn_dense", "local_attn")
-_NOT_PORTED = ("{} is not ported yet (ROADMAP queue 1 item 2.2: the rwkv "
-               "and attention kinds, M-RoPE, MLA, MoE and the multi-token "
-               "head included, have landed)")
+_ENC_DEC = ("{} of {}: an encoder-decoder model is served by its pieces, "
+            "not by {}: encoder_fwd over the encoder input, the cross keys "
+            "and values of each layer, then _dec_layers_with_cross(..., "
+            "self_caches=..., cross_kv=...) per token. The reference runs "
+            "the decoder's self-attention layers alone there (no dec_pos, no "
+            "cross-attention, no encoder)")
 _NEEDS_POS3 = ("{} rotates by M-RoPE positions: pass pos3 [B, S, 3] "
                "(temporal, height, width; a batch's 'pos3', or decode_step's "
                "pos). The reference fails on this call too: it rotates by "
@@ -57,8 +71,12 @@ def _norm(x: Tensor, p, eps: float) -> Tensor:
     return L.layernorm(x, p, eps) if "bias" in p else L.rmsnorm(x, p, eps)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(_NOT_PORTED.format(what))
+def _decoder_only(cfg: ArchConfig, what: str) -> None:
+    """Raises ValueError if ``cfg`` is an encoder-decoder model, which
+    ``what`` (a decoder-only serving path) would run without its encoder
+    as the reference's does."""
+    if cfg.enc_dec:
+        raise ValueError(_ENC_DEC.format(what, cfg.name, what))
 
 
 # ---------------------------------------------------------------------------
@@ -86,7 +104,8 @@ def _ffn_fwd(p, x: Tensor, cfg: ArchConfig) -> Tensor:
 class Block(nn.Module):
     """One layer under the names of the reference's per-layer param tree:
     ``ln1``, ``mixer``, ``ln2``, ``ffn``. An ``rwkv`` layer: LayerNorms,
-    the time mix and the channel mix. An attention layer: the block norms
+    the time mix and the channel mix. An ``rglru`` layer: RMSNorms,
+    :class:`layers.RGLRU` and a SwiGLU MLP. An attention layer: the block norms
     (:func:`_init_block_norm`), :class:`layers.Attention` (or
     :class:`layers.MLA` where ``cfg.mla`` is set) and a SwiGLU MLP (a GELU
     MLP in the audio family; :class:`layers.MoE` in an ``attn`` layer of a
@@ -103,6 +122,13 @@ class Block(nn.Module):
             self.ln2 = L.param_dict(L.init_layernorm(d, dtype, device))
             self.ffn = L.RWKV6ChannelMix(cfg, dtype, generator=generator,
                                          device=device)
+        elif kind == "rglru":
+            self.ln1 = L.param_dict(L.init_rmsnorm(d, dtype, device))
+            self.mixer = L.RGLRU(cfg, dtype, generator=generator,
+                                 device=device)
+            self.ln2 = L.param_dict(L.init_rmsnorm(d, dtype, device))
+            self.ffn = L.SwiGLU(d, cfg.d_ff, dtype, generator=generator,
+                                device=device)
         elif kind in ATTN_KINDS:
             self.ln1 = _init_block_norm(cfg, dtype, device)
             self.ln2 = _init_block_norm(cfg, dtype, device)
@@ -117,14 +143,14 @@ class Block(nn.Module):
                 self.ffn = mlp(d, cfg.d_ff, dtype, generator=generator,
                                device=device)
         else:
-            raise _not_ported(f"layer kind {kind!r}")
+            raise ValueError(f"unknown layer kind {kind}")
 
 
 def apply_layer(p: Block, x: Tensor, cfg: ArchConfig, kind: str, *,
                 pos: Tensor | None = None, cache=None
                 ) -> tuple[Tensor, dict | None]:
     """One layer; ``pos`` are the positions an attention layer rotates by,
-    [B, S] (or [B, S, 3] for M-RoPE; the ``rwkv`` kind takes none)."""
+    [B, S] (or [B, S, 3] for M-RoPE; the recurrent kinds take none)."""
     if kind in ATTN_KINDS:
         h = _norm(x, p.ln1, cfg.norm_eps)
         window = cfg.local_window if kind == "local_attn" else None
@@ -137,8 +163,14 @@ def apply_layer(p: Block, x: Tensor, cfg: ArchConfig, kind: str, *,
         x = x + a
         h = _norm(x, p.ln2, cfg.norm_eps)
         return x + _ffn_fwd(p.ffn, h, cfg), new_cache
+    if kind == "rglru":
+        h = L.rmsnorm(x, p.ln1, cfg.norm_eps)
+        a, new_cache = L.rglru_block_fwd(p.mixer, h, cfg, cache=cache)
+        x = x + a
+        h = L.rmsnorm(x, p.ln2, cfg.norm_eps)
+        return x + L.swiglu_fwd(p.ffn, h), new_cache
     if kind != "rwkv":
-        raise _not_ported(f"layer kind {kind!r}")
+        raise ValueError(f"unknown layer kind {kind}")
     h = L.layernorm(x, p.ln1, cfg.norm_eps)
     a, c1 = L.rwkv6_timemix_fwd(p.mixer, h, cfg, cache=(
         cache["tm"] if cache is not None else None))
@@ -192,18 +224,67 @@ class MTP(nn.Module):
         self.norm = L.param_dict(L.init_rmsnorm(d, dtype, device))
 
 
+class EncoderLayer(nn.Module):
+    """One Whisper encoder layer under the reference's names: ``ln1``
+    (LayerNorm), ``attn`` (:class:`layers.Attention`), ``ln2``
+    (LayerNorm), ``mlp`` (:class:`layers.GeluMLP`)."""
+
+    def __init__(self, cfg: ArchConfig, dtype, *, generator=None,
+                 device=None):
+        super().__init__()
+        d = cfg.d_model
+        self.ln1 = L.param_dict(L.init_layernorm(d, dtype, device))
+        self.attn = L.Attention(cfg, dtype, generator=generator,
+                                device=device)
+        self.ln2 = L.param_dict(L.init_layernorm(d, dtype, device))
+        self.mlp = L.GeluMLP(d, cfg.d_ff, dtype, generator=generator,
+                             device=device)
+
+
+class Encoder(nn.Module):
+    """The Whisper encoder over precomputed (stub) frame embeddings:
+    ``pos`` [enc_context, d], ``layers`` (``n_enc_layers`` of
+    :class:`EncoderLayer`) and ``ln_post`` (LayerNorm)."""
+
+    def __init__(self, cfg: ArchConfig, dtype, *, generator=None,
+                 device=None):
+        super().__init__()
+        d = cfg.d_model
+        self.pos = nn.Parameter(L._dense_init(
+            generator, (cfg.enc_context, d), 0.02, dtype, device),
+            requires_grad=False)
+        self.layers = nn.ModuleList(
+            EncoderLayer(cfg, dtype, generator=generator, device=device)
+            for _ in range(cfg.n_enc_layers))
+        self.ln_post = L.param_dict(L.init_layernorm(d, dtype, device))
+
+
+class CrossAttention(nn.Module):
+    """A decoder layer's cross-attention: ``ln`` (an RMSNorm) and ``attn``
+    (:class:`layers.Attention`; its bias-free ``wq`` applies to the
+    decoder, ``wk`` and ``wv`` to the encoder's output)."""
+
+    def __init__(self, cfg: ArchConfig, dtype, *, generator=None,
+                 device=None):
+        super().__init__()
+        self.ln = L.param_dict(L.init_rmsnorm(cfg.d_model, dtype, device))
+        self.attn = L.Attention(cfg, dtype, generator=generator,
+                                device=device)
+
+
 class LM(nn.Module):
     """The language model: ``embed`` [V, d], ``blocks`` (one per layer, in
     ``cfg.layer_kinds`` order), ``final_norm``, unless the config ties
-    them ``unembed`` [d, V], and with ``cfg.mtp`` the multi-token head
-    ``mtp`` (:class:`MTP`). Its parameters are made without gradients
-    (serving); ``requires_grad_()`` makes them trainable."""
+    them ``unembed`` [d, V], with ``cfg.mtp`` the multi-token head
+    ``mtp`` (:class:`MTP`), and with ``cfg.enc_dec`` the encoder ``enc``
+    (:class:`Encoder`), the learned decoder positions ``dec_pos``
+    [max_target_len, d] and ``cross``, one :class:`CrossAttention` per
+    decoder layer. Its parameters are made without gradients (serving);
+    ``requires_grad_()`` makes them trainable."""
 
     def __init__(self, cfg: ArchConfig, dtype=torch.float32, *,
                  generator=None, device=None):
         super().__init__()
-        if cfg.enc_dec:
-            raise _not_ported("the encoder-decoder")
         d = cfg.d_model
         self.cfg = cfg
         self.embed = nn.Parameter(L._dense_init(
@@ -222,6 +303,16 @@ class LM(nn.Module):
             for kind in cfg.layer_kinds)
         if cfg.mtp:
             self.mtp = MTP(cfg, dtype, generator=generator, device=device)
+        if cfg.enc_dec:
+            self.enc = Encoder(cfg, dtype, generator=generator,
+                               device=device)
+            self.dec_pos = nn.Parameter(L._dense_init(
+                generator, (cfg.max_target_len, d), 0.02, dtype, device),
+                requires_grad=False)
+            self.cross = nn.ModuleList(
+                CrossAttention(cfg, dtype, generator=generator,
+                               device=device)
+                for _ in range(cfg.n_layers))
 
     def unembedding(self) -> Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.unembed
@@ -266,14 +357,15 @@ def positions(cfg: ArchConfig, b: int, s: int, device,
               offset: int = 0) -> Tensor | None:
     """The positions [B, S] (``offset`` .. ``offset + S - 1`` in every row)
     that the layers rotate by for ``cfg.pos == "rope"``; None for a model
-    that takes none (``"none"``: the ``rwkv`` kind). An M-RoPE model's
+    whose attention does not rotate (``"none"``: the ``rwkv`` kind;
+    ``"learned"``: Whisper's added ``dec_pos``). An M-RoPE model's
     positions are the caller's ``pos3`` [B, S, 3]: ValueError."""
-    if cfg.pos == "none":
+    if cfg.pos in ("none", "learned"):
         return None
     if cfg.pos == "mrope":
         raise ValueError(_NEEDS_POS3.format(cfg.name))
     if cfg.pos != "rope":
-        raise _not_ported(f"positions of kind {cfg.pos!r}")
+        raise ValueError(f"unknown position kind {cfg.pos!r}")
     return (torch.arange(s, device=device) + offset).expand(b, s)
 
 
@@ -310,7 +402,9 @@ def _logits(x: Tensor, unembed: Tensor) -> Tensor:
 def forward_logits(params: LM, tokens: Tensor, cfg: ArchConfig) -> Tensor:
     """Full-sequence logits [B, S, V] float32 of ``tokens`` [B, S], at
     positions 0 .. S-1 (ValueError on an M-RoPE model, which needs
-    ``pos3``: :func:`positions`)."""
+    ``pos3``: :func:`positions`; and on an encoder-decoder model:
+    :func:`_decoder_only`)."""
+    _decoder_only(cfg, "forward_logits")
     b, s = tokens.shape
     x = params.embed[tokens]
     x = _run_layers(params, x, cfg, pos=positions(cfg, b, s, tokens.device))
@@ -356,12 +450,24 @@ def train_forward(params: LM, batch: dict[str, Tensor], cfg: ArchConfig,
     most ``n_vision_tokens`` is the vision embeddings alone). With
     ``cfg.mtp`` the multi-token head's loss is added at weight 0.1
     (:func:`_mtp_loss`). The MoE's auxiliary loss is not added, as in the
-    reference. The encoder-decoder part of the reference's
-    ``train_forward`` comes with that kind (no config the port can build
-    has it)."""
+    reference. An encoder-decoder model (``cfg.enc_dec``) runs
+    :func:`encoder_fwd` over the batch's ``enc_input``, adds ``dec_pos``
+    to the embeddings and runs the decoder with cross-attention
+    (:func:`_dec_layers_with_cross`), then its final LayerNorm; with
+    ``remat`` each encoder and decoder layer is recomputed in the backward
+    pass."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = F.embedding(tokens, params.embed)
+    if cfg.enc_dec:
+        memory = encoder_fwd(params, batch["enc_input"], cfg, remat=remat)
+        x = x + params.dec_pos[None, :s]
+        x, _ = _dec_layers_with_cross(
+            params, x, memory, cfg, pos=positions(cfg, b, s, tokens.device),
+            remat=remat)
+        x = L.layernorm(x, params.final_norm, cfg.norm_eps)
+        return chunked_ce_loss(x, params.unembedding(), batch["labels"],
+                               batch["mask"])
     if cfg.frontend == "vision_stub":
         nv = cfg.n_vision_tokens
         if nv:
@@ -379,6 +485,94 @@ def train_forward(params: LM, batch: dict[str, Tensor], cfg: ArchConfig,
     if cfg.mtp:
         loss = loss + 0.1 * _mtp_loss(params, x, batch, cfg, pos, unembed)
     return loss
+
+
+def encoder_fwd(params: LM, enc_in: Tensor, cfg: ArchConfig,
+                remat: bool = False) -> Tensor:
+    """Whisper encoder: precomputed conv-stub embeddings ``enc_in`` [B,
+    S_enc, d] -> memory [B, S_enc, d]. ``enc.pos[:S_enc]`` is added, then
+    each layer: LayerNorm, non-causal self-attention (unrotated),
+    residual, LayerNorm, GELU MLP, residual; ``ln_post`` at the end. With
+    ``remat`` (and autograd recording) each layer runs again in the
+    backward pass."""
+    e = params.enc
+    x = enc_in + e.pos[None, :enc_in.shape[1]]
+    remat = remat and torch.is_grad_enabled()
+    for lp in e.layers:
+        if remat:
+            x = checkpoint(_enc_layer, lp, x, cfg, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _enc_layer(lp, x, cfg)
+    return L.layernorm(x, e.ln_post, cfg.norm_eps)
+
+
+def _enc_layer(lp: EncoderLayer, x: Tensor, cfg: ArchConfig) -> Tensor:
+    h = L.layernorm(x, lp.ln1, cfg.norm_eps)
+    # learned positions: the attention rotates by none
+    a, _ = L.attention_fwd(lp.attn, h, cfg, pos=None, causal=False)
+    x = x + a
+    h = L.layernorm(x, lp.ln2, cfg.norm_eps)
+    return x + L.gelu_mlp_fwd(lp.mlp, h)
+
+
+def _cross_kv(attn: L.Attention, memory: Tensor, cfg: ArchConfig
+              ) -> tuple[Tensor, Tensor]:
+    """A cross-attention's keys and values [B, S_enc, Hk, hd] of the
+    encoder's output: ``memory @ wk``, ``memory @ wv`` (no bias)."""
+    b, s, d = memory.shape
+    hk, hd = cfg.n_kv_heads, cfg.head_dim
+    k = (memory @ attn.wk.reshape(d, hk * hd)).reshape(b, s, hk, hd)
+    v = (memory @ attn.wv.reshape(d, hk * hd)).reshape(b, s, hk, hd)
+    return k, v
+
+
+def _dec_layers_with_cross(params: LM, x: Tensor, memory: Tensor | None,
+                           cfg: ArchConfig, *, pos: Tensor | None,
+                           self_caches: Cache | None = None,
+                           cross_kv: list | None = None,
+                           remat: bool = False) -> tuple[Tensor, list]:
+    """Whisper decoder: per layer self-attention (causal, from
+    ``self_caches[i]`` if given), cross-attention and MLP; returns (x,
+    the new self-attention caches, None each without caches). The block
+    norms are the config's (LayerNorms in the audio family), the cross
+    norm an RMSNorm. The cross-attention is non-causal and unrotated, its
+    keys and values ``cross_kv[i]`` (``(k, v)`` [B, S_enc, Hk, hd]) or,
+    without them, :func:`_cross_kv` of ``memory``. With ``remat`` (and
+    autograd recording) each layer runs again in the backward pass. Every
+    layer is an attention layer here, as in the reference (which runs none
+    with a window)."""
+    remat = remat and torch.is_grad_enabled()
+    new_self = []
+    for li, (blk, cp) in enumerate(zip(params.blocks, params.cross)):
+        cache_i = None if self_caches is None else self_caches[li]
+        ckv = None if cross_kv is None else cross_kv[li]
+        if remat:
+            x, nc = checkpoint(_dec_layer, blk, cp, x, memory, cfg, pos,
+                               cache_i, ckv, use_reentrant=False,
+                               preserve_rng_state=False)
+        else:
+            x, nc = _dec_layer(blk, cp, x, memory, cfg, pos, cache_i, ckv)
+        new_self.append(nc)
+    return x, new_self
+
+
+def _dec_layer(blk: Block, cp: CrossAttention, x: Tensor,
+               memory: Tensor | None, cfg: ArchConfig, pos: Tensor | None,
+               cache, ckv) -> tuple[Tensor, dict | None]:
+    h = _norm(x, blk.ln1, cfg.norm_eps)
+    a, nc = L.attention_fwd(blk.mixer, h, cfg, pos=pos, cache=cache,
+                            causal=True)
+    x = x + a
+    h = L.rmsnorm(x, cp.ln, cfg.norm_eps)
+    b, s, d = h.shape
+    hq, hd = cfg.n_heads, cfg.head_dim
+    q = (h @ cp.attn.wq.reshape(d, hq * hd)).reshape(b, s, hq, hd)
+    ck, cv = ckv if ckv is not None else _cross_kv(cp.attn, memory, cfg)
+    o = L._sdpa(q, ck, cv, causal=False, window=None)
+    x = x + o.reshape(b, s, hq * hd) @ cp.attn.wo.reshape(hq * hd, d)
+    h = _norm(x, blk.ln2, cfg.norm_eps)
+    return x + _ffn_fwd(blk.ffn, h, cfg), nc
 
 
 def _mtp_loss(params: LM, x: Tensor, batch: dict[str, Tensor],
@@ -417,7 +611,10 @@ def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
     local_window) slots with ``pos`` [B, S_max] int32, -1 where unwritten;
     an MLA layer's (``cfg.mla``) holds ``latent`` [B, S_max, kv_rank] and
     ``k_rope`` [B, S_max, 1, d_rope] (``dtype``) instead of ``k`` and
-    ``v``."""
+    ``v``. An ``rglru`` layer: the state ``h`` [B, d] float32 and the
+    conv's last 3 inputs ``conv`` [B, 3, d] (``dtype``). An
+    encoder-decoder model's are its decoder layers' self-attention caches,
+    which :func:`_dec_layers_with_cross` takes as ``self_caches``."""
     dev = resolve_device(device)
     cache = []
     for kind in cfg.layer_kinds:
@@ -430,6 +627,13 @@ def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
                                             dtype=torch.float32, device=dev)},
                 "cm": {"x_prev": torch.zeros((batch, d), dtype=dtype,
                                              device=dev)}})
+        elif kind == "rglru":
+            d = cfg.d_model
+            cache.append({
+                "h": torch.zeros((batch, d), dtype=torch.float32,
+                                 device=dev),
+                "conv": torch.zeros((batch, 3, d), dtype=dtype,
+                                    device=dev)})
         elif kind in ("attn", "attn_dense") and cfg.mla is not None:
             m = cfg.mla
             cache.append({
@@ -450,7 +654,7 @@ def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
                                       device=dev)
             cache.append(c)
         else:
-            raise _not_ported(f"the decode cache of layer kind {kind!r}")
+            raise ValueError(f"unknown layer kind {kind}")
     return cache
 
 
@@ -479,7 +683,9 @@ def decode_step(params: LM, cache: Cache, tokens: Tensor, cfg: ArchConfig,
     (:func:`_cache_length`). That is the right position for one token; for
     S > 1 the reference rotates every token of the prompt alike while its
     causal mask places them at length + i, so with rope attention layers
-    (MLA's included) the port asks for ``pos`` instead (ValueError)."""
+    (MLA's included) the port asks for ``pos`` instead (ValueError). An
+    encoder-decoder model raises ValueError (:func:`_decoder_only`)."""
+    _decoder_only(cfg, "decode_step")
     b, s = tokens.shape
     if pos is None and cfg.pos != "none":
         if (cfg.pos == "rope" and s > 1

@@ -27,7 +27,10 @@ def make_prefill_step(cfg: ArchConfig) -> Callable:
     the batch's ``vision_embeds`` [B, min(n_vision_tokens, S), d] take the
     place of the first embeddings, as in the reference. (The cache-writing
     prefill is ``decode_step`` with S > 1, given ``pos`` where the model
-    has rope or M-RoPE attention layers.)"""
+    has rope or M-RoPE attention layers.) An encoder-decoder config raises
+    ValueError (``model._decoder_only``): the reference's prefill runs its
+    decoder without the encoder."""
+    M._decoder_only(cfg, "make_prefill_step")
 
     @torch.no_grad()
     def prefill(params: M.LM, batch: dict[str, Tensor]) -> Tensor:
@@ -68,7 +71,9 @@ def greedy_generate(params: M.LM, cfg: ArchConfig, prompt: Tensor,
     """Simple batched greedy loop: ``prompt`` [B, P] -> [B, max_new] int32
     tokens, on the prompt's device. Every step takes ``decode_step``'s
     default position, so an M-RoPE model raises there (ValueError), as
-    the reference's loop fails on one."""
+    the reference's loop fails on one. An encoder-decoder model raises
+    ValueError at once (``model._decoder_only``)."""
+    M._decoder_only(cfg, "greedy_generate")
     b = prompt.shape[0]
     cache = M.init_decode_cache(cfg, b, cache_len, dtype,
                                 device=prompt.device)

@@ -253,8 +253,9 @@ def test_registered_archs_are_the_references():
     assert set(ALL_ARCHS) == {"rwkv6-7b", "command-r-35b",
                               "command-r-plus-104b", "qwen1.5-110b",
                               "minicpm3-4b", "qwen2-vl-7b", "grok-1-314b",
-                              "deepseek-v3-671b"}
-    assert ALL_ARCHS == [a for a in J_ALL if a in ALL_ARCHS]
+                              "deepseek-v3-671b", "recurrentgemma-2b",
+                              "whisper-tiny"}
+    assert ALL_ARCHS == J_ALL
     assert "lm-100m" not in ALL_ARCHS
 
 

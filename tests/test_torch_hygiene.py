@@ -46,7 +46,9 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.configs.minicpm3_4b",
             "repro_torch.configs.qwen2_vl_7b",
             "repro_torch.configs.grok_1_314b",
-            "repro_torch.configs.deepseek_v3_671b"} <= set(names)
+            "repro_torch.configs.deepseek_v3_671b",
+            "repro_torch.configs.recurrentgemma_2b",
+            "repro_torch.configs.whisper_tiny"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"

@@ -1,11 +1,14 @@
 """M-RoPE with the vision stub (``qwen2-vl-7b``), Multi-head Latent
-Attention (``minicpm3-4b``), the MoE feed-forward (``grok-1-314b``) and
+Attention (``minicpm3-4b``), the MoE feed-forward (``grok-1-314b``),
 DeepSeek-V3's routed experts with the multi-token head
-(``deepseek-v3-671b``) on the card against the CPU path, at smoke size,
-from one set of weights (drawn on the CPU and moved). The CPU path is the
-one ``tests/test_torch_mrope.py``, ``tests/test_torch_mla.py``,
-``tests/test_torch_moe.py`` and ``tests/test_torch_mtp.py`` hold against
-the JAX reference; this file imports no JAX.
+(``deepseek-v3-671b``), RG-LRU with local attention
+(``recurrentgemma-2b``) and the Whisper encoder-decoder (``whisper-tiny``)
+on the card against the CPU path, at smoke size, from one set of weights
+(drawn on the CPU and moved). The CPU path is the one
+``tests/test_torch_mrope.py``, ``tests/test_torch_mla.py``,
+``tests/test_torch_moe.py``, ``tests/test_torch_mtp.py``,
+``tests/test_torch_rglru.py`` and ``tests/test_torch_whisper.py`` hold
+against the JAX reference; this file imports no JAX.
 
 Each test needs a CUDA device (``cuda`` marker) and skips without one.
 Tolerances: ``atol=rtol=1e-4`` on logits card against CPU (float32,
@@ -49,11 +52,22 @@ def _models(arch):
     return cfg, cpu, M.init_params(cfg, 0, device="cpu").to("cuda")
 
 
-def _train_step_on_both(cfg, batch):
+def _recurring(lm):
+    """``lm`` with every RG-LRU ``lam`` negated, so that its layers recur
+    (``a_t`` about 0.9-0.9995; the initial ``lam`` gives below 3e-8)."""
+    with torch.no_grad():
+        for blk in lm.blocks:
+            if isinstance(blk.mixer, L.RGLRU):
+                blk.mixer.lam.neg_()
+    return lm
+
+
+def _train_step_on_both(cfg, batch, prepare=lambda lm: lm):
     opt = OptConfig(lr=1e-2, warmup_steps=1)
     out = {}
     for dev in ("cpu", "cuda"):
-        lm = M.init_params(cfg, 0, device="cpu", requires_grad=True).to(dev)
+        lm = prepare(M.init_params(cfg, 0, device="cpu",
+                                   requires_grad=True)).to(dev)
         lm, _, m = make_train_step(cfg, opt)(
             lm, init_opt_state(lm, opt),
             {k: v.to(dev) for k, v in batch.items()})
@@ -168,6 +182,97 @@ def test_moe_on_card_matches_cpu(arch):
                                       cfg)
         steps.append(logits)
     _close(torch.cat(steps, 1), got, PARALLEL_TOL)
+    batch = make_batch(cfg, 4, 37, torch.Generator().manual_seed(1),
+                       device="cpu")
+    _train_step_on_both(cfg, {k: v.reshape((2, 2) + v.shape[1:])
+                              for k, v in batch.items()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lam", ["init", "recur"])
+def test_rglru_on_card_matches_cpu(lam):
+    """Smoke ``recurrentgemma-2b`` with its initial ``lam`` and with one
+    that recurs: logits, token-by-token decode on the card against the
+    card's parallel forward past the window of 8 (the ring buffers wrap),
+    the decode's ``h`` against the CPU's, and one train step of 2
+    microbatches."""
+    _card()
+    prepare = _recurring if lam == "recur" else (lambda lm: lm)
+    cfg, cpu, card = _models("recurrentgemma-2b")
+    cpu, card = prepare(cpu), prepare(card)
+    toks = torch.randint(0, cfg.vocab, (2, 13), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(0))
+    want = M.forward_logits(cpu, toks, cfg)
+    got = M.forward_logits(card, toks.cuda(), cfg)
+    _close(got, want, CPU_TOL)
+    cache = M.init_decode_cache(cfg, 2, 14, torch.float32)
+    cpu_cache = M.init_decode_cache(cfg, 2, 14, torch.float32, device="cpu")
+    steps = []
+    for i in range(toks.shape[1]):
+        logits, cache = M.decode_step(card, cache, toks[:, i:i + 1].cuda(),
+                                      cfg)
+        _, cpu_cache = M.decode_step(cpu, cpu_cache, toks[:, i:i + 1], cfg)
+        steps.append(logits)
+    _close(torch.cat(steps, 1), got, PARALLEL_TOL)
+    for kind, c, w in zip(cfg.layer_kinds, cache, cpu_cache):
+        if kind == "rglru":
+            _close(c["h"], w["h"], CPU_TOL)
+    batch = make_batch(cfg, 4, 37, torch.Generator().manual_seed(1),
+                       device="cpu")
+    _train_step_on_both(cfg, {k: v.reshape((2, 2) + v.shape[1:])
+                              for k, v in batch.items()}, prepare)
+
+
+def _whisper_parallel(lm, cfg, tokens, enc_in):
+    """The parallel decoder's logits of ``tokens`` over the encoder's
+    output."""
+    memory = M.encoder_fwd(lm, enc_in, cfg)
+    x = lm.embed[tokens] + lm.dec_pos[None, :tokens.shape[1]]
+    x, _ = M._dec_layers_with_cross(lm, x, memory, cfg, pos=None)
+    return M._logits(L.layernorm(x, lm.final_norm, cfg.norm_eps),
+                     lm.unembedding())
+
+
+def _whisper_cached(lm, cfg, tokens, enc_in):
+    """The cached cross decode, one token a step, composed from the
+    reference's pieces: the encoder and the cross keys and values once,
+    then ``dec_pos[length]`` and ``_dec_layers_with_cross`` with both
+    caches per token."""
+    memory = M.encoder_fwd(lm, enc_in, cfg)
+    kv = [M._cross_kv(c.attn, memory, cfg) for c in lm.cross]
+    caches = M.init_decode_cache(cfg, tokens.shape[0], tokens.shape[1] + 1,
+                                 torch.float32, device=tokens.device)
+    out = []
+    for i in range(tokens.shape[1]):
+        n = caches[0]["length"]
+        x = lm.embed[tokens[:, i:i + 1]] + lm.dec_pos[None, n:n + 1]
+        x, caches = M._dec_layers_with_cross(lm, x, None, cfg, pos=None,
+                                             self_caches=caches, cross_kv=kv)
+        out.append(M._logits(L.layernorm(x, lm.final_norm, cfg.norm_eps),
+                             lm.unembedding()))
+    return torch.cat(out, 1)
+
+
+@pytest.mark.cuda
+def test_whisper_on_card_matches_cpu():
+    """Smoke ``whisper-tiny``: the ``train_forward`` loss, the parallel
+    decoder's logits against the CPU's, the cached cross decode on the
+    card against the card's parallel decoder, and one train step of 2
+    microbatches of batches with ``enc_input``."""
+    _card()
+    cfg, cpu, card = _models("whisper-tiny")
+    batch = make_batch(cfg, 2, 13, torch.Generator().manual_seed(0),
+                       device="cpu")
+    with torch.no_grad():
+        want = M.train_forward(cpu, batch, cfg)
+        got = M.train_forward(card, {k: v.cuda() for k, v in batch.items()},
+                              cfg)
+        _close(got, want, CPU_TOL)
+        toks, enc = batch["tokens"], batch["enc_input"]
+        par = _whisper_parallel(card, cfg, toks.cuda(), enc.cuda())
+        _close(par, _whisper_parallel(cpu, cfg, toks, enc), CPU_TOL)
+        _close(_whisper_cached(card, cfg, toks.cuda(), enc.cuda()), par,
+               PARALLEL_TOL)
     batch = make_batch(cfg, 4, 37, torch.Generator().manual_seed(1),
                        device="cpu")
     _train_step_on_both(cfg, {k: v.reshape((2, 2) + v.shape[1:])

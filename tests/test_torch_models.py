@@ -248,16 +248,6 @@ def test_count_params_full_config_on_meta():
     assert next(TM.init_params(cfg, device="meta").parameters()).is_meta
 
 
-def test_other_layer_kinds_are_not_ported():
-    """The kinds still to come: RG-LRU and the Whisper encoder-decoder."""
-    import dataclasses
-    for cfg in (dataclasses.replace(T_CFG, layer_pattern=("rglru",)),
-                dataclasses.replace(T_CFG, layer_pattern=("attn",),
-                                    enc_dec=True)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 2.2"):
-            TM.init_params(cfg, device="meta")
-
-
 def test_serve_lm_smoke_on_cpu():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run(

@@ -380,14 +380,16 @@ def test_train_cli_smoke_on_cpu(tmp_path, capsys):
 def test_train_cli_default_arch_is_not_ported(monkeypatch):
     """The launcher's default ``--arch`` is the reference's ``lm-100m``,
     which trains since its attention layers were ported
-    (``tests/test_torch_dense_train.py``); an arch whose layer kind is
-    still not ported (here RG-LRU) raises through the launcher."""
+    (``tests/test_torch_dense_train.py``). Every layer kind of the
+    reference is ported now (RG-LRU in ``tests/test_torch_rglru.py``); an
+    arch of a kind the reference does not have either raises through the
+    launcher, as the reference's ``init_layer`` does."""
     from repro_torch.models import config as C
-    rglru = dataclasses.replace(get_config("lm-100m"), name="rglru-test",
-                                layer_pattern=("rglru",))
-    monkeypatch.setitem(C._REGISTRY, rglru.name, rglru)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        train_cli.main(["--arch", rglru.name, "--smoke", "--device", "cpu"])
+    other = dataclasses.replace(get_config("lm-100m"), name="kind-test",
+                                layer_pattern=("mamba",))
+    monkeypatch.setitem(C._REGISTRY, other.name, other)
+    with pytest.raises(ValueError, match="unknown layer kind mamba"):
+        train_cli.main(["--arch", other.name, "--smoke", "--device", "cpu"])
 
 
 # ---------------------------------------------------------------------------
