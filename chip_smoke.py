@@ -139,6 +139,23 @@ and checks each against the brute-force oracle or against itself:
   tokens at B = 4 through the reference's decode pieces
   (``WhisperDecode``) held against the parallel decoder at every step,
   and training on 8 x 448 tokens. No hand-written kernel runs there;
+- LM sharding and the dry run (phase ``lm_sharding``, after
+  ``lm_hybrid_audio``): inside the LM phases that build them (no model is
+  built twice), the static bytes of ``rwkv6-7b`` served, ``lm-100m``
+  trained, ``minicpm3-4b`` served, ``recurrentgemma-2b`` trained with int8
+  moments and ``whisper-tiny`` trained, by ``hlo_analysis.sharded_bytes``
+  under ``sharding.rules`` specs on a one-device mesh, equal to the live
+  parameters', optimizer state's and cache's bytes and to the dry run's
+  meta-device objects', to the byte; the dry run's analytic peak of a step
+  beside ``torch.cuda.max_memory_allocated`` of that step, with their
+  ratio (recorded, not checked); ``_sdpa``'s kv-replicated branch on
+  ``qwen1.5-110b``'s layer 0 (64 q heads, 8 kv heads, model axis 16, 1 x
+  2048, causal and windowed) against the grouped branch within 1e-5 of
+  scale; ``train.remesh`` of ``lm-100m``'s parameters onto a (1,) CUDA
+  ``DeviceMesh`` of a one-rank NCCL group (a ``HashStore``) and back,
+  bitwise, in a subprocess; and ``launch/dryrun.py --arch lm-100m --shape
+  train_4k --mesh pod`` in a subprocess. No hand-written kernel runs
+  there;
 - the neighbor-query service (phase ``serve``, run before ``lm_serve``):
   ``repro_torch.serve`` on three 1M-point KITTI-like scenes, knn and
   range, 256 requests of 1,024-16,384 rows on a simulated 2,000
@@ -277,6 +294,271 @@ DENSE_TRAIN_TIMED = 5          # steps timed after one warm-up, on one batch:
 DENSE_CLI_STEPS = 3            # launch/train with no --arch, in a subprocess
 SDPA_RTOL = 1e-5               # F.scaled_dot_product_attention vs _sdpa:
                                # max|diff| <= SDPA_RTOL * max(1, max|plain|)
+def step_shape(name: str, seq: int, batch: int, kind: str):
+    """A ``configs.shapes.ShapeSpec`` of a step that a phase runs."""
+    from repro_torch.configs.shapes import ShapeSpec
+    return ShapeSpec(name, seq, batch, kind)
+
+
+def sharding_static(tag: str, cfg, *, params, opt=None, cache=None) -> dict:
+    """Phase ``lm_sharding``'s check (a) on a live model: the parameters',
+    optimizer state's and decode cache's bytes by ``sharded_bytes`` under
+    the rules' specs on a one-device mesh equal their tensors' bytes, and
+    the dry run's meta-device parameters and optimizer state
+    (``init_params``, ``opt_state_specs``) at the run's dtype have the
+    same bytes. Appends the record to SHARDING and returns it."""
+    from repro_torch.launch import hlo_analysis as H
+    from repro_torch.models import model as M
+    from repro_torch.sharding import rules as R
+    from repro_torch.train.optimizer import OptConfig, opt_state_specs
+    mesh = ONE_DEVICE_MESH
+    named = dict(params.named_parameters())
+    parts = {"params": (named, R.param_pspecs(named, mesh))}
+    if opt is not None:
+        parts["opt"] = (opt, R.opt_pspecs(opt, mesh))
+    if cache is not None:
+        # a one-device mesh divides every batch: any batch size will do
+        parts["cache"] = (cache, R.cache_pspecs(cache, mesh, 1))
+    rec = {"tag": tag, "arch": cfg.name, "n_layers": cfg.n_layers}
+    for key, (tree, specs) in parts.items():
+        live = H.tree_nbytes(tree)
+        predicted = H.sharded_bytes(tree, specs, mesh)
+        check(predicted == live, f"lm_sharding: {tag} {key}: sharded_bytes "
+              f"{predicted} != the live tensors' {live}")
+        rec[f"{key}_bytes"] = live
+    dtype = next(iter(named.values())).dtype
+    meta = dict(M.init_params(cfg, dtype=dtype,
+                              device="meta").named_parameters())
+    check(H.tree_nbytes(meta) == rec["params_bytes"],
+          f"lm_sharding: {tag}: meta parameters' bytes differ")
+    if opt is not None:
+        quant = isinstance(next(iter(opt["m"].values())), dict)
+        m_opt = opt_state_specs(meta, OptConfig(quantize_moments=quant))
+        check(H.tree_nbytes(m_opt) == rec["opt_bytes"],
+              f"lm_sharding: {tag}: meta optimizer state's bytes differ")
+        rec["quantized_opt"] = quant
+    SHARDING["bytes"].append(rec)
+    return rec
+
+
+def sharding_peak(rec: dict, cfg, step, shape, meta: dict, *,
+                  params=None) -> None:
+    """Phase ``lm_sharding``'s record (b): one more ``step()`` with the
+    allocator's peak reset (gradients of ``params`` cleared first), its
+    ``max_memory_allocated`` beside the dry run's analytic peak at the
+    run's float32 (``analytic_activation_bytes(..., resid_bytes=4)`` over
+    the static bytes: parameters, and optimizer state in a train step),
+    and their ratio; the reference's bfloat16 model beside it. Recorded,
+    not checked."""
+    import torch
+    from repro_torch.launch import hlo_analysis as H
+    if params is not None:
+        for p in params.parameters():
+            p.grad = None
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    static = rec["params_bytes"] + (rec.get("opt_bytes", 0)
+                                    if shape.kind == "train" else 0)
+    act = H.analytic_activation_bytes(cfg, shape, ONE_DEVICE_MESH, meta,
+                                      resid_bytes=4)
+    act_bf16 = H.analytic_activation_bytes(cfg, shape, ONE_DEVICE_MESH,
+                                           meta)
+    rec.update(step=[shape.kind, shape.global_batch, shape.seq_len],
+               step_meta=meta, static_bytes=static,
+               live_before_bytes=before, max_allocated_bytes=peak,
+               step_transient_bytes=peak - before,
+               analytic_activation_bytes=act,
+               analytic_activation_bytes_bf16=act_bf16,
+               analytic_peak_bytes=static + act,
+               peak_ratio=(static + act) / peak,
+               transient_ratio=act / max(peak - before, 1))
+
+
+def kv_replicated_vs_grouped(params, cfg, tokens) -> None:
+    """Phase ``lm_sharding``'s check (c) on the live ``qwen1.5-110b``:
+    layer 0's ``attention_fwd`` on the embedded ``tokens`` [1, S] with a
+    ``shard`` of model axis EXPAND_MODEL_SIZE (its 64 q heads divide it,
+    its 8 kv heads do not: ``_sdpa`` repeats the kv heads to 64) against
+    the grouped branch (``NO_SHARD``), causal and with a window of
+    EXPAND_WINDOW, within EXPAND_RTOL of scale; both timed."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import make_shard_fn
+    check(cfg.n_kv_heads % EXPAND_MODEL_SIZE != 0
+          and cfg.n_heads % EXPAND_MODEL_SIZE == 0,
+          "lm_sharding: the kv-replicated branch needs kv heads that the "
+          "model axis does not divide and q heads that it does")
+    shard = make_shard_fn({"data": 1, "model": EXPAND_MODEL_SIZE})
+    seen = []
+
+    def recording(x, name):
+        seen.append(name)
+        return shard(x, name)
+    recording.model_size = shard.model_size
+    blk = params.blocks[0]
+    out = {"model_size": EXPAND_MODEL_SIZE, "heads": cfg.n_heads,
+           "kv_heads": cfg.n_kv_heads, "shape": list(tokens.shape)}
+    with torch.no_grad():
+        h = M._norm(params.embed[tokens], blk.ln1, cfg.norm_eps)
+        pos = M.positions(cfg, *tokens.shape, tokens.device)
+        for case, window in (("causal", None), ("windowed", EXPAND_WINDOW)):
+            def run(sh, window=window):
+                return L.attention_fwd(blk.mixer, h, cfg, pos=pos,
+                                       window=window, shard=sh)[0]
+            grouped = run(L.NO_SHARD)
+            seen.clear()
+            expanded = run(recording)
+            check("attn_logits4" in seen and "attn_logits" not in seen,
+                  f"lm_sharding: the kv-replicated branch was not taken "
+                  f"({seen})")
+            err = float((expanded - grouped).abs().max())
+            scale = max(1.0, float(grouped.abs().max()))
+            check(err <= EXPAND_RTOL * scale,
+                  f"lm_sharding: kv-replicated vs grouped {case}: {err} > "
+                  f"{EXPAND_RTOL} x {scale}")
+            out[case] = {"max_abs_err": err, "scale": scale,
+                         "grouped_ms": cuda_time_ms(
+                             lambda: run(L.NO_SHARD), 3),
+                         "kv_replicated_ms": cuda_time_ms(
+                             lambda: run(recording), 3)}
+            del grouped, expanded
+    SHARDING["kv_replicated"] = out
+
+
+def remesh_on_card() -> None:
+    """Phase ``lm_sharding``'s check (d), run in a subprocess: a one-rank
+    NCCL group over a ``HashStore`` (no network), a (1,) CUDA
+    ``DeviceMesh`` (``make_test_mesh``), ``lm-100m``'s parameters placed
+    by ``train.remesh`` with the rules' specs, then again replicated; both
+    must hold every parameter bitwise. Prints one JSON line; the group is
+    destroyed at the end."""
+    import os
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.config import get_config
+    from repro_torch.sharding.rules import P, param_pspecs
+    from repro_torch.train import remesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_test_mesh((1,), ("data",))
+        params = {n: p.detach() for n, p in M.init_params(
+            get_config(DENSE_ARCH), LM_SEED,
+            device="cuda").named_parameters()}
+        specs = param_pspecs(params, mesh)
+        t0 = time.perf_counter()
+        placed = remesh(params, mesh, specs)
+        again = remesh(placed, mesh, {n: P() for n in params})
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        bitwise = all(torch.equal(placed[n].full_tensor(), p)
+                      and torch.equal(again[n].to_local(), p)
+                      for n, p in params.items())
+        on_card = all(placed[n].to_local().is_cuda for n in params)
+        print(json.dumps({"remesh": {
+            "mesh": [tuple(mesh.shape), mesh.mesh_dim_names,
+                     mesh.device_type],
+            "backend": dist.get_backend(), "params": len(params),
+            "bytes": sum(p.numel() * p.element_size()
+                         for p in params.values()),
+            "sharded_specs": sum(any(e is not None for e in sp)
+                                 for sp in specs.values()),
+            "bitwise": bitwise, "on_card": on_card, "seconds": secs}}),
+            flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_lm_sharding() -> dict:
+    """LM sharding and the dry run: the records (a) and (b) that the LM
+    phases gathered (``sharding_static``, ``sharding_peak``) and (c)
+    (``kv_replicated_vs_grouped``), then (d) ``remesh_on_card`` and (e)
+    ``launch/dryrun.py --arch lm-100m --shape train_4k --mesh pod`` in
+    subprocesses, with their wall times. No hand-written kernel runs."""
+    import os
+    from repro_torch.kernels import distance_tile as tdist
+    from repro_torch.kernels import knn_tile as knn_mod
+    from repro_torch.kernels import range_tile as trange
+    from repro_torch.kernels import rwkv_scan as scan
+    from repro_torch.kernels import update_tile as upd
+    t_phase = time.perf_counter()
+    counters = [scan.rwkv_scan, knn_mod.knn_tile_anchored, knn_mod.knn_tile,
+                upd.bin_disp_tile, trange.range_count, tdist.distance_tile]
+    for fn in counters:
+        fn.launches = 0
+    records = {r["tag"]: r for r in SHARDING["bytes"]}
+    check(all(t in records and "peak_ratio" in records[t]
+              for t in SHARDING_TAGS),
+          f"lm_sharding: records missing: {sorted(records)}")
+    check(SHARDING["kv_replicated"] is not None,
+          "lm_sharding: the kv-replicated branch was not checked")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, {!r}); "
+         "import chip_smoke; chip_smoke.remesh_on_card()".format(str(ROOT))],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=REMESH_TIMEOUT_S)
+    remesh_s = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    check(proc.returncode == 0 and lines,
+          f"lm_sharding: remesh on the card: {proc.returncode} "
+          f"{proc.stdout[-800:]} {proc.stderr[-2000:]}")
+    remesh = json.loads(lines[-1])["remesh"]
+    check(remesh["bitwise"] and remesh["on_card"],
+          f"lm_sharding: remesh did not round-trip bitwise: {remesh}")
+    remesh["wall_s"] = remesh_s
+
+    out_dir = ROOT / "build" / "dryrun_chip"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         DENSE_ARCH, "--shape", "train_4k", "--mesh", "pod", "--force",
+         "--out-dir", str(out_dir)], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=DRYRUN_TIMEOUT_S)
+    dry_s = time.perf_counter() - t0
+    cell_path = out_dir / f"pod__{DENSE_ARCH}__train_4k.json"
+    check(proc.returncode == 0 and cell_path.exists(),
+          f"lm_sharding: dryrun: {proc.returncode} {proc.stdout[-800:]} "
+          f"{proc.stderr[-2000:]}")
+    cell = json.loads(cell_path.read_text())
+    check(cell["status"] == "ok", f"lm_sharding: dry-run cell {cell}")
+    dryrun = {"wall_s": dry_s, "status": cell["status"],
+              "chips": cell["chips"], "meta": cell["meta"],
+              "dominant": cell["roofline"]["dominant"],
+              "flops_per_device": cell["cost_per_device"]["flops"],
+              "build_s": cell["build_s"], "count_s": cell["count_s"]}
+
+    launches = {fn.__name__: fn.launches for fn in counters}
+    check(all(v == 0 for v in launches.values()),
+          f"lm_sharding: a hand-written kernel ran: {launches}")
+    row = {"static_bytes": [{k: r[k] for k in r if k in (
+        "tag", "arch", "n_layers", "params_bytes", "opt_bytes",
+        "cache_bytes", "quantized_opt")} for r in SHARDING["bytes"]],
+        "peaks": [{k: r[k] for k in r if k in (
+            "tag", "step", "step_meta", "static_bytes", "live_before_bytes",
+            "max_allocated_bytes", "step_transient_bytes",
+            "analytic_activation_bytes", "analytic_activation_bytes_bf16",
+            "analytic_peak_bytes", "peak_ratio", "transient_ratio")}
+            for r in SHARDING["bytes"]],
+        "kv_replicated": SHARDING["kv_replicated"], "remesh": remesh,
+        "dryrun": dryrun, "kernel_launches": launches,
+        "seconds": time.perf_counter() - t_phase}
+    emit("lm_sharding", **row, nvidia_smi=smi_line())
+    return row
+
+
 # qwen1.5-110b: depth cut from 80 to 2 layers (5.21e9 parameters, 20.8 GB
 # of float32 weights; 80 layers, 1.1e11, would take 444 GB)
 QWEN_ARCH, QWEN_LAYERS = "qwen1.5-110b", 2
@@ -349,6 +631,22 @@ HYBRID_CUT_LAYERS = 11        # ... to 3 periods and the 2-layer tail
 AUDIO_FRAMES = 4              # encoder_fwd over 4 x enc_context (1500) frames
 AUDIO_PROMPT, AUDIO_NEW = 4, 64   # greedy cross decode at B = AUDIO_FRAMES
 AUDIO_TRAIN = (8, 448, 2)     # batch, seq (the decoder's cap), microbatches
+
+# LM sharding and the dry run (phase ``lm_sharding``, after
+# ``lm_hybrid_audio``): static bytes and step peaks are gathered inside the
+# LM phases that build each model, and the kv-replicated attention branch
+# in ``lm_dense``'s qwen1.5-110b section, into SHARDING
+ONE_DEVICE_MESH = {"data": 1, "model": 1}
+SHARDING_TAGS = ("rwkv6-7b serve", "lm-100m train", "minicpm3-4b serve",
+                 "recurrentgemma-2b train", "whisper-tiny train")
+EXPAND_MODEL_SIZE = 16        # the reference's model axis: qwen1.5-110b's 64
+                              # q heads divide it, its 8 kv heads do not
+EXPAND_WINDOW = 512           # the windowed case
+EXPAND_RTOL = 1e-5            # kv-replicated vs grouped attention, layer 0:
+                              # max|diff| <= EXPAND_RTOL * max(1, max|grouped|)
+REMESH_TIMEOUT_S = 240        # the one-rank NCCL remesh, in a subprocess
+DRYRUN_TIMEOUT_S = 300        # launch/dryrun.py, one cell, in a subprocess
+SHARDING = {"bytes": [], "kv_replicated": None}
 
 # FP32 operations per (b, h, t) and state cell that rwkv_scan needs at
 # least: r_i*S_ij and its add to out_j, k_i*v_j, w_i*S_ij and the add of
@@ -2492,6 +2790,8 @@ def phase_lm_serve(rwkv_report: str) -> dict:
         decode(params, cache, tok)
         torch.cuda.synchronize()
     decode_prof = device_breakdown(prof)
+    rwkv_bytes = sharding_static("rwkv6-7b serve", cfg, params=params,
+                                 cache=cache)
     del prof, cache, step_logits
 
     # the kernel row: rwkv_scan at the prefill shape (layer 0's inputs),
@@ -2545,6 +2845,8 @@ def phase_lm_serve(rwkv_report: str) -> dict:
          rwkv_scan_ptxas=layouts,
          rwkv_scan_max_abs_err=err, bytes=nbytes, ops=n_ops,
          bound_bytes_ms=bytes_ms, bound_ops_ms=ops_ms)
+    sharding_peak(rwkv_bytes, cfg, lambda: prefill(params, batch),
+                  step_shape("lm_serve_prefill", s, b, "prefill"), {})
     del params, ins0, ins_l
     torch.cuda.empty_cache()
     return dict(launches=launches, err=err, ms=kernel_ms, plain_ms=plain_ms,
@@ -3076,6 +3378,10 @@ def phase_lm_dense() -> dict:
         step(params, opt, batch)
         torch.cuda.synchronize()
     train_device = device_breakdown(prof, kernel="softmax")
+    rec = sharding_static("lm-100m train", cfg, params=params, opt=opt)
+    sharding_peak(rec, cfg, lambda: step(params, opt, batch),
+                  step_shape("lm_dense_train", s, b, "train"),
+                  {"b_micro": b // n_micro}, params=params)
     del prof, params, opt, batch
     tokens = b * s
     attn_flops = 12 * cfg.n_layers * b * s * s * cfg.n_heads * cfg.head_dim
@@ -3238,6 +3544,7 @@ def phase_lm_dense() -> dict:
     for key, (gap, ok) in gaps.items():
         check(ok, f"lm_dense: {QWEN_ARCH} {key} against the parallel "
               f"forward off by {gap} (atol = rtol = {LM_DECODE_TOL})")
+    kv_replicated_vs_grouped(params, qcfg, head["tokens"])
     launches = {fn.__name__: fn.launches for fn in counters}
     check(all(v == 0 for v in launches.values()),
           f"lm_dense: a hand-written kernel ran: {launches}")
@@ -3435,6 +3742,10 @@ def mla_serve() -> dict:
         torch.cuda.synchronize()
     decode_device = device_breakdown(prof, kernel="softmax")
     peak = torch.cuda.max_memory_allocated() / 1e9
+    rec = sharding_static("minicpm3-4b serve", cfg, params=params,
+                          cache=cache)
+    sharding_peak(rec, cfg, lambda: prefill(params, head),
+                  step_shape("mla_prefill", MLA_PREFILL, 1, "prefill"), {})
     del params, cache, step_logits, last, prof
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3473,7 +3784,8 @@ def mla_serve() -> dict:
 
 
 def cut_train(arch: str, n_layers: int, shape, *, cfg=None, opt_cfg=None,
-              phase: str = "lm_mla_vlm") -> dict:
+              phase: str = "lm_mla_vlm", sharding_tag: str | None = None
+              ) -> dict:
     """``arch`` at full width, its depth cut to ``n_layers`` (or the cut
     ``cfg`` given), float32: ``make_train_step`` with remat and
     ``opt_cfg`` (``OptConfig`` defaults) on one ``synthetic_stream`` batch
@@ -3482,7 +3794,9 @@ def cut_train(arch: str, n_layers: int, shape, *, cfg=None, opt_cfg=None,
     median after the first, tokens/s, peak memory, no blocking transfer in
     a step, and the model FLOPs' share of the float32 peak (active
     parameters: an MoE counts its top-k experts; with the expert GEMMs'
-    capacity slots also counted as run)."""
+    capacity slots also counted as run). With ``sharding_tag``, phase
+    ``lm_sharding``'s static bytes and step peak are taken on the trained
+    model (``sharding_static``, ``sharding_peak``)."""
     import torch
     from repro_torch.data.pipeline import synthetic_stream
     from repro_torch.models import layers as L
@@ -3571,6 +3885,13 @@ def cut_train(arch: str, n_layers: int, shape, *, cfg=None, opt_cfg=None,
                "model_flops_as_run": flops - routed + slots,
                "fp32_peak_share_as_run": (flops - routed + slots)
                / (step_ms / 1e3) / PEAK_FP32}
+    if sharding_tag is not None:
+        # the newest optimizer state (int8 moments are new tensors a step)
+        opt = res.pop()[1]
+        rec = sharding_static(sharding_tag, cfg, params=params, opt=opt)
+        sharding_peak(rec, cfg, lambda: step(params, opt, batch),
+                      step_shape(sharding_tag, s, b, "train"),
+                      {"b_micro": b // n_micro}, params=params)
     del params, opt, batch, res
     torch.cuda.empty_cache()
     row = {
@@ -3731,9 +4052,9 @@ def moe_inputs():
     from repro_torch.models import layers as L
     orig, seen = L.moe_fwd, []
 
-    def recorded(p, x, cfg):
+    def recorded(p, x, cfg, shard=L.NO_SHARD):
         seen.append((p, x))
-        return orig(p, x, cfg)
+        return orig(p, x, cfg, shard)
 
     L.moe_fwd = recorded
     try:
@@ -4305,7 +4626,8 @@ def hybrid_train() -> dict:
         try:
             row = cut_train(HYBRID_ARCH, n_layers, HYBRID_TRAIN,
                             opt_cfg=OptConfig(quantize_moments=True),
-                            phase="lm_hybrid_audio")
+                            phase="lm_hybrid_audio",
+                            sharding_tag=f"{HYBRID_ARCH} train")
             peak = row["peak_memory_gb"]
         except torch.cuda.OutOfMemoryError as exc:
             row, peak, why = None, float("inf"), str(exc).splitlines()[0]
@@ -4422,7 +4744,8 @@ def phase_lm_hybrid_audio() -> dict:
            "whisper_serve": audio_serve(),
            "whisper_train": cut_train(
                AUDIO_ARCH, get_config(AUDIO_ARCH).n_layers, AUDIO_TRAIN,
-               phase="lm_hybrid_audio")}
+               phase="lm_hybrid_audio",
+               sharding_tag=f"{AUDIO_ARCH} train")}
     launches = {fn.__name__: fn.launches for fn in counters}
     check(all(v == 0 for v in launches.values()),
           f"lm_hybrid_audio: a hand-written kernel ran: {launches}")
@@ -4896,6 +5219,7 @@ def main() -> int:
     phase_lm_mla_vlm()
     phase_lm_moe()
     phase_lm_hybrid_audio()
+    phase_lm_sharding()
 
     rows = [("knn_tile_anchored", dict(
         launches=m["launches"], err=max(m["err"], hp_err, any_k_err,

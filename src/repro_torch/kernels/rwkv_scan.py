@@ -14,7 +14,8 @@ the inputs in place through their strides and splits each head's columns
 over several CTAs (:func:`scan_plan`); on a CPU tensor it runs
 :func:`rwkv_scan_plain`, the reference's ``_rwkv_scan_core``
 (``src/repro/models/layers.py``) as a loop over t. There is no fallback
-from one to the other. The kernel has no backward (nor has the
+from one to the other. On the meta device it only gives the outputs'
+shapes (the dry run). The kernel has no backward (nor has the
 reference's, its inference and prefill fast path), so the wrapper refuses
 inputs that autograd would need a gradient of, on every device: training
 runs ``models.layers.rwkv_chunked_core``.
@@ -102,6 +103,14 @@ def rwkv_scan(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
             "torch.no_grad())")
     if r.device.type == "cpu":
         return rwkv_scan_plain(r, k, v, w, u, state0)
+    if r.device.type == "meta":
+        # shapes only (the dry run): neither the kernel nor the plain
+        # version runs, and no FLOPs are counted for the recurrence
+        b, s, h, hd = r.shape
+        return (torch.empty((b, s, h, hd), dtype=torch.float32,
+                            device=r.device),
+                torch.empty((b, h, hd, hd), dtype=torch.float32,
+                            device=r.device))
     if r.device.type != "cuda":
         raise ValueError(f"rwkv_scan: no kernel for {r.device}")
     b, s, h, hd = r.shape

@@ -36,6 +36,12 @@ combine. The RG-LRU block is plain tensor operations too (the reference's
 is an associative scan and einsums): its recurrence is a doubling scan
 (``_rglru_scan``) that autograd differentiates. The Whisper encoder and
 cross-attention reuse the attention, LayerNorm and GELU MLP above.
+
+Sharding: every ``*_fwd`` takes ``shard`` (:func:`NO_SHARD` by default),
+a callable that constrains named activations at the reference's points
+(``sharding.rules.make_shard_fn``: a no-op on plain tensors, a
+redistribution of a DTensor); ``_sdpa`` repeats the kv heads to H where
+``shard.model_size`` divides the q heads but not the kv heads.
 """
 from __future__ import annotations
 
@@ -50,6 +56,16 @@ from ..kernels.rwkv_scan import rwkv_scan
 
 Tensor = torch.Tensor
 Cache = dict[str, Any]
+
+
+def NO_SHARD(x: Tensor, name: str) -> Tensor:
+    """The default ``shard`` callable: no constraint. A ``shard(x, name)``
+    (``sharding.rules.make_shard_fn``) names the activation it is handed
+    (``act_resid``, ``act_heads``, ``act_ffn``, ``attn_logits``,
+    ``attn_logits4``, ``logits``, ``logits_last``, ``moe_dispatch``,
+    ``moe_ffn``) at the points where the reference constrains it, and may
+    carry ``model_size``, the model axis' size."""
+    return x
 
 
 def _dense_init(gen: torch.Generator | None, shape, scale=None,
@@ -188,23 +204,29 @@ def init_attention(gen, cfg, dtype, device=None) -> dict[str, Tensor]:
 
 def _sdpa(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
           window: int | None, q_offset: int = 0,
-          kpos: Tensor | None = None) -> Tensor:
+          kpos: Tensor | None = None, shard=NO_SHARD) -> Tensor:
     """q [B,Sq,H,D], k/v [B,Sk,Hk,D] -> [B,Sq,H,D]. GQA by head grouping:
     query head h attends with kv head h // (H / Hk). Logits in float32
     over sqrt(D), masked with -1e30, softmax in float32, probabilities
     cast to q's dtype.
 
+    When the kv-head count does not divide the model axis
+    (``shard.model_size``) but the q-head count does (kv 8 under model 16),
+    the kv heads are repeated to H (Megatron-style), so that the [B, H,
+    Sq, Sk] logits shard fully on q heads (``attn_logits4``) instead of
+    replicating across the model axis; the same function, each query head
+    with its group's kv head.
+
     ``q_offset`` positions query i at absolute position q_offset + i for
     the causal and window masks (key j at j); ``kpos`` [Sk] gives the keys'
     absolute positions instead (a ring-buffer cache), a negative entry
-    marking an unwritten slot. The reference also has a branch that
-    repeats the kv heads to H, taken only under a sharded mesh whose model
-    axis the kv heads do not divide; the port has no such mesh and ports
-    the grouped branch alone."""
+    marking an unwritten slot."""
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     dv = v.shape[-1]
     g = h // hk
+    msize = getattr(shard, "model_size", 1)
+    expand = g > 1 and hk % msize != 0 and h % msize == 0
     dev = q.device
     qpos = torch.arange(sq, device=dev)[:, None] + q_offset
     if kpos is None:
@@ -218,9 +240,20 @@ def _sdpa(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
     if window is not None:
         mask = mask & (kp > qpos - window)
 
+    if expand:
+        ke = k.repeat_interleave(g, dim=2)                # [B,Sk,H,D]
+        ve = v.repeat_interleave(g, dim=2)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                              ke.to(torch.float32))
+        logits = shard(logits, "attn_logits4") / math.sqrt(d)
+        logits = torch.where(mask, logits, logits.new_full((), _MASKED))
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        dt = torch.promote_types(probs.dtype, ve.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", probs.to(dt), ve.to(dt))
     qg = q.reshape(b, sq, hk, g, d)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32),
                           k.to(torch.float32))
+    logits = shard(logits, "attn_logits")
     logits = logits / math.sqrt(d)
     logits = torch.where(mask, logits, logits.new_full((), _MASKED))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
@@ -243,8 +276,8 @@ def _write(buf: Tensor, update: Tensor, start: int) -> Tensor:
 
 def attention_fwd(p: Mapping[str, Tensor], x: Tensor, cfg, *,
                   pos: Tensor | None, cache: Cache | None = None,
-                  causal: bool = True, window: int | None = None
-                  ) -> tuple[Tensor, Cache | None]:
+                  causal: bool = True, window: int | None = None,
+                  shard=NO_SHARD) -> tuple[Tensor, Cache | None]:
     """Returns (out [B,S,d], new_cache). ``pos`` are the tokens' positions
     for the rotary embedding: [B,S] for ``cfg.pos == "rope"``, [B,S,3]
     (temporal, height, width) for ``"mrope"``.
@@ -263,6 +296,7 @@ def attention_fwd(p: Mapping[str, Tensor], x: Tensor, cfg, *,
     v = (x @ p["wv"].reshape(d, hk * hd)).reshape(b, s, hk, hd)
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = shard(q, "act_heads")
 
     if cfg.pos == "rope":
         q = apply_rope(q, pos, cfg.rope_theta)
@@ -273,7 +307,7 @@ def attention_fwd(p: Mapping[str, Tensor], x: Tensor, cfg, *,
         k = apply_mrope(k, pos, cfg.rope_theta, sections)
 
     if cache is None:
-        out = _sdpa(q, k, v, causal=causal, window=window)
+        out = _sdpa(q, k, v, causal=causal, window=window, shard=shard)
         new_cache = None
     elif "pos" in cache:
         # ring buffer (sliding-window layers): cache memory stays O(window)
@@ -285,7 +319,7 @@ def attention_fwd(p: Mapping[str, Tensor], x: Tensor, cfg, *,
                    + length).expand(cache["pos"].shape[0], s)
         cp = _write(cache["pos"], new_pos, slot)
         out = _sdpa(q, ck, cv, causal=True, window=window, q_offset=length,
-                    kpos=cp[0])
+                    kpos=cp[0], shard=shard)
         new_cache = {"k": ck, "v": cv, "pos": cp, "length": length + s}
     else:
         length = cache["length"]
@@ -293,10 +327,11 @@ def attention_fwd(p: Mapping[str, Tensor], x: Tensor, cfg, *,
         cv = _write(cache["v"], v, length)
         # causal mask with q_offset both enforces causality and excludes
         # unwritten cache rows (kpos > length + Sq - 1)
-        out = _sdpa(q, ck, cv, causal=True, window=window, q_offset=length)
+        out = _sdpa(q, ck, cv, causal=True, window=window, q_offset=length,
+                    shard=shard)
         new_cache = {"k": ck, "v": cv, "length": length + s}
     o = out.reshape(b, s, h * hd) @ p["wo"].reshape(h * hd, d)
-    return o, new_cache
+    return shard(o, "act_resid"), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -359,12 +394,20 @@ def mla_expanded(p: Mapping[str, Any], q_nope: Tensor, q_rope: Tensor,
     the shared ``k_rope``, then causal ``_sdpa`` (q/k head dim d_nope +
     d_rope, v's d_v) with the queries at ``q_offset`` + i.
     -> [B,Sq,H,d_v]."""
+    return _mla_attend(p, torch.cat([q_nope, q_rope], -1), latent, k_rope,
+                       q_offset, m)
+
+
+def _mla_attend(p: Mapping[str, Any], q: Tensor, latent: Tensor,
+                k_rope: Tensor, q_offset: int, m, shard=NO_SHARD) -> Tensor:
+    """:func:`mla_expanded` of the whole query ``q`` [B,Sq,H,d_nope +
+    d_rope]."""
     kv_full = _einsum("bsr,rhk->bshk", latent, p["kv_b"])
     k_nope, v = kv_full[..., : m.d_nope], kv_full[..., m.d_nope:]
     k = torch.cat([k_nope, k_rope.to(k_nope.dtype).expand(
         *k_nope.shape[:3], m.d_rope)], -1)
-    q = torch.cat([q_nope, q_rope], -1)
-    return _sdpa(q, k, v, causal=True, window=None, q_offset=q_offset)
+    return _sdpa(q, k, v, causal=True, window=None, q_offset=q_offset,
+                 shard=shard)
 
 
 def _mla_absorbed_decode(p: Mapping[str, Any], q_nope: Tensor,
@@ -393,7 +436,8 @@ def _mla_absorbed_decode(p: Mapping[str, Any], q_nope: Tensor,
 
 
 def mla_fwd(p: Mapping[str, Any], x: Tensor, cfg, *, pos: Tensor,
-            cache: Cache | None = None) -> tuple[Tensor, Cache | None]:
+            cache: Cache | None = None, shard=NO_SHARD
+            ) -> tuple[Tensor, Cache | None]:
     """MLA forward: (out [B,S,d], new_cache). ``pos`` [B,S] are the
     positions the rotary parts turn by. The decode cache is
     ``{"latent" [B,S_max,kv_rank], "k_rope" [B,S_max,1,d_rope], "length":
@@ -406,6 +450,7 @@ def mla_fwd(p: Mapping[str, Any], x: Tensor, cfg, *, pos: Tensor,
     m = cfg.mla
     b, s, _ = x.shape
     q_nope, q_rope, latent, k_rope = mla_project(p, x, cfg, pos)
+    q = shard(torch.cat([q_nope, q_rope], -1), "act_heads")
     new_cache, q_offset = None, 0
     if cache is not None:
         length = cache["length"]
@@ -418,8 +463,9 @@ def mla_fwd(p: Mapping[str, Any], x: Tensor, cfg, *, pos: Tensor,
         out = _mla_absorbed_decode(p, q_nope, q_rope, latent, k_rope,
                                    length, m)
     else:
-        out = mla_expanded(p, q_nope, q_rope, latent, k_rope, q_offset, m)
-    return _einsum("bshv,hvd->bsd", out, p["wo"]), new_cache
+        out = _mla_attend(p, q, latent, k_rope, q_offset, m, shard)
+    return shard(_einsum("bshv,hvd->bsd", out, p["wo"]), "act_resid"), \
+        new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -434,8 +480,10 @@ def init_swiglu(gen, d: int, ff: int, dtype, device=None) -> dict[str, Tensor]:
     }
 
 
-def swiglu_fwd(p: Mapping[str, Tensor], x: Tensor) -> Tensor:
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+def swiglu_fwd(p: Mapping[str, Tensor], x: Tensor, shard=NO_SHARD
+               ) -> Tensor:
+    h = shard(F.silu(x @ p["w_gate"]) * (x @ p["w_up"]), "act_ffn")
+    return shard(h @ p["w_down"], "act_resid")
 
 
 def init_gelu_mlp(gen, d: int, ff: int, dtype, device=None
@@ -448,10 +496,11 @@ def init_gelu_mlp(gen, d: int, ff: int, dtype, device=None
     }
 
 
-def gelu_mlp_fwd(p: Mapping[str, Tensor], x: Tensor) -> Tensor:
+def gelu_mlp_fwd(p: Mapping[str, Tensor], x: Tensor, shard=NO_SHARD
+                 ) -> Tensor:
     """``jax.nn.gelu``'s default is the tanh approximation; so is this."""
-    h = F.gelu(x @ p["w1"] + p["b1"], approximate="tanh")
-    return h @ p["w2"] + p["b2"]
+    h = shard(F.gelu(x @ p["w1"] + p["b1"], approximate="tanh"), "act_ffn")
+    return shard(h @ p["w2"] + p["b2"], "act_resid")
 
 
 # ---------------------------------------------------------------------------
@@ -544,11 +593,12 @@ def moe_dispatch(xf: Tensor, route: MoERoute, n_experts: int) -> Tensor:
     return buf[:-1].reshape(n_experts, route.cap, d)
 
 
-def moe_experts(p: Mapping[str, Any], buf: Tensor) -> Tensor:
+def moe_experts(p: Mapping[str, Any], buf: Tensor, shard=NO_SHARD
+                ) -> Tensor:
     """Every expert's SwiGLU on its ``cap`` slots, as three batched GEMMs
     over [E, cap, d] (empty slots included, as in the reference)."""
     h = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
-    return torch.bmm(h, p["w_down"])
+    return torch.bmm(shard(h, "moe_ffn"), p["w_down"])
 
 
 def moe_combine(eo: Tensor, route: MoERoute, dtype) -> Tensor:
@@ -566,7 +616,8 @@ def moe_combine(eo: Tensor, route: MoERoute, dtype) -> Tensor:
     return contrib.reshape(t, k, d).sum(dim=1).to(dtype)
 
 
-def moe_fwd(p: Mapping[str, Any], x: Tensor, cfg) -> Tensor:
+def moe_fwd(p: Mapping[str, Any], x: Tensor, cfg, shard=NO_SHARD
+            ) -> Tensor:
     """Top-k MoE with *sorted* capacity dispatch: x [B, S, d] -> [B, S, d].
 
     Tokens are sorted by routed expert before the expert GEMMs, the
@@ -578,11 +629,12 @@ def moe_fwd(p: Mapping[str, Any], x: Tensor, cfg) -> Tensor:
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     route = moe_route(p, xf, cfg)
-    eo = moe_experts(p, moe_dispatch(xf, route, mo.n_experts))
+    buf = shard(moe_dispatch(xf, route, mo.n_experts), "moe_dispatch")
+    eo = moe_experts(p, buf, shard)
     out = moe_combine(eo, route, x.dtype)
     if "shared" in p:
-        out = out + swiglu_fwd(p["shared"], xf)
-    return out.reshape(b, s, d)
+        out = out + swiglu_fwd(p["shared"], xf[None], shard)[0]
+    return shard(out.reshape(b, s, d), "act_resid")
 
 
 def moe_fwd_plain(p: Mapping[str, Any], x: Tensor, cfg) -> Tensor:
@@ -688,7 +740,7 @@ def _rglru_scan(xt: Tensor, a_t: Tensor, h0: Tensor) -> tuple[Tensor, Tensor]:
 
 
 def rglru_block_fwd(p: Mapping[str, Tensor], x: Tensor, cfg, *,
-                    cache: Cache | None = None
+                    cache: Cache | None = None, shard=NO_SHARD
                     ) -> tuple[Tensor, Cache | None]:
     """Griffin recurrent block: (conv1d -> RG-LRU) branch gated by a GELU
     (tanh) branch. ``cache`` = ``{"h" [B, D] float32, "conv" [B, 3, D]}``
@@ -721,11 +773,11 @@ def rglru_block_fwd(p: Mapping[str, Tensor], x: Tensor, cfg, *,
     h0 = (cf.new_zeros((b, xb.shape[-1])) if cache is None
           else cache["h"].to(torch.float32))
     h, h_last = _rglru_scan(gated_x, a_t, h0)
-    h = h.to(x.dtype)
+    h = shard(h.to(x.dtype), "act_ffn")
 
     out = (h * yb) @ p["w_out"]
     new_cache = None if cache is None else {"h": h_last, "conv": new_conv}
-    return out, new_cache
+    return shard(out, "act_resid"), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -836,7 +888,7 @@ def _needs_grad(*ts: Tensor) -> bool:
 
 
 def rwkv6_timemix_fwd(p: Mapping[str, Any], x: Tensor, cfg, *,
-                      cache: Cache | None = None
+                      cache: Cache | None = None, shard=NO_SHARD
                       ) -> tuple[Tensor, Cache | None]:
     """RWKV-6 time mix. State S [B, H, hd, hd]; recurrence
     S_t = diag(w_t) S_{t-1} + k_t^T v_t ; out_t = r_t (S_{t-1} + u k_t^T v_t).
@@ -886,7 +938,7 @@ def rwkv6_timemix_fwd(p: Mapping[str, Any], x: Tensor, cfg, *,
     new_cache = None
     if cache is not None:
         new_cache = {"x_prev": x[:, -1, :].clone(), "state": state_last}
-    return out, new_cache
+    return shard(out, "act_resid"), new_cache
 
 
 def init_rwkv6_channelmix(gen, cfg, dtype, device=None) -> dict[str, Tensor]:
@@ -902,16 +954,16 @@ def init_rwkv6_channelmix(gen, cfg, dtype, device=None) -> dict[str, Tensor]:
 
 
 def rwkv6_channelmix_fwd(p: Mapping[str, Any], x: Tensor, cfg, *,
-                         cache: Cache | None = None
+                         cache: Cache | None = None, shard=NO_SHARD
                          ) -> tuple[Tensor, Cache | None]:
     diff = _token_shift(x, cache)
     xk = x + diff * p["maa_k"].to(x.dtype)
     xr = x + diff * p["maa_r"].to(x.dtype)
-    h = torch.square(F.relu(xk @ p["wk"]))
+    h = shard(torch.square(F.relu(xk @ p["wk"])), "act_ffn")
     kv = h @ p["wv"]
     rr = torch.sigmoid(xr @ p["wr"])
     new_cache = None if cache is None else {"x_prev": x[:, -1, :].clone()}
-    return rr * kv, new_cache
+    return shard(rr * kv, "act_resid"), new_cache
 
 
 class _Params(nn.Module):

@@ -36,6 +36,12 @@ decode pieces. The reference's ``forward_logits``, ``decode_step`` and
 serving steps run such a model's decoder self-attention alone (no
 ``dec_pos``, no cross-attention, no encoder); the port raises
 ``ValueError`` there instead (:func:`_decoder_only`).
+
+Every forward, step and layer takes ``shard`` (``NO_SHARD`` by default;
+``sharding.rules.make_shard_fn``), handed down to the layers as in the
+reference: the embedding output (``act_resid``) in ``train_forward`` and
+``decode_step``, each chunk's logits (``logits``) in
+``chunked_ce_loss``, the decode step's logits.
 """
 from __future__ import annotations
 
@@ -53,6 +59,7 @@ from .config import ArchConfig
 
 Tensor = torch.Tensor
 Cache = list[dict[str, Any]]
+NO_SHARD = L.NO_SHARD
 ATTN_KINDS = ("attn", "attn_dense", "local_attn")
 _ENC_DEC = ("{} of {}: an encoder-decoder model is served by its pieces, "
             "not by {}: encoder_fwd over the encoder input, the cross keys "
@@ -93,12 +100,12 @@ def _layer_uses_moe(cfg: ArchConfig, kind: str) -> bool:
     return cfg.moe is not None and kind == "attn"
 
 
-def _ffn_fwd(p, x: Tensor, cfg: ArchConfig) -> Tensor:
+def _ffn_fwd(p, x: Tensor, cfg: ArchConfig, shard=NO_SHARD) -> Tensor:
     if "router" in p:
-        return L.moe_fwd(p, x, cfg)
+        return L.moe_fwd(p, x, cfg, shard)
     if "w1" in p:
-        return L.gelu_mlp_fwd(p, x)
-    return L.swiglu_fwd(p, x)
+        return L.gelu_mlp_fwd(p, x, shard)
+    return L.swiglu_fwd(p, x, shard)
 
 
 class Block(nn.Module):
@@ -147,37 +154,40 @@ class Block(nn.Module):
 
 
 def apply_layer(p: Block, x: Tensor, cfg: ArchConfig, kind: str, *,
-                pos: Tensor | None = None, cache=None
+                pos: Tensor | None = None, cache=None, shard=NO_SHARD
                 ) -> tuple[Tensor, dict | None]:
     """One layer; ``pos`` are the positions an attention layer rotates by,
-    [B, S] (or [B, S, 3] for M-RoPE; the recurrent kinds take none)."""
+    [B, S] (or [B, S, 3] for M-RoPE; the recurrent kinds take none);
+    ``shard`` constrains activations (``layers.NO_SHARD``)."""
     if kind in ATTN_KINDS:
         h = _norm(x, p.ln1, cfg.norm_eps)
         window = cfg.local_window if kind == "local_attn" else None
         if cfg.mla is not None:
-            a, new_cache = L.mla_fwd(p.mixer, h, cfg, pos=pos, cache=cache)
+            a, new_cache = L.mla_fwd(p.mixer, h, cfg, pos=pos, cache=cache,
+                                     shard=shard)
         else:
             a, new_cache = L.attention_fwd(p.mixer, h, cfg, pos=pos,
                                            cache=cache, causal=True,
-                                           window=window)
+                                           window=window, shard=shard)
         x = x + a
         h = _norm(x, p.ln2, cfg.norm_eps)
-        return x + _ffn_fwd(p.ffn, h, cfg), new_cache
+        return x + _ffn_fwd(p.ffn, h, cfg, shard), new_cache
     if kind == "rglru":
         h = L.rmsnorm(x, p.ln1, cfg.norm_eps)
-        a, new_cache = L.rglru_block_fwd(p.mixer, h, cfg, cache=cache)
+        a, new_cache = L.rglru_block_fwd(p.mixer, h, cfg, cache=cache,
+                                         shard=shard)
         x = x + a
         h = L.rmsnorm(x, p.ln2, cfg.norm_eps)
-        return x + L.swiglu_fwd(p.ffn, h), new_cache
+        return x + L.swiglu_fwd(p.ffn, h, shard), new_cache
     if kind != "rwkv":
         raise ValueError(f"unknown layer kind {kind}")
     h = L.layernorm(x, p.ln1, cfg.norm_eps)
     a, c1 = L.rwkv6_timemix_fwd(p.mixer, h, cfg, cache=(
-        cache["tm"] if cache is not None else None))
+        cache["tm"] if cache is not None else None), shard=shard)
     x = x + a
     h = L.layernorm(x, p.ln2, cfg.norm_eps)
     f, c2 = L.rwkv6_channelmix_fwd(p.ffn, h, cfg, cache=(
-        cache["cm"] if cache is not None else None))
+        cache["cm"] if cache is not None else None), shard=shard)
     new_cache = None if cache is None else {"tm": c1, "cm": c2}
     return x + f, new_cache
 
@@ -370,7 +380,8 @@ def positions(cfg: ArchConfig, b: int, s: int, device,
 
 
 def _run_layers(params: LM, x: Tensor, cfg: ArchConfig, *,
-                pos: Tensor | None = None, remat: bool = False) -> Tensor:
+                pos: Tensor | None = None, shard=NO_SHARD,
+                remat: bool = False) -> Tensor:
     """The blocks in order, attention layers rotating by ``pos``. With
     ``remat`` (and autograd recording), each layer of the scanned periods
     keeps only its input for the backward pass and runs again there, as
@@ -381,16 +392,16 @@ def _run_layers(params: LM, x: Tensor, cfg: ArchConfig, *,
     for i, (blk, kind) in enumerate(zip(params.blocks, cfg.layer_kinds)):
         if remat and i in scanned:
             # the forward draws no random numbers: no RNG state to replay
-            x = checkpoint(_layer_out, blk, x, cfg, kind, pos,
+            x = checkpoint(_layer_out, blk, x, cfg, kind, pos, shard,
                            use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _layer_out(blk, x, cfg, kind, pos)
+            x = _layer_out(blk, x, cfg, kind, pos, shard)
     return x
 
 
 def _layer_out(blk: Block, x: Tensor, cfg: ArchConfig, kind: str,
-               pos: Tensor | None) -> Tensor:
-    return apply_layer(blk, x, cfg, kind, pos=pos)[0]
+               pos: Tensor | None, shard=NO_SHARD) -> Tensor:
+    return apply_layer(blk, x, cfg, kind, pos=pos, shard=shard)[0]
 
 
 def _logits(x: Tensor, unembed: Tensor) -> Tensor:
@@ -399,7 +410,8 @@ def _logits(x: Tensor, unembed: Tensor) -> Tensor:
     return torch.matmul(x.to(torch.float32), unembed.to(torch.float32))
 
 
-def forward_logits(params: LM, tokens: Tensor, cfg: ArchConfig) -> Tensor:
+def forward_logits(params: LM, tokens: Tensor, cfg: ArchConfig, *,
+                   shard=NO_SHARD) -> Tensor:
     """Full-sequence logits [B, S, V] float32 of ``tokens`` [B, S], at
     positions 0 .. S-1 (ValueError on an M-RoPE model, which needs
     ``pos3``: :func:`positions`; and on an encoder-decoder model:
@@ -407,13 +419,15 @@ def forward_logits(params: LM, tokens: Tensor, cfg: ArchConfig) -> Tensor:
     _decoder_only(cfg, "forward_logits")
     b, s = tokens.shape
     x = params.embed[tokens]
-    x = _run_layers(params, x, cfg, pos=positions(cfg, b, s, tokens.device))
+    x = _run_layers(params, x, cfg, pos=positions(cfg, b, s, tokens.device),
+                    shard=shard)
     x = _norm(x, params.final_norm, cfg.norm_eps)
     return _logits(x, params.unembedding())
 
 
 def chunked_ce_loss(x: Tensor, unembed: Tensor, labels: Tensor,
-                    mask: Tensor, *, chunk: int = 512) -> Tensor:
+                    mask: Tensor, *, chunk: int = 512,
+                    shard=NO_SHARD) -> Tensor:
     """Mean next-token cross-entropy of ``x`` [B, S, d] over ``mask``,
     without the whole [B, S, V] logits at once: the sequence runs in
     ``max(1, S // chunk)`` chunks (S must divide into them, as in the
@@ -426,7 +440,7 @@ def chunked_ce_loss(x: Tensor, unembed: Tensor, labels: Tensor,
     mc = mask.reshape(b, n_chunk, s // n_chunk)
     nlls, cnts = [], []
     for i in range(n_chunk):
-        logits = _logits(xc[:, i], unembed)
+        logits = shard(_logits(xc[:, i], unembed), "logits")
         lse = torch.logsumexp(logits, dim=-1)
         safe = torch.clamp(lc[:, i], min=0).to(torch.int64)
         gold = torch.gather(logits, -1, safe[..., None])[..., 0]
@@ -438,7 +452,7 @@ def chunked_ce_loss(x: Tensor, unembed: Tensor, labels: Tensor,
 
 
 def train_forward(params: LM, batch: dict[str, Tensor], cfg: ArchConfig,
-                  *, remat: bool = True) -> Tensor:
+                  *, shard=NO_SHARD, remat: bool = True) -> Tensor:
     """Training loss of one (micro)batch: ``tokens``, ``labels`` and
     ``mask`` [B, S] -> the mean next-token cross-entropy, a 0-d float32
     tensor on the batch's device. Attention layers rotate by positions
@@ -458,16 +472,17 @@ def train_forward(params: LM, batch: dict[str, Tensor], cfg: ArchConfig,
     pass."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = F.embedding(tokens, params.embed)
+    x = shard(F.embedding(tokens, params.embed), "act_resid")
     if cfg.enc_dec:
-        memory = encoder_fwd(params, batch["enc_input"], cfg, remat=remat)
+        memory = encoder_fwd(params, batch["enc_input"], cfg, shard,
+                             remat=remat)
         x = x + params.dec_pos[None, :s]
         x, _ = _dec_layers_with_cross(
             params, x, memory, cfg, pos=positions(cfg, b, s, tokens.device),
-            remat=remat)
+            shard=shard, remat=remat)
         x = L.layernorm(x, params.final_norm, cfg.norm_eps)
         return chunked_ce_loss(x, params.unembedding(), batch["labels"],
-                               batch["mask"])
+                               batch["mask"], shard=shard)
     if cfg.frontend == "vision_stub":
         nv = cfg.n_vision_tokens
         if nv:
@@ -478,17 +493,19 @@ def train_forward(params: LM, batch: dict[str, Tensor], cfg: ArchConfig,
         pos = batch["pos3"]
     else:
         pos = positions(cfg, b, s, tokens.device)
-    x = _run_layers(params, x, cfg, pos=pos, remat=remat)
+    x = _run_layers(params, x, cfg, pos=pos, shard=shard, remat=remat)
     x = _norm(x, params.final_norm, cfg.norm_eps)
     unembed = params.unembedding()
-    loss = chunked_ce_loss(x, unembed, batch["labels"], batch["mask"])
+    loss = chunked_ce_loss(x, unembed, batch["labels"], batch["mask"],
+                           shard=shard)
     if cfg.mtp:
-        loss = loss + 0.1 * _mtp_loss(params, x, batch, cfg, pos, unembed)
+        loss = loss + 0.1 * _mtp_loss(params, x, batch, cfg, pos, unembed,
+                                      shard)
     return loss
 
 
 def encoder_fwd(params: LM, enc_in: Tensor, cfg: ArchConfig,
-                remat: bool = False) -> Tensor:
+                shard=NO_SHARD, remat: bool = False) -> Tensor:
     """Whisper encoder: precomputed conv-stub embeddings ``enc_in`` [B,
     S_enc, d] -> memory [B, S_enc, d]. ``enc.pos[:S_enc]`` is added, then
     each layer: LayerNorm, non-causal self-attention (unrotated),
@@ -500,20 +517,22 @@ def encoder_fwd(params: LM, enc_in: Tensor, cfg: ArchConfig,
     remat = remat and torch.is_grad_enabled()
     for lp in e.layers:
         if remat:
-            x = checkpoint(_enc_layer, lp, x, cfg, use_reentrant=False,
-                           preserve_rng_state=False)
+            x = checkpoint(_enc_layer, lp, x, cfg, shard,
+                           use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _enc_layer(lp, x, cfg)
+            x = _enc_layer(lp, x, cfg, shard)
     return L.layernorm(x, e.ln_post, cfg.norm_eps)
 
 
-def _enc_layer(lp: EncoderLayer, x: Tensor, cfg: ArchConfig) -> Tensor:
+def _enc_layer(lp: EncoderLayer, x: Tensor, cfg: ArchConfig,
+               shard=NO_SHARD) -> Tensor:
     h = L.layernorm(x, lp.ln1, cfg.norm_eps)
     # learned positions: the attention rotates by none
-    a, _ = L.attention_fwd(lp.attn, h, cfg, pos=None, causal=False)
+    a, _ = L.attention_fwd(lp.attn, h, cfg, pos=None, causal=False,
+                           shard=shard)
     x = x + a
     h = L.layernorm(x, lp.ln2, cfg.norm_eps)
-    return x + L.gelu_mlp_fwd(lp.mlp, h)
+    return x + L.gelu_mlp_fwd(lp.mlp, h, shard)
 
 
 def _cross_kv(attn: L.Attention, memory: Tensor, cfg: ArchConfig
@@ -531,7 +550,8 @@ def _dec_layers_with_cross(params: LM, x: Tensor, memory: Tensor | None,
                            cfg: ArchConfig, *, pos: Tensor | None,
                            self_caches: Cache | None = None,
                            cross_kv: list | None = None,
-                           remat: bool = False) -> tuple[Tensor, list]:
+                           shard=NO_SHARD, remat: bool = False
+                           ) -> tuple[Tensor, list]:
     """Whisper decoder: per layer self-attention (causal, from
     ``self_caches[i]`` if given), cross-attention and MLP; returns (x,
     the new self-attention caches, None each without caches). The block
@@ -549,35 +569,36 @@ def _dec_layers_with_cross(params: LM, x: Tensor, memory: Tensor | None,
         ckv = None if cross_kv is None else cross_kv[li]
         if remat:
             x, nc = checkpoint(_dec_layer, blk, cp, x, memory, cfg, pos,
-                               cache_i, ckv, use_reentrant=False,
+                               cache_i, ckv, shard, use_reentrant=False,
                                preserve_rng_state=False)
         else:
-            x, nc = _dec_layer(blk, cp, x, memory, cfg, pos, cache_i, ckv)
+            x, nc = _dec_layer(blk, cp, x, memory, cfg, pos, cache_i, ckv,
+                               shard)
         new_self.append(nc)
     return x, new_self
 
 
 def _dec_layer(blk: Block, cp: CrossAttention, x: Tensor,
                memory: Tensor | None, cfg: ArchConfig, pos: Tensor | None,
-               cache, ckv) -> tuple[Tensor, dict | None]:
+               cache, ckv, shard=NO_SHARD) -> tuple[Tensor, dict | None]:
     h = _norm(x, blk.ln1, cfg.norm_eps)
     a, nc = L.attention_fwd(blk.mixer, h, cfg, pos=pos, cache=cache,
-                            causal=True)
+                            causal=True, shard=shard)
     x = x + a
     h = L.rmsnorm(x, cp.ln, cfg.norm_eps)
     b, s, d = h.shape
     hq, hd = cfg.n_heads, cfg.head_dim
     q = (h @ cp.attn.wq.reshape(d, hq * hd)).reshape(b, s, hq, hd)
     ck, cv = ckv if ckv is not None else _cross_kv(cp.attn, memory, cfg)
-    o = L._sdpa(q, ck, cv, causal=False, window=None)
+    o = L._sdpa(q, ck, cv, causal=False, window=None, shard=shard)
     x = x + o.reshape(b, s, hq * hd) @ cp.attn.wo.reshape(hq * hd, d)
     h = _norm(x, blk.ln2, cfg.norm_eps)
-    return x + _ffn_fwd(blk.ffn, h, cfg), nc
+    return x + _ffn_fwd(blk.ffn, h, cfg, shard), nc
 
 
 def _mtp_loss(params: LM, x: Tensor, batch: dict[str, Tensor],
-              cfg: ArchConfig, pos: Tensor | None, unembed: Tensor
-              ) -> Tensor:
+              cfg: ArchConfig, pos: Tensor | None, unembed: Tensor,
+              shard=NO_SHARD) -> Tensor:
     """DeepSeek-V3's multi-token prediction: from the final-normed ``x``
     [B, S, d] concatenated with the embedding of token t+1 (zero at the
     last position), ``mtp.proj``, the ``attn_dense`` block at the same
@@ -588,13 +609,14 @@ def _mtp_loss(params: LM, x: Tensor, batch: dict[str, Tensor],
     emb_next = torch.cat([F.embedding(tokens[:, 1:], params.embed),
                           x.new_zeros((x.shape[0], 1, x.shape[2]))], dim=1)
     h = torch.cat([x, emb_next.to(x.dtype)], dim=-1) @ params.mtp.proj
-    h, _ = apply_layer(params.mtp.block, h, cfg, "attn_dense", pos=pos)
+    h, _ = apply_layer(params.mtp.block, h, cfg, "attn_dense", pos=pos,
+                       shard=shard)
     h = L.rmsnorm(h, params.mtp.norm, cfg.norm_eps)
     labels2 = torch.cat([labels[:, 1:], labels.new_zeros(
         (labels.shape[0], 1))], dim=1)
     mask2 = torch.cat([mask[:, 1:], mask.new_zeros((mask.shape[0], 1))],
                       dim=1)
-    return chunked_ce_loss(h, unembed, labels2, mask2)
+    return chunked_ce_loss(h, unembed, labels2, mask2, shard=shard)
 
 
 # ---------------------------------------------------------------------------
@@ -674,7 +696,8 @@ def _cache_length(cache: Cache, cfg: ArchConfig) -> int:
 
 
 def decode_step(params: LM, cache: Cache, tokens: Tensor, cfg: ArchConfig,
-                *, pos: Tensor | None = None) -> tuple[Tensor, Cache]:
+                *, pos: Tensor | None = None, shard=NO_SHARD
+                ) -> tuple[Tensor, Cache]:
     """Tokens [B, S] (one token, or a whole prompt for a cache-writing
     prefill) -> (logits [B, S, V] float32, new cache). ``pos`` are the
     tokens' positions for the rotary embedding, [B, S] (or [B, S, 3] for an
@@ -696,13 +719,13 @@ def decode_step(params: LM, cache: Cache, tokens: Tensor, cfg: ArchConfig,
                 "cache length, as the reference does")
         pos = positions(cfg, b, s, tokens.device,
                         offset=_cache_length(cache, cfg))
-    x = params.embed[tokens]
+    x = shard(params.embed[tokens], "act_resid")
     new_cache = []
     for blk, kind, c in zip(params.blocks, cfg.layer_kinds, cache):
-        x, nc = apply_layer(blk, x, cfg, kind, pos=pos, cache=c)
+        x, nc = apply_layer(blk, x, cfg, kind, pos=pos, cache=c, shard=shard)
         new_cache.append(nc)
     x = _norm(x, params.final_norm, cfg.norm_eps)
-    return _logits(x, params.unembedding()), new_cache
+    return shard(_logits(x, params.unembedding()), "logits"), new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -5,9 +5,8 @@
     saved cursor (a deterministic stream gives exactly-once semantics).
   * ``StragglerMonitor``: an EMA of step durations that flags a step far
     past it (pure Python); the serve pump also uses it to flag drains.
-
-``remesh`` (elastic re-sharding onto a new mesh) waits for the port of
-``sharding/`` (ROADMAP queue 1 item 2.3).
+  * ``remesh``: elastic re-sharding of a tree of tensors onto a new
+    ``DeviceMesh`` (DTensors placed by ``sharding.rules`` specs).
 """
 from __future__ import annotations
 
@@ -104,3 +103,31 @@ class ResilientLoop:
                 self.ckpt.save(step, params, opt_state,
                                extra={"cursor": step})
         return params, opt_state, metrics_log
+
+
+def remesh(tree: Any, mesh, specs: Any) -> Any:
+    """Elastic re-shard: place a tree (dicts and lists) of tensors, plain
+    or DTensors on any mesh, onto the ``DeviceMesh`` ``mesh`` with
+    ``specs`` (the same tree of ``sharding.rules.P``). Each tensor is
+    fetched whole to the host first (a DTensor's ``full_tensor()``, a
+    collective on its own mesh), then ``distribute_tensor``-ed, so the
+    mesh shape may change. Every rank calls it alike, as in any SPMD
+    program; a rank outside ``mesh`` gets an empty local shard."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from ..sharding.rules import placements
+
+    def place(x, spec):
+        full = x.full_tensor() if isinstance(x, DTensor) else x
+        host = full.detach().cpu()
+        return distribute_tensor(host.to(mesh.device_type), mesh,
+                                 placements(spec, mesh))
+
+    def walk(node, spec):
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k]) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, s) for v, s in zip(node, spec))
+        return place(node, spec)
+
+    return walk(tree, specs)

@@ -133,6 +133,28 @@ def init_opt_state(params: Mapping[str, Tensor] | torch.nn.Module,
             "v": {n: zeros_like_moment(p) for n, p in params.items()}}
 
 
+def opt_state_specs(params: Mapping[str, Tensor] | torch.nn.Module,
+                    cfg: OptConfig) -> dict[str, Any]:
+    """The optimizer state of ``params`` built on the meta device: its
+    names, shapes and dtypes, nothing allocated (the reference's
+    ``eval_shape`` of ``init_opt_state``, for the dry run). A quantized
+    moment takes :func:`_blocks`' layout; no quantization runs."""
+    def moment(p):
+        z = torch.empty(p.shape, dtype=torch.float32, device="meta")
+        if not cfg.quantize_moments:
+            return z
+        blocks = _blocks(z)
+        return {"code": torch.empty(_code_shape(blocks), dtype=torch.int8,
+                                    device="meta"),
+                "scale": torch.empty(blocks.shape[:-1],
+                                     dtype=torch.float32, device="meta")}
+
+    params = _named(params)
+    return {"step": torch.zeros((), dtype=torch.int32, device="meta"),
+            "m": {n: moment(p) for n, p in params.items()},
+            "v": {n: moment(p) for n, p in params.items()}}
+
+
 def _named(params) -> dict[str, Tensor]:
     if isinstance(params, torch.nn.Module):
         return dict(params.named_parameters())

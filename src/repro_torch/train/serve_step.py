@@ -20,7 +20,7 @@ from ..models.config import ArchConfig
 Tensor = torch.Tensor
 
 
-def make_prefill_step(cfg: ArchConfig) -> Callable:
+def make_prefill_step(cfg: ArchConfig, *, shard=M.NO_SHARD) -> Callable:
     """Forward over the full prompt producing last-position logits [B, V]
     float32, attention layers rotating by positions 0 .. S-1, or, for an
     M-RoPE model, by the batch's ``pos3`` [B, S, 3]. With the vision stub
@@ -36,7 +36,7 @@ def make_prefill_step(cfg: ArchConfig) -> Callable:
     def prefill(params: M.LM, batch: dict[str, Tensor]) -> Tensor:
         tokens = batch["tokens"]
         b, s = tokens.shape
-        x = params.embed[tokens]
+        x = shard(params.embed[tokens], "act_resid")
         if cfg.pos == "mrope":
             pos = batch["pos3"]
         else:
@@ -45,14 +45,14 @@ def make_prefill_step(cfg: ArchConfig) -> Callable:
             nv = min(cfg.n_vision_tokens, s)
             x = torch.cat([batch["vision_embeds"].to(x.dtype), x[:, nv:]],
                           dim=1)
-        x = M._run_layers(params, x, cfg, pos=pos)
+        x = M._run_layers(params, x, cfg, pos=pos, shard=shard)
         x = M._norm(x[:, -1], params.final_norm, cfg.norm_eps)
-        return M._logits(x, params.unembedding())
+        return shard(M._logits(x, params.unembedding()), "logits_last")
 
     return prefill
 
 
-def make_decode_step(cfg: ArchConfig) -> Callable:
+def make_decode_step(cfg: ArchConfig, *, shard=M.NO_SHARD) -> Callable:
     """Returns ``decode(params, cache, tokens, pos=None)``: ``decode_step``
     without autograd; ``pos`` [B, S, 3] for an M-RoPE model (the
     reference's ``pos3``)."""
@@ -60,7 +60,8 @@ def make_decode_step(cfg: ArchConfig) -> Callable:
     @torch.no_grad()
     def decode(params: M.LM, cache: M.Cache, tokens: Tensor,
                pos: Tensor | None = None):
-        return M.decode_step(params, cache, tokens, cfg, pos=pos)
+        return M.decode_step(params, cache, tokens, cfg, pos=pos,
+                             shard=shard)
     return decode
 
 

@@ -12,14 +12,14 @@ from typing import Callable
 import torch
 
 from ..models.config import ArchConfig
-from ..models.model import LM, scanned_params, train_forward
+from ..models.model import LM, NO_SHARD, scanned_params, train_forward
 from .optimizer import OptConfig, apply_updates
 
 Tensor = torch.Tensor
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,
-                    remat: bool = True) -> Callable:
+                    shard=NO_SHARD, remat: bool = True) -> Callable:
     """Returns ``train_step(params, opt_state, batch)`` -> ``(params,
     opt_state, metrics)``.
 
@@ -47,7 +47,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,
         loss = None
         for i in range(n_micro):
             micro = {k: v[i] for k, v in batch.items()}
-            li = train_forward(params, micro, cfg, remat=remat)
+            li = train_forward(params, micro, cfg, shard=shard, remat=remat)
             li.backward()
             loss = li.detach() if loss is None else loss + li.detach()
         if n_micro > 1:
@@ -63,13 +63,13 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,
     return train_step
 
 
-def make_eval_step(cfg: ArchConfig) -> Callable:
+def make_eval_step(cfg: ArchConfig, *, shard=NO_SHARD) -> Callable:
     """Returns ``eval_step(params, batch)``: the first microbatch's loss,
     without autograd (so the recurrence runs ``rwkv_scan``)."""
 
     @torch.no_grad()
     def eval_step(params: LM, batch: dict[str, Tensor]) -> Tensor:
         micro = {k: v[0] for k, v in batch.items()}
-        return train_forward(params, micro, cfg, remat=False)
+        return train_forward(params, micro, cfg, shard=shard, remat=False)
 
     return eval_step

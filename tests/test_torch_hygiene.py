@@ -48,7 +48,10 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.configs.grok_1_314b",
             "repro_torch.configs.deepseek_v3_671b",
             "repro_torch.configs.recurrentgemma_2b",
-            "repro_torch.configs.whisper_tiny"} <= set(names)
+            "repro_torch.configs.whisper_tiny",
+            "repro_torch.sharding", "repro_torch.sharding.rules",
+            "repro_torch.launch.dryrun", "repro_torch.launch.hlo_analysis"
+            } <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"

@@ -169,9 +169,21 @@ def test_kernel_order_model_matches_plain(hd):
         assert float((g - wnt).abs().max()) <= tol
 
 
-def test_wrapper_refuses_other_devices():
+def test_wrapper_refuses_other_devices(monkeypatch):
+    """On the meta device (the dry run) the wrapper gives the outputs'
+    shapes and runs neither the kernel nor the plain version; inputs that
+    need a gradient are refused there too."""
+    def refuse(*_a, **_k):
+        raise AssertionError("ran on meta")
+    monkeypatch.setattr(trwkv, "rwkv_scan_plain", refuse)
+    monkeypatch.setattr(trwkv, "_library", refuse)
     ins = [torch.from_numpy(a).to("meta") for a in _inputs(1, 2, 2, 8)]
-    with pytest.raises(ValueError, match="no kernel for meta"):
+    out, state = trwkv.rwkv_scan(*ins)
+    assert out.device.type == state.device.type == "meta"
+    assert out.shape == (1, 2, 2, 8) and state.shape == (1, 2, 8, 8)
+    assert out.dtype == state.dtype == torch.float32
+    ins[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
         trwkv.rwkv_scan(*ins)
 
 
