@@ -153,9 +153,25 @@ and checks each against the brute-force oracle or against itself:
   2048, causal and windowed) against the grouped branch within 1e-5 of
   scale; ``train.remesh`` of ``lm-100m``'s parameters onto a (1,) CUDA
   ``DeviceMesh`` of a one-rank NCCL group (a ``HashStore``) and back,
-  bitwise, in a subprocess; and ``launch/dryrun.py --arch lm-100m --shape
-  train_4k --mesh pod`` in a subprocess. No hand-written kernel runs
-  there;
+  bitwise, in a subprocess; the train step on DTensors on a (1, 1) CUDA
+  mesh of a one-rank NCCL group (the smoke ``grok-1-314b``, the
+  reference's sharded case, and the full-width ``lm-100m``) against the
+  same step on plain tensors (losses, the first step's gradients and
+  parameters), both timed, in a subprocess; and ``launch/dryrun.py
+  --arch lm-100m --shape train_4k --mesh pod`` in a subprocess, its
+  collectives counted. No hand-written kernel runs there;
+- the reference's three examples (phase ``sph``, after ``sharded``),
+  imported from ``examples/`` and driven through their own functions:
+  ``sph_fluid_torch.py``'s session at 8,000 and 1,000,000 particles (a
+  warm-up step, 20 steps timed by CUDA events with fast, replan and
+  respec steps apart and the step split into search and physics, each
+  step's blocking transfers (one, two on a respec) and launches (one of
+  each kernel) counted, three steps held against the oracle on 512 rows
+  and against the same physics on the CPU, the profiler's launches a
+  step, and the ``--rebuild`` A/B with its counts equal to the
+  session's); ``pointcloud_pipeline_torch.py`` at 60,000 points (search
+  and normals times, the sample's oracle match, the vertical share); and
+  ``quickstart_torch.py`` once, its asserts holding;
 - the neighbor-query service (phase ``serve``, run before ``lm_serve``):
   ``repro_torch.serve`` on three 1M-point KITTI-like scenes, knn and
   range, 256 requests of 1,024-16,384 rows on a simulated 2,000
@@ -479,6 +495,139 @@ def remesh_on_card() -> None:
         dist.destroy_process_group()
 
 
+def first_step_vs_plain(model, plain, whole) -> dict:
+    """A DTensor step's gradients and parameters against the plain step's
+    from the same weights, as ``tests/test_torch_sharded_train.py`` holds
+    them: gradients within ``DTENSOR_RTOL`` of scale; parameters within
+    it wherever the plain gradient is at least ``WELL_CONDITIONED`` of
+    its parameter's largest (Adam's first step divides a gradient by its
+    own magnitude, so a near-zero one moves its element by up to ``lr``
+    on its last bits), and every element within 2 ``lr``."""
+    grad, cond, worst = 0.0, 0.0, 0.0
+    for p, q in zip(model.parameters(), plain.parameters()):
+        if q.grad is None:
+            continue
+        g = q.grad
+        grad = max(grad, float((whole(p.grad) - g).abs().max())
+                   / max(1.0, float(g.abs().max())))
+        diff = (whole(p) - q.detach()).abs()
+        big = g.abs() >= WELL_CONDITIONED * g.abs().max()
+        if big.any():
+            cond = max(cond, float(diff[big].max())
+                       / max(1.0, float(q.detach().abs().max())))
+        worst = max(worst, float(diff.max()))
+    return {"grad_rel_err": grad, "param_cond_rel_err": cond,
+            "param_max_abs_err": worst}
+
+
+def dtensor_steps_on_card() -> None:
+    """Phase ``lm_sharding``'s check (f), run in a subprocess: a one-rank
+    NCCL group over a ``HashStore``, a (1, 1) ``("data", "model")`` CUDA
+    ``DeviceMesh``; the smoke ``grok-1-314b`` step (the reference's
+    sharded case, 8 x 16 tokens) and the full-width ``lm-100m`` step
+    (``DENSE_TRAIN``'s 8 x 256 tokens in 2 microbatches), each with its
+    parameters, batch and moments placed as DTensors by the rules against
+    the same step on plain tensors from the same weights: the loss of
+    each of ``DTENSOR_STEPS`` steps within ``DTENSOR_RTOL`` of scale, the
+    first step's gradients and parameters as :func:`first_step_vs_plain`
+    holds them, and both steps timed (host clock to a synchronise, after
+    a first step). Prints one JSON line."""
+    import copy
+    import os
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import knn_tile as knn_mod
+    from repro_torch.kernels import rwkv_scan as scan
+    from repro_torch.kernels import update_tile as upd
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.config import get_config
+    from repro_torch.sharding.rules import (P, batch_pspec, make_shard_fn,
+                                            param_pspecs, place_parameters,
+                                            place_tree)
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    def whole(t):
+        t = t.detach()
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            device_id=torch.device("cuda", 0))
+    out = {}
+    try:
+        mesh = make_test_mesh((1, 1), ("data", "model"))
+        cases = {"grok-1-314b": (smoke_config(get_config("grok-1-314b")),
+                                 (8, 16, 1)),
+                 DENSE_ARCH: (get_config(DENSE_ARCH), DENSE_TRAIN)}
+        for fn in (scan.rwkv_scan, knn_mod.knn_tile_anchored,
+                   upd.bin_disp_tile):
+            fn.launches = 0
+        for arch, (cfg, (b, s, n_micro)) in cases.items():
+            oc = OptConfig(lr=DTENSOR_LR, warmup_steps=1)
+            plain = M.init_params(cfg, LM_SEED, device="cuda",
+                                  requires_grad=True)
+            model = copy.deepcopy(plain)
+            gen = torch.Generator(device="cuda").manual_seed(LM_SEED)
+            batch = {k: v.reshape(n_micro, b // n_micro, *v.shape[1:])
+                     for k, v in make_batch(cfg, b, s, gen,
+                                            device="cuda").items()}
+            place_parameters(model, mesh, param_pspecs(
+                dict(model.named_parameters()), mesh))
+            sbatch = place_tree(batch, mesh, {
+                k: P(None, *batch_pspec(mesh, v.shape[1], v.ndim - 2))
+                for k, v in batch.items()})
+            opt0, opt = init_opt_state(plain, oc), init_opt_state(model, oc)
+            step0 = make_train_step(cfg, oc)
+            step = make_train_step(cfg, oc, shard=make_shard_fn(mesh))
+            rec = {"losses": [], "plain_losses": [], "step_ms": [],
+                   "plain_step_ms": []}
+            for i in range(DTENSOR_STEPS):
+                (_, opt0, m0), t_plain = timed(lambda: step0(plain, opt0,
+                                                            batch))
+                (_, opt, m), t_dt = timed(lambda: step(model, opt, sbatch))
+                rec["plain_losses"].append(float(m0["loss"]))
+                rec["losses"].append(float(whole(m["loss"])))
+                rec["plain_step_ms"].append(t_plain)
+                rec["step_ms"].append(t_dt)
+                if i == 0:
+                    rec.update(first_step_vs_plain(model, plain, whole))
+            rec["loss_rel_err"] = max(
+                abs(a - b_) / max(1.0, abs(b_))
+                for a, b_ in zip(rec["losses"], rec["plain_losses"]))
+            rec["placed_as_dtensors"] = all(
+                isinstance(p, DTensor) and p.to_local().is_cuda
+                for p in model.parameters())
+            rec["step_ms_median_after_first"] = sorted(
+                rec["step_ms"][1:])[len(rec["step_ms"][1:]) // 2]
+            rec["plain_step_ms_median_after_first"] = sorted(
+                rec["plain_step_ms"][1:])[len(rec["plain_step_ms"][1:]) // 2]
+            rec["tokens"] = b * s
+            out[arch] = rec
+            del plain, model, opt0, opt
+            torch.cuda.empty_cache()
+        out["kernel_launches"] = {
+            "rwkv_scan": scan.rwkv_scan.launches,
+            "knn_tile_anchored": knn_mod.knn_tile_anchored.launches,
+            "bin_disp_tile": upd.bin_disp_tile.launches}
+        print(json.dumps({"dtensor_steps": out}), flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
 def phase_lm_sharding() -> dict:
     """LM sharding and the dry run: the records (a) and (b) that the LM
     phases gathered (``sharding_static``, ``sharding_peak``) and (c)
@@ -520,6 +669,31 @@ def phase_lm_sharding() -> dict:
           f"lm_sharding: remesh did not round-trip bitwise: {remesh}")
     remesh["wall_s"] = remesh_s
 
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, {!r}); "
+         "import chip_smoke; chip_smoke.dtensor_steps_on_card()".format(
+             str(ROOT))],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=REMESH_TIMEOUT_S)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    check(proc.returncode == 0 and lines,
+          f"lm_sharding: DTensor steps on the card: {proc.returncode} "
+          f"{proc.stdout[-800:]} {proc.stderr[-3000:]}")
+    dtensor = json.loads(lines[-1])["dtensor_steps"]
+    dtensor["wall_s"] = time.perf_counter() - t0
+    for arch in ("grok-1-314b", DENSE_ARCH):
+        r = dtensor[arch]
+        check(r["placed_as_dtensors"] and r["loss_rel_err"] <= DTENSOR_RTOL
+              and r["grad_rel_err"] <= DTENSOR_RTOL
+              and r["param_cond_rel_err"] <= DTENSOR_RTOL
+              and r["param_max_abs_err"] <= 2 * DTENSOR_LR,
+              f"lm_sharding: {arch}'s DTensor step differs from the plain "
+              f"step: {r}")
+    check(all(v == 0 for v in dtensor["kernel_launches"].values()),
+          f"lm_sharding: a hand-written kernel ran in the DTensor steps: "
+          f"{dtensor['kernel_launches']}")
+
     out_dir = ROOT / "build" / "dryrun_chip"
     t0 = time.perf_counter()
     proc = subprocess.run(
@@ -538,7 +712,12 @@ def phase_lm_sharding() -> dict:
               "chips": cell["chips"], "meta": cell["meta"],
               "dominant": cell["roofline"]["dominant"],
               "flops_per_device": cell["cost_per_device"]["flops"],
-              "build_s": cell["build_s"], "count_s": cell["count_s"]}
+              "collectives": cell["collectives"],
+              "build_s": cell["build_s"], "count_s": cell["count_s"],
+              "collectives_s": cell["collectives_s"]}
+    check(cell["collectives"] is not None
+          and cell["collectives"]["total_bytes"] > 0,
+          f"lm_sharding: the dry-run cell counted no collectives: {cell}")
 
     launches = {fn.__name__: fn.launches for fn in counters}
     check(all(v == 0 for v in launches.values()),
@@ -553,6 +732,7 @@ def phase_lm_sharding() -> dict:
             "analytic_peak_bytes", "peak_ratio", "transient_ratio")}
             for r in SHARDING["bytes"]],
         "kv_replicated": SHARDING["kv_replicated"], "remesh": remesh,
+        "dtensor_steps": dtensor,
         "dryrun": dryrun, "kernel_launches": launches,
         "seconds": time.perf_counter() - t_phase}
     emit("lm_sharding", **row, nvidia_smi=smi_line())
@@ -645,6 +825,14 @@ EXPAND_WINDOW = 512           # the windowed case
 EXPAND_RTOL = 1e-5            # kv-replicated vs grouped attention, layer 0:
                               # max|diff| <= EXPAND_RTOL * max(1, max|grouped|)
 REMESH_TIMEOUT_S = 240        # the one-rank NCCL remesh, in a subprocess
+DTENSOR_STEPS = 3             # DTensor against plain train steps on the card
+DTENSOR_RTOL = 1e-5           # their losses, gradients and well-conditioned
+#                               parameters: max|diff| <= 1e-5 x max(1,
+#                               max|plain|)
+DTENSOR_LR = 1e-3             # OptConfig(lr=1e-3, warmup_steps=1), the
+#                               reference's sharded case
+WELL_CONDITIONED = 1e-3       # a gradient at least this share of its
+#                               parameter's largest
 DRYRUN_TIMEOUT_S = 300        # launch/dryrun.py, one cell, in a subprocess
 SHARDING = {"bytes": [], "kv_replicated": None}
 
@@ -675,6 +863,16 @@ SERVE_CHAOS = "launch:0.2,straggler:0.1"   # the chaos gate's fault plan
 # the sharded paths (phase ``sharded``): the static cell's scene on a
 # (4, 2) mesh of slabs sharing the card, and the dynamic cell's trajectory
 # stepped by a 4-slab ShardedSession beside the single-device session
+# the SPH example (phase sph): examples/sph_fluid_torch.py at its own
+# 8,000 particles and at the dynamic cell's 1,000,000
+SPH_SIZES = (8_000, 1_000_000)
+SPH_TIMED = 20               # session steps timed by CUDA events, each counted
+SPH_CHECKED = 3              # of them against the oracle and the CPU physics
+SPH_SAMPLE = 512             # rows a checked step holds against brute force
+SPH_PROFILED = 3             # steps under the profiler: launches a step
+SPH_REBUILD = 3              # --rebuild steps (a fresh NeighborSearch each)
+SPH_PHYS_RTOL = 1e-5         # card vs CPU physics: max|diff| <= 1e-5 x scale
+
 SHARD_MESH = (4, 2)          # slabs x query columns (make_mesh_compat)
 SHARD_SLABS = 4
 SHARD_TIMED = 3              # sharded and whole-scene queries timed, median
@@ -2465,6 +2663,202 @@ def phase_sharded(api, core, data, ref, knn_mod, upd, n_query: int = N_POINTS,
     emit("sharded_done", seconds=time.perf_counter() - t0)
     return dict(knn_err=knn_err, bin_err=bin_err)
 
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` of this checkout as a module (not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sph_physics_vs_cpu(sph, pos, vel, res, tag: str) -> float:
+    """The example's physics on the card against the same functions on
+    the CPU, on the same lists: the largest error over the largest
+    magnitude, checked within ``SPH_PHYS_RTOL``."""
+    import torch
+    got = sph.advance(pos, vel, res)
+    want = sph.advance(pos.cpu(), vel.cpu(), type(res)(
+        res.indices.cpu(), res.distances2.cpu(), res.counts.cpu()))
+    worst = 0.0
+    for name, g, w in zip(("pos", "vel", "density"), got, want):
+        scale = max(1.0, float(w.abs().max()))
+        err = float((g.cpu() - w).abs().max())
+        check(err <= SPH_PHYS_RTOL * scale, f"{tag}: {name} on the card "
+              f"differs from the CPU by {err} (scale {scale})")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def sph_cell(core, ref, knn_mod, upd, sph, n: int, smi: str) -> dict:
+    """The SPH example's session at ``n`` particles: a warm-up step by the
+    example's own ``step_session``, then ``SPH_TIMED`` steps timed by CUDA
+    events (search, physics, integration; no density fetch), each counted
+    (blocking transfers, launches); ``SPH_CHECKED`` of them against the
+    oracle and the CPU physics; ``SPH_PROFILED`` under the profiler for
+    the kernels' launches a step; then the ``--rebuild`` A/B."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda")
+    pos, vel = sph.initial_state(n, dev)
+    t0 = time.perf_counter()
+    sess = core.SimulationSession(pos, sph.params(), sph.OPTS, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pos, vel, rho, split, info = sph.step_session(sess, pos, vel)
+    warm_s = time.perf_counter() - t0
+    emit("sph_setup", n_particles=n, dims=list(sess.spec.dims),
+         cell_size=sess.spec.cell_size, capacity=sess.spec.capacity,
+         setup_s=setup_s, warmup_step_s=warm_s, warmup_split=split,
+         warmup_info=info, mean_density=rho, nvidia_smi=smi)
+    rng = np.random.default_rng(n)
+    checked_at = set(np.linspace(0, SPH_TIMED - 1, SPH_CHECKED).astype(int))
+    steps, phys_err, d2_err = [], 0.0, 0.0
+    for i in range(SPH_TIMED):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        cur = pos
+
+        def one_step():
+            ev[0].record()
+            res = sess.step(cur)
+            ev[1].record()
+            out = sph.advance(cur, vel, res)
+            ev[2].record()
+            return res, out
+
+        (res, out), wall_ms, syncs, nb, nk = counted(one_step, upd, knn_mod)
+        rep = sess.report
+        kind = ("respec" if rep.respecced else "fast" if rep.fast
+                else "replan")
+        want = 2 if rep.respecced else 1
+        check(len(syncs) == want, f"sph n={n} step {i}: {len(syncs)} "
+              f"blocking transfers, expected {want}: {syncs}")
+        check(nb == 1 and nk == 1, f"sph n={n} step {i}: launches "
+              f"bin_disp_tile={nb} knn_tile_anchored={nk}, expected 1 each")
+        rec = dict(step=i, kind=kind, step_ms=ev[0].elapsed_time(ev[2]),
+                   search_ms=ev[0].elapsed_time(ev[1]),
+                   physics_ms=ev[1].elapsed_time(ev[2]), wall_ms=wall_ms,
+                   t_update_ms=rep.t_update * 1e3,
+                   t_plan_ms=rep.t_plan * 1e3,
+                   t_search_ms=rep.t_search * 1e3, max_disp=rep.max_disp,
+                   blocking_transfers=len(syncs))
+        if i in checked_at:
+            tag = f"sph n={n} step {i}"
+            d2_err = max(d2_err, check_step_exact(
+                ref, res, cur, rng, SPH_SAMPLE, tag, radius=sph.H,
+                k=sph.K_MAX))
+            phys_err = max(phys_err, sph_physics_vs_cpu(sph, cur, vel, res,
+                                                        tag))
+            rec["checked"] = True
+            rec["mean_count"] = float(res.counts.float().mean())
+        pos, vel, _density = out
+        check(bool(torch.isfinite(pos).all()), f"sph n={n} step {i}: "
+              "positions not finite")
+        steps.append(rec)
+    kinds = [r["kind"] for r in steps]
+
+    def med(key, kind):
+        v = sorted(r[key] for r in steps if r["kind"] == kind)
+        return v[len(v) // 2] if v else None
+
+    # launches a step as the profiler records them (reported: in full runs
+    # at n = 8,000 it has missed one bin_disp_tile of three), and as the
+    # wrappers count them over the same steps (checked)
+    torch.cuda.synchronize()
+    upd.bin_disp_tile.launches = 0
+    knn_mod.knn_tile_anchored.launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(SPH_PROFILED):
+            res = sess.step(pos)
+            pos, vel, _density = sph.advance(pos, vel, res)
+        torch.cuda.synchronize()
+    wrap_bin = upd.bin_disp_tile.launches
+    wrap_knn = knn_mod.knn_tile_anchored.launches
+    check(wrap_knn == SPH_PROFILED and wrap_bin == SPH_PROFILED,
+          f"sph n={n}: knn_tile_anchored {wrap_knn} and bin_disp_tile "
+          f"{wrap_bin} launches in {SPH_PROFILED} profiled steps")
+    _, prof_knn = device_us(prof, "knn_tile_anchored")
+    _, prof_bin = device_us(prof, "bin_disp_tile")
+    del prof
+
+    # the --rebuild A/B: a fresh NeighborSearch per frame; on one frame
+    # its counts equal the session's
+    frame = pos.clone()
+    res_s = sess.step(frame)
+    ns = core.NeighborSearch(frame, sph.params(), sph.OPTS, device=dev)
+    res_r = ns.query(frame)
+    check(torch.equal(res_s.counts, res_r.counts),
+          f"sph n={n}: --rebuild counts differ from the session's")
+    rebuild = []
+    for _ in range(SPH_REBUILD):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pos, vel, _rho, split, info = sph.step_rebuild(pos, vel)
+        torch.cuda.synchronize()
+        rebuild.append(dict(step_ms=(time.perf_counter() - t0) * 1e3,
+                            t_opt_ms=split["plan"] * 1e3,
+                            search_ms=split["search"] * 1e3,
+                            physics_ms=split["physics"] * 1e3, info=info))
+    check(bool(torch.isfinite(pos).all()), f"sph n={n}: rebuild positions")
+    rb = sorted(r["step_ms"] for r in rebuild)[len(rebuild) // 2]
+    st = sess.stats()
+    out = dict(n_particles=n, steps=len(steps), kinds=kinds,
+               respecs=kinds.count("respec"),
+               fast_step_ms=med("step_ms", "fast"),
+               replan_step_ms=med("step_ms", "replan"),
+               fast_search_ms=med("search_ms", "fast"),
+               replan_search_ms=med("search_ms", "replan"),
+               physics_ms=sorted(r["physics_ms"]
+                                 for r in steps)[len(steps) // 2],
+               t_update_ms=sorted(r["t_update_ms"]
+                                  for r in steps)[len(steps) // 2],
+               t_plan_replan_ms=med("t_plan_ms", "replan"),
+               blocking_transfers=[r["blocking_transfers"] for r in steps],
+               profiled_launches_per_step=dict(
+                   knn_tile_anchored=prof_knn / SPH_PROFILED,
+                   bin_disp_tile=prof_bin / SPH_PROFILED),
+               d2_recompute_err=d2_err, physics_rel_err=phys_err,
+               rebuild_step_ms=rb, rebuild=rebuild,
+               rebuild_launches=ns.report.launches,
+               counters={k: v for k, v in st.items() if k != "last"},
+               nvidia_smi=smi)
+    emit("sph", **out, per_step=steps)
+    return out
+
+
+def phase_sph(core, ref, knn_mod, upd) -> dict:
+    """The three examples on the card: the SPH fluid at the example's
+    8,000 particles and at 1,000,000 (:func:`sph_cell`), the point-cloud
+    normals at the example's 60,000 points, and the quickstart once, each
+    imported from ``examples/`` and driven through its own functions."""
+    import torch
+    t0 = time.perf_counter()
+    smi = smi_line()
+    sph = load_example("sph_fluid_torch")
+    cells = [sph_cell(core, ref, knn_mod, upd, sph, n, smi)
+             for n in SPH_SIZES]
+
+    pc = load_example("pointcloud_pipeline_torch")
+    out = pc.main(["--device", "cuda"])
+    idx = out["result"].indices
+    pts = torch.from_numpy(pc.kitti_like_cloud(60_000, seed=3)).cuda()
+    normals_ms = cuda_time_ms(lambda: pc.estimate_normals(pts, idx), 5)
+    emit("sph_normals", n_points=int(pts.shape[0]),
+         search_s=out["t_search"], normals_ms=normals_ms,
+         sample_oracle_match=True, vertical_share=out["vertical"],
+         nvidia_smi=smi)
+
+    qs = load_example("quickstart_torch")
+    t1 = time.perf_counter()
+    qs.main(["--device", "cuda"])
+    emit("sph_quickstart", seconds=time.perf_counter() - t1, asserts=True)
+    emit("sph_done", seconds=time.perf_counter() - t0, nvidia_smi=smi)
+    return {c["n_particles"]: c for c in cells}
 
 def rwkv_vs_plain(scan, ins, tag: str) -> dict:
     """``rwkv_scan`` kernel vs its plain version on the same inputs: out and
@@ -5207,6 +5601,8 @@ def main() -> int:
 
     sharded = phase_sharded(api, core, data, ref, knn_mod, upd)
     d["err"] = max(d["err"], sharded["bin_err"])
+
+    phase_sph(core, ref, knn_mod, upd)
 
     t0 = time.perf_counter()
     serve = phase_serve(api, core, data, knn_mod, upd)

@@ -298,8 +298,8 @@ def knn_tile_anchored_plain(q, points, dense_flat, anchors, levels, table,
     elementwise arithmetic, selected by a stable sort.
 
     Loops over tiles, and over each window in chunks of ``_PLAIN_CHUNK``
-    candidates. It reads the levels, anchors and table on the host, so it
-    synchronises on CUDA.
+    slots, of which only the occupied ones are merged. It reads the levels,
+    anchors and table on the host, so it synchronises on CUDA.
     """
     dev = q.device
     n_tiles = anchors.shape[0]
@@ -327,7 +327,12 @@ def knn_tile_anchored_plain(q, points, dense_flat, anchors, levels, table,
                 iz, iy, ix = cell % wz, (cell // wz) % wy, cell // (wz * wy)
                 flat = ((((ax + ix) * dy + (ay + iy)) * dz + (az + iz)) * cap
                         + slot)
-                yield dense_flat[flat.clamp(0, n_flat - 1)]
+                ids = dense_flat[flat.clamp(0, n_flat - 1)]
+                # an empty slot (-1) never enters the list: dropping it
+                # keeps the stream's order, so the result is unchanged
+                ids = ids[ids >= 0]
+                if ids.numel():
+                    yield ids
 
         best_d2, best_idx = _stream_plain(q[i * tile:(i + 1) * tile], points,
                                           chunks(), k=k, r2=r2, skip=skip)

@@ -93,7 +93,13 @@ def _check(r, k, v, w, u, state0) -> None:
 def rwkv_scan(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
               state0: Tensor) -> tuple[Tensor, Tensor]:
     """r/k/v/w [B, S, H, hd], u [H, hd], state0 [B, H, hd, hd] ->
-    (out [B, S, H, hd], state_T [B, H, hd, hd]), both float32."""
+    (out [B, S, H, hd], state_T [B, H, hd, hd]), both float32. It takes
+    no DTensor (NotImplementedError): RWKV serving does not run on a
+    mesh."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in (r, k, v, w, u, state0)):
+        raise NotImplementedError("rwkv_scan has no DTensor path")
     _check(r, k, v, w, u, state0)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (r, k, v, w, u, state0)):

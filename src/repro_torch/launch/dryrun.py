@@ -25,9 +25,16 @@ ranks, or 512 for two pods, in this one process), and records:
     outputs summed on the meta device, an unfused upper bound (plus the
     reference's optimizer term, twice the static bytes);
   * per device = global / chips, an even split;
-  * collectives: null (``hlo_analysis.COLLECTIVES_NOT_COUNTED``); the
-    roofline's dominant term is taken over compute and memory, at one
-    H100's rates.
+  * collectives: one step on DTensors (the parameters, batch, optimizer
+    state or cache placed by their specs on the meta device), counted by
+    kind with result bytes per device (``hlo_analysis.count_collectives``;
+    :func:`collectives_by_periods` composes them from the model cut to one
+    and two periods); the roofline's collective term is those bytes over
+    the H100's NVLink rate (``hlo_analysis.LINK_BW``), and its dominant
+    term is taken over compute, memory and collectives. A serving step
+    that cannot run on DTensors (``rwkv_scan`` has no DTensor path)
+    records null with the operation that stopped it, and so does every
+    cell of the two-pod mesh (:data:`COLLECTIVES_3D`).
 
 Nothing happens at import. ``main()`` starts the fake process group once,
 from ``torch.testing._internal.distributed.fake_pg`` (an internal module
@@ -68,6 +75,12 @@ from .mesh import make_production_mesh
 OUT_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
 PARAM_DTYPE = torch.bfloat16
 MESH_WORLD = {"pod": 256, "multipod": 512}
+# the three-axis mesh: a batch sharded over ("pod", "data") makes DTensor
+# plan its redistributions by graph search, which did not finish one
+# lm-100m step in 15 minutes on the CPU
+COLLECTIVES_3D = ("not counted on a three-axis mesh: DTensor's "
+                  "redistribute planner (graph search over a batch sharded "
+                  "on two mesh axes) does not finish")
 
 
 @functools.lru_cache(maxsize=None)
@@ -202,6 +215,104 @@ def count_step(cfg: ArchConfig, shape: ShapeSpec, objs: dict
     return float(flops.get_total_flops()), float(op_bytes.bytes)
 
 
+def collectives_by_periods(cfg: ArchConfig, shape: ShapeSpec, mesh,
+                           meta: dict) -> dict:
+    """The collectives of one step of the cell on DTensors
+    (:func:`count_sharded_step`), composed from the model cut to one and
+    to two of its periods (prefix and tail kept): every period places
+    and runs alike, so a step's count is the one-period count plus the
+    difference times the remaining periods, per kind, as the reference
+    composes its per-program costs with trip counts. A model of two
+    periods or fewer runs whole. DTensor's eager dispatch costs about
+    100 us an operation here, which a whole 32-layer step at 256 ranks
+    turns into minutes."""
+    import dataclasses
+
+    from ..models.model import layer_groups
+
+    def count(c: ArchConfig) -> dict:
+        objs, _ = build_cell(c, shape, mesh)
+        # the whole model's serving profile, moment format and microbatch,
+        # which the cut's size could change
+        objs["param_specs"] = param_pspecs(objs["params"], mesh,
+                                           meta["param_profile"])
+        if shape.kind == "train":
+            objs["opt"] = opt_state_specs(objs["params"], OptConfig(
+                quantize_moments=meta["quantized_opt"]))
+            objs["opt_specs"] = opt_pspecs(objs["opt"], mesh)
+            objs["batch"] = batch_specs(c, meta["b_micro"], shape.seq_len)
+            objs["batch_specs"] = {
+                k: batch_pspec(mesh, v.shape[0], v.dim() - 1)
+                for k, v in objs["batch"].items()}
+        return count_sharded_step(c, shape, objs, mesh, meta)
+
+    groups = layer_groups(cfg)
+    if groups.n_periods <= 2:
+        return count(cfg)
+    fixed = len(groups.prefix_kinds) + len(groups.tail_kinds)
+    one, two = (count(dataclasses.replace(
+        cfg, n_layers=fixed + k * len(groups.period))) for k in (1, 2))
+    more = groups.n_periods - 1
+
+    def per_kind(key):
+        return {k: one[key].get(k, 0)
+                + more * (two[key].get(k, 0) - one[key].get(k, 0))
+                for k in sorted(set(one[key]) | set(two[key]))}
+
+    return {"counts": per_kind("counts"),
+            "per_kind_bytes": per_kind("per_kind_bytes"),
+            "total_bytes": one["total_bytes"]
+            + more * (two["total_bytes"] - one["total_bytes"]),
+            "comm_debug_total": one["comm_debug_total"]
+            + more * (two["comm_debug_total"] - one["comm_debug_total"]),
+            "composed_from_periods": [1, 2]}
+
+
+def count_sharded_step(cfg: ArchConfig, shape: ShapeSpec, objs: dict,
+                       mesh, meta: dict) -> dict:
+    """The collectives of one step on DTensors: the cell's parameters,
+    batch, optimizer state or cache placed on ``mesh`` by their specs
+    (meta tensors, the fake process group), then, counted by
+    :func:`hlo_analysis.count_collectives`, one microbatch's forward and
+    backward (remat on, times ``n_micro``) and the optimizer update, one
+    prefill, or one decode step. Raises where the step cannot run on
+    DTensors (the message names the operation)."""
+    from ..models.model import scanned_params
+    from ..sharding.rules import (make_shard_fn, place_parameters,
+                                  place_tree)
+    from ..train.optimizer import apply_updates
+    from ..train.train_step import replicating
+
+    model = place_parameters(objs["model"], mesh, objs["param_specs"])
+    batch = place_tree(objs["batch"], mesh, objs["batch_specs"])
+    shard = make_shard_fn(mesh)
+    named = dict(model.named_parameters())
+    with replicating(named.values()):
+        if shape.kind == "train":
+            opt = place_tree(objs["opt"], mesh, objs["opt_specs"])
+            model.requires_grad_(True)
+            try:
+                _, fwd_bwd = H.count_collectives(lambda: train_forward(
+                    model, batch, cfg, shard=shard, remat=True).backward())
+                grads = {n: p.grad for n, p in named.items()}
+                opt_cfg = OptConfig(quantize_moments=meta["quantized_opt"])
+                _, update = H.count_collectives(lambda: apply_updates(
+                    named, grads, opt, opt_cfg,
+                    stacked=scanned_params(model)))
+            finally:
+                model.requires_grad_(False)
+            return H.add_collectives(
+                H.scale_collectives(fwd_bwd, meta["n_micro"]), update)
+        with torch.no_grad():
+            if shape.kind == "prefill":
+                return H.count_collectives(lambda: make_prefill_step(
+                    cfg, shard=shard)(model, batch))[1]
+            cache = place_tree(objs["cache"], mesh, objs["cache_specs"])
+            return H.count_collectives(lambda: decode_step(
+                model, cache, batch["tokens"], cfg, pos=batch.get("pos3"),
+                shard=shard))[1]
+
+
 def _dtensor_param_bytes(objs: dict, mesh) -> int:
     """Rank 0's local bytes of every parameter placed on ``mesh`` as a
     DTensor by its spec (meta tensors, nothing allocated): the placements
@@ -249,6 +360,19 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, *,
         t0 = time.perf_counter()
         flops, op_bytes = count_step(cfg, shape, objs)
         t_count = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        coll, coll_reason = None, None
+        if mesh.ndim > 2:
+            coll_reason = COLLECTIVES_3D
+        else:
+            try:
+                coll = collectives_by_periods(cfg, shape, mesh, meta)
+            except Exception as e:
+                if shape.kind == "train":
+                    raise
+                coll_reason = (f"{H.COLLECTIVES_NOT_COUNTED}: "
+                               f"{_first_line(e)}")
+        t_coll = time.perf_counter() - t0
         n_params = _n_params(cfg)
         if shape.kind == "train":
             n_micro = meta["n_micro"]
@@ -258,7 +382,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, *,
         else:
             flops_dev, bytes_dev = flops / chips, op_bytes / chips
         cost = {"flops": flops_dev, "bytes accessed": bytes_dev}
-        terms = H.roofline(cost, None, chips=chips,
+        terms = H.roofline(cost, coll, chips=chips,
                            model_flops_global=model_flops_global(cfg, shape))
         record.update({
             "status": "ok",
@@ -266,6 +390,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, *,
             "meta": meta,
             "build_s": round(t_build, 2),
             "count_s": round(t_count, 2),
+            "collectives_s": round(t_coll, 2),
             "memory": H.memory_summary(meta),
             "param_bytes_rank0_dtensor": placed,
             "specs": {
@@ -279,8 +404,8 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, *,
                             "bytes_note": "each op's inputs and outputs, "
                             "unfused: an upper bound"},
             "cost_per_device": cost,
-            "collectives": None,
-            "collectives_reason": H.COLLECTIVES_NOT_COUNTED,
+            "collectives": coll,
+            "collectives_reason": coll_reason,
             "roofline": terms.to_dict(),
             "roofline_device": "NVIDIA H100 SXM5 80GB (data sheet rates)",
             "param_count": n_params,
@@ -293,6 +418,12 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, *,
         print(f"[{mesh_name}|{arch}|{shape_name}] FAILED: {e}", flush=True)
     out_path.write_text(json.dumps(record, indent=1))
     return record
+
+
+def _first_line(e: Exception) -> str:
+    """An exception as ``Type: its message's first line``."""
+    msg = str(e).strip().splitlines()
+    return f"{type(e).__name__}: {msg[0] if msg else ''}"
 
 
 def _summary(r: dict) -> str:

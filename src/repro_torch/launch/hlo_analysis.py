@@ -12,11 +12,16 @@ reference read from XLA, the port counts:
     exactly;
   * FLOPs and bytes accessed: ``launch/dryrun.py`` counts them on the meta
     device (``FlopCounterMode``; :class:`OpBytes`);
-  * collectives: not counted. The port's models do not run on DTensors
-    yet, so there is no sharded execution to count them in
-    (``CommDebugMode``); a cell records ``"collectives": null`` with
-    :data:`COLLECTIVES_NOT_COUNTED`, and the roofline's dominant term is
-    taken over the terms that exist.
+  * collectives: :func:`count_collectives` runs a step on DTensors (on the
+    meta device under a fake process group in the dry run) under
+    ``CommDebugMode`` and :class:`CollectiveBytes`, which counts them by
+    kind with each one's result bytes on this rank, the counterpart of
+    the reference's ``collective_bytes`` (XLA's partitioner picks other
+    collectives than DTensor does, so the two counts differ). Where a
+    step cannot run on DTensors a cell records ``"collectives": null``
+    with :data:`COLLECTIVES_NOT_COUNTED` and the operation that stopped
+    it, and the roofline's dominant term is taken over the terms that
+    exist.
 
 Roofline constants are one NVIDIA H100 SXM5 80GB's, from NVIDIA's data
 sheet (dense, no sparsity), the card that ``nvidia-smi
@@ -39,10 +44,7 @@ PEAK_FLOPS = 989e12          # bf16 FLOP/s, dense, one H100 SXM5
 HBM_BW = 3.35e12             # bytes/s, HBM3, one H100 SXM5
 LINK_BW = 450e9              # bytes/s a direction, NVLink 4 (H100 SXM5)
 HBM_BYTES = 80e9             # the data sheet's 80 GB
-COLLECTIVES_NOT_COUNTED = (
-    "no compiled program to read, and the port's models do not run on "
-    "DTensors yet (a sharded execution would count them with "
-    "CommDebugMode)")
+COLLECTIVES_NOT_COUNTED = "the step does not run on DTensors"
 
 
 @dataclasses.dataclass
@@ -193,6 +195,94 @@ class OpBytes(TorchDispatchMode):
         return out
 
 
+_KINDS = (("all_gather", "all-gather"), ("allgather", "all-gather"),
+          ("reduce_scatter", "reduce-scatter"),
+          ("all_reduce", "all-reduce"), ("allreduce", "all-reduce"),
+          ("all_to_all", "all-to-all"), ("alltoall", "all-to-all"),
+          ("broadcast", "broadcast"))
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd",
+                          "c10d")
+
+
+class CollectiveBytes(TorchDispatchMode):
+    """Counts the collectives that run under it, by kind (the reference's
+    names: ``all-gather``, ``reduce-scatter``, ``all-reduce``,
+    ``all-to-all``; ``broadcast``), and sums each one's result bytes on
+    this rank, as the reference's :func:`collective_bytes` reads an HLO
+    collective's result shape. It sees what DTensor desugars into (it
+    defers on DTensor arguments, as ``CommDebugMode`` does), so on the
+    meta device under a fake process group the local shapes, and the
+    bytes, are one device's."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts: dict[str, int] = {}
+        self.per_kind_bytes: dict[str, int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        if any(t is DTensor or issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        kind = self._kind(func)
+        if kind is not None:
+            result = out if func.namespace != "c10d" else args[0]
+            self.counts[kind] = self.counts.get(kind, 0) + 1
+            self.per_kind_bytes[kind] = (self.per_kind_bytes.get(kind, 0)
+                                         + tree_nbytes(result))
+        return out
+
+    @staticmethod
+    def _kind(func) -> str | None:
+        if getattr(func, "namespace", None) not in _COLLECTIVE_NAMESPACES:
+            return None
+        name = func._overloadpacket.__name__
+        for key, kind in _KINDS:
+            if key in name:
+                return kind
+        return None
+
+    def summary(self) -> dict:
+        return {"counts": dict(self.counts),
+                "per_kind_bytes": dict(self.per_kind_bytes),
+                "total_bytes": sum(self.per_kind_bytes.values())}
+
+
+def count_collectives(fn) -> tuple[Any, dict]:
+    """``fn()`` under ``CommDebugMode`` and :class:`CollectiveBytes`:
+    its result and ``{"counts", "per_kind_bytes", "total_bytes",
+    "comm_debug_total"}`` (``CommDebugMode``'s own count of the
+    collectives, which equals the sum of ``counts``)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    counter = CollectiveBytes()
+    with CommDebugMode() as comm, counter:
+        out = fn()
+    return out, {**counter.summary(),
+                 "comm_debug_total": int(comm.get_total_counts())}
+
+
+def scale_collectives(coll: dict, factor: int) -> dict:
+    """Collective counts and bytes times ``factor`` (microbatches)."""
+    return {"counts": {k: v * factor for k, v in coll["counts"].items()},
+            "per_kind_bytes": {k: v * factor
+                               for k, v in coll["per_kind_bytes"].items()},
+            "total_bytes": coll["total_bytes"] * factor,
+            "comm_debug_total": coll["comm_debug_total"] * factor}
+
+
+def add_collectives(a: dict, b: dict) -> dict:
+    """Two collective records summed kind by kind."""
+    def merged(key):
+        return {k: a[key].get(k, 0) + b[key].get(k, 0)
+                for k in sorted(set(a[key]) | set(b[key]))}
+    return {"counts": merged("counts"),
+            "per_kind_bytes": merged("per_kind_bytes"),
+            "total_bytes": a["total_bytes"] + b["total_bytes"],
+            "comm_debug_total": a["comm_debug_total"] + b["comm_debug_total"]}
+
+
 def tree_nbytes(tree: Any) -> int:
     """Bytes of every tensor of a tree of dicts, lists and tuples."""
     if isinstance(tree, torch.Tensor):
@@ -207,4 +297,5 @@ def tree_nbytes(tree: Any) -> int:
 __all__ = ["PEAK_FLOPS", "HBM_BW", "LINK_BW", "HBM_BYTES",
            "COLLECTIVES_NOT_COUNTED", "RooflineTerms", "roofline",
            "memory_summary", "sharded_bytes", "analytic_activation_bytes",
-           "OpBytes", "tree_nbytes"]
+           "OpBytes", "CollectiveBytes", "count_collectives",
+           "scale_collectives", "add_collectives", "tree_nbytes"]

@@ -58,6 +58,86 @@ Tensor = torch.Tensor
 Cache = dict[str, Any]
 
 
+def full(x: Tensor) -> Tensor:
+    """``x`` whole on every rank: a DTensor's ``full_tensor()`` (a
+    differentiable gather), a plain tensor as it is. For the integer index
+    work that DTensor has no sharding strategy for (MoE routing)."""
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def replicated_as(x: Tensor, like: Tensor) -> Tensor:
+    """A plain ``x`` that every rank computed alike, as a replicated
+    DTensor on ``like``'s mesh (differentiably: its gradient comes back
+    plain, which :func:`full`'s backward needs); ``x`` as it is where
+    ``like`` is a plain tensor or ``x`` a DTensor."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(like, DTensor) or isinstance(x, DTensor):
+        return x
+    mesh = like.device_mesh
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def reshape(x: Tensor, *shape) -> Tensor:
+    """``x.reshape(*shape)``, a plain tensor's as it is. On a DTensor, in
+    the forward and the backward pass alike, a tensor whose placements the
+    reshape cannot carry (a sharded dim split into a head count that its
+    mesh axis does not divide: DTensor raises where XLA pads) is made
+    whole along every dim but the first (the batch) and then reshaped."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x.reshape(*shape)
+    return _DTensorReshape.apply(x, shape)
+
+
+def _reshape_dtensor(x: Tensor, shape) -> Tensor:
+    try:
+        return x.reshape(*shape)
+    except RuntimeError:
+        return _whole_but_batch(x).reshape(*shape)
+
+
+def _whole_but_batch(x: Tensor) -> Tensor:
+    """``x`` replicated on every tensor dim but the first (the batch)."""
+    for d in range(1, x.ndim):
+        x = unshard_dim(x, d)
+    return x
+
+
+class _DTensorReshape(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.in_shape = tuple(x.shape)
+        # a copy, not a view of ``x``: autograd would replay a view of an
+        # input with the plain view op, which is what fails here
+        return _reshape_dtensor(x, shape).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reshape_dtensor(g, ctx.in_shape), None
+
+
+def unshard_dim(x: Tensor, dim: int) -> Tensor:
+    """``x`` with tensor dim ``dim`` replicated on every mesh dim that
+    shards it (a differentiable redistribute); other placements kept. A
+    plain tensor as it is. DTensor's ``embedding`` and ``gather`` cannot
+    index along a sharded dim."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        return x
+    dim %= x.ndim
+    want = [Replicate() if isinstance(pl, Shard) and pl.dim == dim else pl
+            for pl in x.placements]
+    if want == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
 def NO_SHARD(x: Tensor, name: str) -> Tensor:
     """The default ``shard`` callable: no constraint. A ``shard(x, name)``
     (``sharding.rules.make_shard_fn``) names the activation it is handed
@@ -241,25 +321,38 @@ def _sdpa(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
         mask = mask & (kp > qpos - window)
 
     if expand:
-        ke = k.repeat_interleave(g, dim=2)                # [B,Sk,H,D]
-        ve = v.repeat_interleave(g, dim=2)
-        logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
-                              ke.to(torch.float32))
+        ke = _repeat_heads(k, g)                          # [B,Sk,H,D]
+        ve = _repeat_heads(v, g)
+        logits = _einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                         ke.to(torch.float32))
         logits = shard(logits, "attn_logits4") / math.sqrt(d)
         logits = torch.where(mask, logits, logits.new_full((), _MASKED))
         probs = torch.softmax(logits, dim=-1).to(q.dtype)
         dt = torch.promote_types(probs.dtype, ve.dtype)
-        return torch.einsum("bhqk,bkhd->bqhd", probs.to(dt), ve.to(dt))
-    qg = q.reshape(b, sq, hk, g, d)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32),
-                          k.to(torch.float32))
+        return _einsum("bhqk,bkhd->bqhd", probs.to(dt), ve.to(dt))
+    qg = reshape(q, b, sq, hk, g, d)
+    logits = _einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32),
+                     k.to(torch.float32))
     logits = shard(logits, "attn_logits")
     logits = logits / math.sqrt(d)
     logits = torch.where(mask, logits, logits.new_full((), _MASKED))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     dt = torch.promote_types(probs.dtype, v.dtype)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(dt), v.to(dt))
-    return out.reshape(b, sq, h, dv)
+    out = _einsum("bhgqk,bkhd->bqhgd", probs.to(dt), v.to(dt))
+    return reshape(out, b, sq, h, dv)
+
+
+def _repeat_heads(x: Tensor, g: int) -> Tensor:
+    """[B, S, Hk, D] -> [B, S, Hk * g, D], each head repeated ``g`` times
+    in place (``repeat_interleave``). A DTensor goes through
+    :func:`reshape`, whose backward can split a head count that the mesh
+    axis does not divide."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x.repeat_interleave(g, dim=2)
+    b, s, hk, d = x.shape
+    return reshape(x[:, :, :, None].expand(b, s, hk, g, d), b, s, hk * g, d)
 
 
 def _write(buf: Tensor, update: Tensor, start: int) -> Tensor:
@@ -291,9 +384,9 @@ def attention_fwd(p: Mapping[str, Tensor], x: Tensor, cfg, *,
     new cache is new tensors; the one passed in is left as it was."""
     b, s, d = x.shape
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"].reshape(d, h * hd)).reshape(b, s, h, hd)
-    k = (x @ p["wk"].reshape(d, hk * hd)).reshape(b, s, hk, hd)
-    v = (x @ p["wv"].reshape(d, hk * hd)).reshape(b, s, hk, hd)
+    q = reshape(x @ reshape(p["wq"], d, h * hd), b, s, h, hd)
+    k = reshape(x @ reshape(p["wk"], d, hk * hd), b, s, hk, hd)
+    v = reshape(x @ reshape(p["wv"], d, hk * hd), b, s, hk, hd)
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = shard(q, "act_heads")
@@ -330,7 +423,7 @@ def attention_fwd(p: Mapping[str, Tensor], x: Tensor, cfg, *,
         out = _sdpa(q, ck, cv, causal=True, window=window, q_offset=length,
                     shard=shard)
         new_cache = {"k": ck, "v": cv, "length": length + s}
-    o = out.reshape(b, s, h * hd) @ p["wo"].reshape(h * hd, d)
+    o = reshape(out, b, s, h * hd) @ reshape(p["wo"], h * hd, d)
     return shard(o, "act_resid"), new_cache
 
 
@@ -358,11 +451,51 @@ def init_mla(gen, cfg, dtype, device=None) -> dict[str, Any]:
 
 def _einsum(eq: str, *ops: Tensor) -> Tensor:
     """``torch.einsum`` with the operands promoted to one dtype, as
-    ``jnp.einsum`` promotes (a bfloat16 cache against float32 weights)."""
+    ``jnp.einsum`` promotes (a bfloat16 cache against float32 weights).
+    Two DTensor operands go through :class:`_DTensorEinsum`."""
+    from torch.distributed.tensor import DTensor
+
     dt = ops[0].dtype
     for t in ops[1:]:
         dt = torch.promote_types(dt, t.dtype)
-    return torch.einsum(eq, *(t.to(dt) for t in ops))
+    ops = tuple(t.to(dt) for t in ops)
+    if len(ops) == 2 and any(isinstance(t, DTensor) for t in ops):
+        return _DTensorEinsum.apply(eq, *ops)
+    return torch.einsum(eq, *ops)
+
+
+class _DTensorEinsum(torch.autograd.Function):
+    """``einsum("a,b->c")`` whose backward is two more einsums
+    (``"c,b->a"``, ``"a,c->b"``) instead of autograd's views of the
+    gradient, which DTensor cannot split where a head count does not
+    divide its mesh axis (MLA's 40 heads under a model axis of 16)."""
+
+    @staticmethod
+    def forward(ctx, eq, a, b):
+        ctx.eq = eq
+        ctx.save_for_backward(a, b)
+        return _einsum_dtensor(eq, a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ins, out = ctx.eq.replace(" ", "").split("->")
+        ia, ib = ins.split(",")
+        ga = (_einsum_dtensor(f"{out},{ib}->{ia}", g, b)
+              if ctx.needs_input_grad[1] else None)
+        gb = (_einsum_dtensor(f"{ia},{out}->{ib}", a, g)
+              if ctx.needs_input_grad[2] else None)
+        return None, ga, gb
+
+
+def _einsum_dtensor(eq: str, a: Tensor, b: Tensor) -> Tensor:
+    """``torch.einsum`` of DTensors; where DTensor cannot carry the
+    placements through einsum's internal views, the operands are made
+    whole along every dim but the first and the einsum runs again."""
+    try:
+        return torch.einsum(eq, a, b)
+    except RuntimeError:
+        return torch.einsum(eq, _whole_but_batch(a), _whole_but_batch(b))
 
 
 def mla_project(p: Mapping[str, Any], x: Tensor, cfg, pos: Tensor
@@ -376,8 +509,8 @@ def mla_project(p: Mapping[str, Any], x: Tensor, cfg, pos: Tensor
     b, s, _ = x.shape
     h = cfg.n_heads
     q = rmsnorm(x @ p["q_a"], p["q_norm"], cfg.norm_eps)
-    q = (q @ p["q_b"].reshape(m.q_rank, -1)).reshape(
-        b, s, h, m.d_nope + m.d_rope)
+    q = reshape(q @ reshape(p["q_b"], m.q_rank, -1),
+                b, s, h, m.d_nope + m.d_rope)
     q_nope = q[..., : m.d_nope]
     q_rope = apply_rope(q[..., m.d_nope:], pos, cfg.rope_theta)
     kv = x @ p["kv_a"]
@@ -424,14 +557,14 @@ def _mla_absorbed_decode(p: Mapping[str, Any], q_nope: Tensor,
     kv_b_v = p["kv_b"][..., m.d_nope:]             # [r, H, d_v]
     q_lat = _einsum("bshk,rhk->bshr", q_nope, kv_b_k)
     f32 = torch.float32
-    scores = torch.einsum("bshr,btr->bhst", q_lat.to(f32), latent.to(f32))
-    scores = scores + torch.einsum("bshk,btk->bhst", q_rope.to(f32),
-                                   k_rope[:, :, 0].to(f32))
+    scores = _einsum("bshr,btr->bhst", q_lat.to(f32), latent.to(f32))
+    scores = scores + _einsum("bshk,btk->bhst", q_rope.to(f32),
+                              k_rope[:, :, 0].to(f32))
     scores = scores / math.sqrt(m.d_nope + m.d_rope)
     valid = torch.arange(latent.shape[1], device=latent.device) <= length
     scores = torch.where(valid, scores, scores.new_full((), _MASKED))
     probs = torch.softmax(scores, dim=-1)
-    o_lat = torch.einsum("bhst,btr->bshr", probs.to(latent.dtype), latent)
+    o_lat = _einsum("bhst,btr->bshr", probs.to(latent.dtype), latent)
     return _einsum("bshr,rhv->bshv", o_lat, kv_b_v)
 
 
@@ -566,8 +699,11 @@ def moe_route(p: Mapping[str, Any], xf: Tensor, cfg) -> MoERoute:
     the earlier flat index ranks first and keeps its slot."""
     mo = cfg.moe
     t = xf.shape[0]
-    logits = xf.to(torch.float32) @ p["router"]
-    sel = logits + p["router_bias"] if "router_bias" in p else logits
+    # on DTensors the logits come whole to every rank: the sort, ranks
+    # and slots below are integer index work on [t, k] that DTensor has no
+    # sharding strategy for (searchsorted), and every rank routes alike
+    logits = full(xf.to(torch.float32) @ p["router"])
+    sel = logits + full(p["router_bias"]) if "router_bias" in p else logits
     experts = top_k_ids(sel, mo.top_k)                        # [t, k]
     probs = torch.softmax(torch.gather(logits, 1, experts), dim=-1)
     flat_e = experts.reshape(-1)
@@ -628,10 +764,14 @@ def moe_fwd(p: Mapping[str, Any], x: Tensor, cfg, shard=NO_SHARD
     mo = cfg.moe
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
-    route = moe_route(p, xf, cfg)
-    buf = shard(moe_dispatch(xf, route, mo.n_experts), "moe_dispatch")
-    eo = moe_experts(p, buf, shard)
-    out = moe_combine(eo, route, x.dtype)
+    # on DTensors, dispatch and combine index tokens and slots whole on
+    # every rank (:func:`full`); the expert GEMMs run on the experts'
+    # shards
+    xw = full(xf)
+    route = moe_route(p, replicated_as(xw, x), cfg)
+    buf = replicated_as(moe_dispatch(xw, route, mo.n_experts), x)
+    eo = moe_experts(p, shard(buf, "moe_dispatch"), shard)
+    out = replicated_as(moe_combine(full(eo), route, x.dtype), x)
     if "shared" in p:
         out = out + swiglu_fwd(p["shared"], xf[None], shard)[0]
     return shard(out.reshape(b, s, d), "act_resid")
@@ -823,6 +963,46 @@ def _token_shift(x: Tensor, cache: Cache | None) -> Tensor:
     return torch.cat([x_prev, x[:, :-1, :]], dim=1) - x
 
 
+def _chunked_core_local(r, k, v, w, u, state0, chunk: int):
+    """:func:`rwkv_chunked_core` of DTensors: every (batch, head) pair
+    recurs alone, so each rank runs the plain core on its own shard, the
+    batch and head dims kept sharded as ``r`` has them and the sequence and
+    head width made whole (DTensor's own einsums over the chunked layout
+    mis-size their local views). Differentiable: ``to_local`` and
+    ``from_local``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = r.device_mesh
+    pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+          for p in r.placements]
+
+    def shard_of(dims):          # r's batch / head sharding on other dims
+        return [Shard(dims[p.dim]) if isinstance(p, Shard) and p.dim in dims
+                else Replicate() for p in pl]
+
+    u_pl, s_pl = shard_of({2: 0}), shard_of({0: 0, 2: 1})
+    r, k, v, w = (replicated_as(x, r).redistribute(mesh, pl)
+                  for x in (r, k, v, w))
+    u = replicated_as(u, r).redistribute(mesh, u_pl)
+    state0 = replicated_as(state0, r).redistribute(mesh, s_pl)
+    # u is shared by the batch: on a mesh dim that splits the batch, each
+    # rank's gradient of u is a partial sum
+    u_grad = [Partial() if isinstance(p, Shard) and p.dim == 0 else q
+              for p, q in zip(pl, u_pl)]
+    out, state = rwkv_chunked_core(r.to_local(), k.to_local(), v.to_local(),
+                                   w.to_local(),
+                                   u.to_local(grad_placements=u_grad),
+                                   state0.to_local(), chunk)
+    out, state = out.contiguous(), state.contiguous()
+    b, s, h, hd = r.shape
+    return (DTensor.from_local(out, mesh, pl, run_check=False,
+                               shape=(b, s, h, hd),
+                               stride=(s * h * hd, h * hd, hd, 1)),
+            DTensor.from_local(state, mesh, s_pl, run_check=False,
+                               shape=(b, h, hd, hd),
+                               stride=(h * hd * hd, hd * hd, hd, 1)))
+
+
 def rwkv_chunked_core(r: Tensor, k: Tensor, v: Tensor, w: Tensor,
                       u: Tensor, state0: Tensor, chunk: int = RWKV_CHUNK
                       ) -> tuple[Tensor, Tensor]:
@@ -840,7 +1020,12 @@ def rwkv_chunked_core(r: Tensor, k: Tensor, v: Tensor, w: Tensor,
     terms of all chunks are batched einsums; only the carried state is a
     loop over the chunks, each chunk's increment computed for all chunks
     at once. r/k/v/w [B, S, H, hd] float32, u [H, hd], state0
-    [B, H, hd, hd] -> (out [B, S, H, hd], state_T)."""
+    [B, H, hd, hd] -> (out [B, S, H, hd], state_T). On DTensors it runs
+    shard by shard (:func:`_chunked_core_local`)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(r, DTensor):
+        return _chunked_core_local(r, k, v, w, u, state0, chunk)
     b, s, h, hd = r.shape
     pad = (-s) % chunk
     if pad:
@@ -916,14 +1101,14 @@ def rwkv6_timemix_fwd(p: Mapping[str, Any], x: Tensor, cfg, *,
         return x + diff * p["maa"][i].to(x.dtype)
 
     xr, xk, xv, xw, xg = (mix(i) for i in range(5))
-    r = (xr @ p["wr"]).reshape(b, s, n_h, hd)
-    k = (xk @ p["wk"]).reshape(b, s, n_h, hd)
-    v = (xv @ p["wv"]).reshape(b, s, n_h, hd)
+    r = reshape(xr @ p["wr"], b, s, n_h, hd)
+    k = reshape(xk @ p["wk"], b, s, n_h, hd)
+    v = reshape(xv @ p["wv"], b, s, n_h, hd)
     g = F.silu(xg @ p["wg"])
     wf = xw.to(torch.float32)
     w = p["w0"] + torch.tanh(wf @ p["w1"]) @ p["w2"]           # [B,S,d]
     w = torch.exp(-torch.clamp(torch.exp(w), 0.0, _LOG_DECAY_CLAMP))
-    w = w.reshape(b, s, n_h, hd)                             # decay in (0,1)
+    w = reshape(w, b, s, n_h, hd)                            # decay in (0,1)
 
     u = p["u"]
     if _needs_grad(r, k, v, w, u, state0):

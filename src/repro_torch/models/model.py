@@ -443,7 +443,8 @@ def chunked_ce_loss(x: Tensor, unembed: Tensor, labels: Tensor,
         logits = shard(_logits(xc[:, i], unembed), "logits")
         lse = torch.logsumexp(logits, dim=-1)
         safe = torch.clamp(lc[:, i], min=0).to(torch.int64)
-        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+        gold = torch.gather(L.unshard_dim(logits, -1), -1,
+                            safe[..., None])[..., 0]
         mm = mc[:, i].to(torch.float32)
         nlls.append(torch.sum((lse - gold) * mm))
         cnts.append(torch.sum(mm))
@@ -472,7 +473,8 @@ def train_forward(params: LM, batch: dict[str, Tensor], cfg: ArchConfig,
     pass."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = shard(F.embedding(tokens, params.embed), "act_resid")
+    x = shard(F.embedding(tokens, L.unshard_dim(params.embed, 0)),
+              "act_resid")
     if cfg.enc_dec:
         memory = encoder_fwd(params, batch["enc_input"], cfg, shard,
                              remat=remat)
@@ -541,8 +543,8 @@ def _cross_kv(attn: L.Attention, memory: Tensor, cfg: ArchConfig
     encoder's output: ``memory @ wk``, ``memory @ wv`` (no bias)."""
     b, s, d = memory.shape
     hk, hd = cfg.n_kv_heads, cfg.head_dim
-    k = (memory @ attn.wk.reshape(d, hk * hd)).reshape(b, s, hk, hd)
-    v = (memory @ attn.wv.reshape(d, hk * hd)).reshape(b, s, hk, hd)
+    k = L.reshape(memory @ L.reshape(attn.wk, d, hk * hd), b, s, hk, hd)
+    v = L.reshape(memory @ L.reshape(attn.wv, d, hk * hd), b, s, hk, hd)
     return k, v
 
 
@@ -588,10 +590,10 @@ def _dec_layer(blk: Block, cp: CrossAttention, x: Tensor,
     h = L.rmsnorm(x, cp.ln, cfg.norm_eps)
     b, s, d = h.shape
     hq, hd = cfg.n_heads, cfg.head_dim
-    q = (h @ cp.attn.wq.reshape(d, hq * hd)).reshape(b, s, hq, hd)
+    q = L.reshape(h @ L.reshape(cp.attn.wq, d, hq * hd), b, s, hq, hd)
     ck, cv = ckv if ckv is not None else _cross_kv(cp.attn, memory, cfg)
     o = L._sdpa(q, ck, cv, causal=False, window=None, shard=shard)
-    x = x + o.reshape(b, s, hq * hd) @ cp.attn.wo.reshape(hq * hd, d)
+    x = x + L.reshape(o, b, s, hq * hd) @ L.reshape(cp.attn.wo, hq * hd, d)
     h = _norm(x, blk.ln2, cfg.norm_eps)
     return x + _ffn_fwd(blk.ffn, h, cfg, shard), nc
 
@@ -606,7 +608,8 @@ def _mtp_loss(params: LM, x: Tensor, batch: dict[str, Tensor],
     and ``mtp.norm`` predict token t+2: the chunked cross-entropy against
     the labels and mask shifted by one (zero at the end)."""
     tokens, labels, mask = batch["tokens"], batch["labels"], batch["mask"]
-    emb_next = torch.cat([F.embedding(tokens[:, 1:], params.embed),
+    emb_next = torch.cat([F.embedding(tokens[:, 1:],
+                                      L.unshard_dim(params.embed, 0)),
                           x.new_zeros((x.shape[0], 1, x.shape[2]))], dim=1)
     h = torch.cat([x, emb_next.to(x.dtype)], dim=-1) @ params.mtp.proj
     h, _ = apply_layer(params.mtp.block, h, cfg, "attn_dense", pos=pos,

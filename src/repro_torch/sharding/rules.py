@@ -265,6 +265,39 @@ def placements(spec, mesh) -> tuple:
                  for n in names)
 
 
+def place_tree(tree: Any, mesh, specs: Any) -> Any:
+    """A tree (dicts, lists, tuples) of tensors that every rank holds whole
+    and alike, as DTensors on ``mesh`` placed by ``specs`` (the same tree
+    of :class:`P`): each rank keeps its own shard of its own copy, so no
+    collective runs (``distribute_tensor(..., src_data_rank=None)``); it
+    works on the meta device. A non-tensor leaf stays as it is."""
+    from torch.distributed.tensor import distribute_tensor
+
+    if isinstance(tree, Mapping):
+        return {k: place_tree(v, mesh, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(place_tree(v, mesh, s) for v, s in zip(tree, specs))
+    if not isinstance(tree, Tensor):
+        return tree
+    return distribute_tensor(tree.detach(), mesh, placements(specs, mesh),
+                             src_data_rank=None)
+
+
+def place_parameters(model: torch.nn.Module, mesh,
+                     specs: Mapping[str, P]) -> torch.nn.Module:
+    """``model``'s parameters replaced in place by DTensors on ``mesh``
+    placed by ``specs`` (by parameter name, as :func:`param_pspecs` names
+    them), as :func:`place_tree` places them; ``requires_grad`` kept.
+    Returns ``model``, whose steps then run sharded
+    (``train.make_train_step(..., shard=make_shard_fn(mesh))``)."""
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        setattr(mod, leaf, torch.nn.Parameter(
+            place_tree(p, mesh, specs[name]), requires_grad=p.requires_grad))
+    return model
+
+
 # -- activations -------------------------------------------------------------
 
 def batch_axes(mesh) -> tuple[str, ...]:
@@ -384,5 +417,5 @@ def cache_pspecs(cache, mesh, batch: int) -> list:
 
 
 __all__ = ["P", "mesh_shape", "param_pspec", "param_pspecs", "opt_pspecs",
-           "placements", "batch_axes", "batch_pspec", "make_shard_fn",
-           "cache_pspecs"]
+           "placements", "place_tree", "place_parameters", "batch_axes",
+           "batch_pspec", "make_shard_fn", "cache_pspecs"]

@@ -120,7 +120,11 @@ def _qdecode_sqrt(q: Mapping[str, Tensor], shape) -> Tensor:
 def init_opt_state(params: Mapping[str, Tensor] | torch.nn.Module,
                    cfg: OptConfig) -> dict[str, Any]:
     """``{"step": int32 0-d, "m": {name: moment}, "v": {name: moment}}`` on
-    the parameters' devices, the moments zero."""
+    the parameters' devices, the moments zero. Where the parameters are
+    DTensors, every moment leaf (an int8 ``code`` and ``scale`` included)
+    is a DTensor on their mesh, placed by ``sharding.rules.opt_pspecs``
+    (ZeRO-style, as the reference places its state); the step stays a
+    plain tensor, the same on every rank."""
     params = _named(params)
 
     def zeros_like_moment(p):
@@ -128,9 +132,32 @@ def init_opt_state(params: Mapping[str, Tensor] | torch.nn.Module,
         return _qencode(z) if cfg.quantize_moments else z
 
     dev = next(iter(params.values())).device
-    return {"step": torch.zeros((), dtype=torch.int32, device=dev),
-            "m": {n: zeros_like_moment(p) for n, p in params.items()},
-            "v": {n: zeros_like_moment(p) for n, p in params.items()}}
+    state = {"step": torch.zeros((), dtype=torch.int32, device=dev),
+             "m": {n: zeros_like_moment(p) for n, p in params.items()},
+             "v": {n: zeros_like_moment(p) for n, p in params.items()}}
+    mesh = _mesh_of(params)
+    return state if mesh is None else _place_moments(state, mesh)
+
+
+def _mesh_of(params: Mapping[str, Tensor]):
+    """The ``DeviceMesh`` of the first DTensor parameter, or None."""
+    from torch.distributed.tensor import DTensor
+
+    for p in params.values():
+        if isinstance(p, DTensor):
+            return p.device_mesh
+    return None
+
+
+def _place_moments(state: dict[str, Any], mesh) -> dict[str, Any]:
+    """Every moment leaf of ``state`` (whole, the same on every rank) as a
+    DTensor on ``mesh`` placed by ``opt_pspecs``; no communication."""
+    from ..sharding.rules import opt_pspecs, place_tree
+
+    specs = opt_pspecs(state, mesh)
+    return {"step": state["step"],
+            **{key: place_tree(state[key], mesh, specs[key])
+               for key in ("m", "v")}}
 
 
 def opt_state_specs(params: Mapping[str, Tensor] | torch.nn.Module,
@@ -187,6 +214,8 @@ def apply_updates(params: Mapping[str, Tensor] | torch.nn.Module,
     Parameters and float32 moments are updated in place. Returns (params,
     state, metrics), ``metrics`` the device scalars ``grad_norm`` and
     ``lr``."""
+    from torch.distributed.tensor import DTensor
+
     params = _named(params)
     step = state["step"] + 1
     gnorm = _global_norm(grads)
@@ -200,23 +229,67 @@ def apply_updates(params: Mapping[str, Tensor] | torch.nn.Module,
     for name, p in params.items():
         ndim = p.ndim + (name in stacked)
         wd = cfg.weight_decay if ndim >= 2 else 0.0
-        new_m[name], new_v[name] = _update(
+        upd = _update_dtensor if isinstance(p, DTensor) else _update
+        new_m[name], new_v[name] = upd(
             p, grads[name], state["m"][name], state["v"][name], wd, clip,
             lr, b1c, b2c, cfg)
     return (params, {"step": step, "m": new_m, "v": new_v},
             {"grad_norm": gnorm, "lr": lr})
 
 
+def _placed_as(x: Tensor, like: Tensor) -> Tensor:
+    """DTensor ``x`` redistributed to ``like``'s placements."""
+    if tuple(x.placements) == tuple(like.placements):
+        return x
+    return x.redistribute(like.device_mesh, like.placements)
+
+
+def _update_dtensor(p: Tensor, g: Tensor | None, m, v, *args):
+    """:func:`_update` of a DTensor parameter. Float32 moments update
+    shard by shard (the gradient redistributed to the moments' placements,
+    the step to the parameter's): every operation is elementwise, so each
+    element rounds as in the unsharded step. Int8 moments quantize in
+    blocks along the last axis, which a shard need not align with: their
+    parameter, gradient and moments are gathered whole, updated by
+    :func:`_update`, and the local shards written back."""
+    from torch.distributed.tensor import distribute_tensor
+
+    if not isinstance(m, Mapping):
+        return _update(p, g, m, v, *args, placed=True)
+
+    def whole(x):
+        return {k: whole(x[k]) for k in x} if isinstance(x, Mapping) else (
+            x.full_tensor())
+
+    def local(x, like):
+        if isinstance(like, Mapping):
+            return {k: local(x[k], like[k]) for k in like}
+        return distribute_tensor(x, like.device_mesh, like.placements,
+                                 src_data_rank=None)
+
+    pf = p.full_tensor()
+    new_m, new_v = _update(pf, None if g is None else g.full_tensor(),
+                           whole(m), whole(v),
+                           *(a.full_tensor() if hasattr(a, "full_tensor")
+                             else a for a in args))
+    p.copy_(local(pf, p))
+    return local(new_m, m), local(new_v, v)
+
+
 def _update(p: Tensor, g: Tensor | None, m, v, wd: float, clip: Tensor,
-            lr: Tensor, b1c: Tensor, b2c: Tensor, cfg: OptConfig):
+            lr: Tensor, b1c: Tensor, b2c: Tensor, cfg: OptConfig, *,
+            placed: bool = False):
     """One parameter's AdamW update, ``p`` in place; returns its new
     moments. The arithmetic is the reference's, operation by operation
     (products and sums in its order, each rounded once), with temporaries
     freed as soon as they are spent and in-place operations where they
     round alike: at most about five float32 copies of the parameter are
-    alive at once, and none outlives the call."""
-    gf = (torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    alive at once, and none outlives the call. ``placed``: ``p``, ``g``
+    and the float32 moments are DTensors (:func:`_update_dtensor`)."""
+    gf = (torch.zeros_like(p, dtype=torch.float32)
           if g is None else g.to(torch.float32) * clip)
+    if placed:
+        gf = _placed_as(gf, m)
     if cfg.quantize_moments:
         m_f = cfg.b1 * _qdecode(m, p.shape)
         m_f += (1 - cfg.b1) * gf
@@ -235,6 +308,8 @@ def _update(p: Tensor, g: Tensor | None, m, v, wd: float, clip: Tensor,
     upd = m_f / b1c
     upd /= den
     del den
+    if placed:
+        upd = _placed_as(upd, p)
     pf = p.to(torch.float32)
     upd += wd * pf
     upd *= lr

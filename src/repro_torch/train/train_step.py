@@ -31,10 +31,20 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,
     which shifts only the top-k selection) keeps ``.grad`` None, and the
     optimizer takes it as a zero gradient, as ``jax.grad`` returns zeros
     there. The metrics are device scalars: the mean ``loss``,
-    ``grad_norm`` and ``lr``; nothing is fetched to the host."""
+    ``grad_norm`` and ``lr``; nothing is fetched to the host.
+
+    Sharded: with the parameters placed as DTensors
+    (``sharding.rules.place_parameters``), the batch placed over "data"
+    (``place_tree``), the optimizer state from ``init_opt_state`` (placed
+    by ``opt_pspecs``) and ``shard=make_shard_fn(mesh)``, the same step
+    runs on the mesh, under :func:`replicating`."""
 
     def train_step(params: LM, opt_state: dict, batch: dict[str, Tensor]):
         named = dict(params.named_parameters())
+        with replicating(named.values()):
+            return _step(params, named, opt_state, batch)
+
+    def _step(params, named, opt_state, batch):
         for name, p in named.items():
             if not p.requires_grad or p.dtype != torch.float32:
                 raise ValueError(
@@ -61,6 +71,21 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,
         return params, opt_state, {"loss": loss, **opt_metrics}
 
     return train_step
+
+
+def replicating(tensors):
+    """``implicit_replication()`` where any of ``tensors`` is a DTensor,
+    else nothing: a sharded step meets plain tensors that every rank
+    computes alike (masks, rotary tables, positions, the optimizer's step
+    and learning rate), which DTensor then takes as replicated."""
+    import contextlib
+
+    from torch.distributed.tensor import DTensor
+
+    if not any(isinstance(t, DTensor) for t in tensors):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
 
 
 def make_eval_step(cfg: ArchConfig, *, shard=NO_SHARD) -> Callable:

@@ -367,8 +367,21 @@ def test_cli_one_arch_on_the_pod_mesh(tmp_path):
     assert set(cells) == {f"pod__whisper-tiny__{s}.json" for s in SHAPES}
     cell = cells["pod__whisper-tiny__train_4k.json"]
     assert cell["status"] == "ok" and cell["chips"] == 256
-    assert cell["collectives"] is None and cell["collectives_reason"]
-    assert cell["roofline"]["dominant"] in ("compute", "memory")
+    coll = cell["collectives"]
+    assert cell["collectives_reason"] is None
+    assert set(coll["counts"]) <= {"all-gather", "reduce-scatter",
+                                   "all-reduce", "all-to-all", "broadcast"}
+    assert coll["counts"]["all-gather"] > 0
+    assert coll["comm_debug_total"] == sum(coll["counts"].values())
+    assert coll["total_bytes"] == sum(coll["per_kind_bytes"].values()) > 0
+    assert coll["composed_from_periods"] == [1, 2]
+    terms = cell["roofline"]
+    assert terms["collective_bytes_per_device"] == coll["total_bytes"]
+    assert terms["collective_s"] == pytest.approx(
+        coll["total_bytes"] / TH.LINK_BW)
+    assert terms["dominant"] == max(
+        ("compute", "memory", "collective"),
+        key=lambda k: terms[f"{k}_s"])
     assert cell["param_bytes_rank0_dtensor"] > 0
     cfg = get_config("whisper-tiny")
     want = TD.build_cell(cfg, SHAPES["train_4k"], MESHES["pod"])[1]

@@ -66,6 +66,44 @@ def test_port_imports_no_jax_and_no_reference():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+
+def test_torch_examples_import_no_jax_and_no_reference():
+    """``examples/*_torch.py`` name no ``jax`` and nothing of ``repro.`` in
+    an import statement, and the three with a ``main`` guard load neither
+    when imported."""
+    import ast
+    examples = sorted((SRC.parent / "examples").glob("*_torch.py"))
+    assert {p.name for p in examples} >= {
+        "sph_fluid_torch.py", "quickstart_torch.py",
+        "pointcloud_pipeline_torch.py", "train_lm_torch.py"}
+    for path in examples:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            for mod in mods:
+                assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), (
+                    path.name, mod)
+    guarded = [str(p) for p in examples
+               if "if __name__ == \"__main__\":" in p.read_text()]
+    assert len(guarded) >= 3
+    code = (
+        "import importlib.util, sys\n"
+        f"for i, path in enumerate({guarded!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'ex{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
 def test_build_index_defaults_to_cuda():
     """Without a CUDA device and without ``device="cpu"``, ``build_index``
     raises instead of running on the CPU."""
