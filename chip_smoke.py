@@ -53,6 +53,16 @@ and checks each against the brute-force oracle or against itself:
   step (two on the one re-route), 4 launches of each kernel a step, fast
   steps under y/z drift, ``bin_disp_tile`` bitwise on a slab's parked
   rows and shifted origin, step times and the device's idle share;
+- the sharded paths on rank layouts (phase ``sharded_ranks``, after
+  ``sharded``): a one-rank NCCL group over a ``HashStore``, the (4, 2)
+  query (knn, range) and the 4-slab range session (the re-route
+  included) on layouts whose one rank holds every slab, in turns with
+  the one-process path: bitwise equal, one blocking transfer a query
+  and a step (two on the re-route), a launch of each kernel a slab; the
+  times of both; the group destroyed after. With two or more cards, 2
+  or 4 NCCL ranks, one a card, run the same, every rank's results
+  bitwise the one-process path's (by digest); on one card the exchange
+  between ranks is not exercised, and the phase says so;
 - the LM serving path (phase ``lm_serve``): full-width, full-depth
   ``rwkv6-7b`` with float32 weights from a seed; ``rwkv_scan`` against its
   plain version on layer 0's and the last layer's inputs of a 4 x 2048
@@ -160,7 +170,8 @@ and checks each against the brute-force oracle or against itself:
   parameters), both timed, in a subprocess; and ``launch/dryrun.py
   --arch lm-100m --shape train_4k --mesh pod`` in a subprocess, its
   collectives counted. No hand-written kernel runs there;
-- the reference's three examples (phase ``sph``, after ``sharded``),
+- the reference's three examples (phase ``sph``, after
+  ``sharded_ranks``),
   imported from ``examples/`` and driven through their own functions:
   ``sph_fluid_torch.py``'s session at 8,000 and 1,000,000 particles (a
   warm-up step, 20 steps timed by CUDA events with fast, replan and
@@ -193,6 +204,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import json
 import math
 import re
@@ -881,6 +893,7 @@ SHARD_TILES_PER_LEVEL = 2    # tiles per window of a slab launch held
 SHARD_YZ_STEPS, SHARD_YZ_SIGMA = 4, 5e-5   # y/z-only drift: fast steps
 SHARD_PROBE_SLAB = 1         # the session's slab whose launches are split
                              # and checked
+RANKS_TIMEOUT_S = 600        # phase sharded_ranks' NCCL ranks, one a card
 
 
 def ptxas_entries(report: str) -> dict:
@@ -2662,6 +2675,284 @@ def phase_sharded(api, core, data, ref, knn_mod, upd, n_query: int = N_POINTS,
         bin_err = max(bin_err, r["bin_err"])
     emit("sharded_done", seconds=time.perf_counter() - t0)
     return dict(knn_err=knn_err, bin_err=bin_err)
+
+
+def same_bits(res, want) -> bool:
+    """Whether two search results are bitwise equal (d2 by its bits)."""
+    import torch
+    return (torch.equal(res.indices, want.indices)
+            and torch.equal(res.counts, want.counts)
+            and torch.equal(res.distances2.view(torch.int32),
+                            want.distances2.view(torch.int32)))
+
+
+def digest(res) -> str:
+    """SHA-256 of a search result's bytes (indices, d2, counts)."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in (res.indices, res.distances2, res.counts):
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def ranked_paths(api, core, data, knn_mod, upd, meshes: dict,
+                 want: dict | None = None, keep: bool = False) -> dict:
+    """The (4, 2) query on the static cell's scene (knn, range) and the
+    4-slab ``ShardedSession`` on the dynamic trajectory (range, k = 32;
+    the escape step re-routes once) on each of ``meshes`` (name ->
+    (query mesh, slab mesh)), in turns on the same inputs: every path's
+    result bitwise the first's, one blocking transfer a query and a
+    launch for each (slab, column) this process holds (8 with every
+    slab), one a step (two on the re-route) and a launch of each kernel
+    for each slab it holds, counted with the counts set to 0 just before
+    each call; query and step times in turns. ``want``: the one-process
+    path's digests from another process, which every result must match.
+    Returns the records and, with ``keep``, the first path's digests."""
+    import numpy as np
+    import torch
+    from repro_torch.core import shards
+    from repro_torch.core.distributed import distributed_neighbor_search
+    names = list(meshes)
+    opts = api.SearchOpts(use_pallas=True)
+    held = {name: (qm.block("data").count * qm.block("model").count,
+                   sm.block("data").count)
+            for name, (qm, sm) in meshes.items()}
+    digests, rec = {}, {"query": {}, "steps": [], "step_ms": {}}
+    pts = data.kitti_like_cloud(N_POINTS, seed=1)
+    q = torch.from_numpy(pts).cuda()
+    for mode in ("knn", "range"):
+        params = (api.SearchParams(radius=RADIUS, k=K) if mode == "knn" else
+                  api.SearchParams(radius=RADIUS, k=K, mode="range"))
+        first, row = None, {}
+        for name in names:
+            res, call_ms, syncs, nb, nk = counted(
+                lambda: distributed_neighbor_search(
+                    meshes[name][0], pts, pts, params, opts=opts),
+                upd, knn_mod)
+            check(len(syncs) == 1, f"sharded_ranks query {mode} {name}: "
+                  f"{len(syncs)} blocking transfers, expected 1: {syncs}")
+            check(nk == held[name][0] and nb == 0, f"sharded_ranks query "
+                  f"{mode} {name}: {nk} knn_tile_anchored launches, "
+                  f"expected {held[name][0]}")
+            if first is None:
+                first = res
+                if keep:
+                    digests[f"query/{mode}"] = digest(res)
+            else:
+                check(same_bits(res, first), f"sharded_ranks query {mode}: "
+                      f"{name} not bitwise equal to {names[0]}")
+            if want:
+                check(digest(res) == want[f"query/{mode}"],
+                      f"sharded_ranks query {mode} {name}: result differs "
+                      "from the one-process path")
+            row[name] = dict(call_ms=call_ms, blocking_transfers=syncs,
+                             knn_tile_anchored_launches=nk)
+        sparams = (dataclasses.replace(params, knn_window="exact")
+                   if mode == "knn" else params)
+        index = {name: core.shard_scene(pts, sparams, mesh=meshes[name][0],
+                                        opts=opts,
+                                        shopts=shards.STATIC_SCENE_OPTS,
+                                        queries=pts, query_axis="model")
+                 for name in names}
+        order = names + names[::-1]
+        for name in order:
+            row[name].setdefault("query_ms", []).append(cuda_time_ms(
+                lambda: index[name].query(q), SHARD_TIMED))
+        lay = index[names[0]].layout
+        row["gather_bytes"] = (lay.n_slabs * lay.n_qsplit * lay.query_cap
+                               * (2 * params.k + 1) * 4)
+        rec["query"][mode] = row
+        del index, first, res
+    del q
+    torch.cuda.empty_cache()
+
+    frames, vel = trajectory(DYN_N, DYN_STEPS, DYN_SEED,
+                             0.03 * DYN_RADIUS / 4.0)
+    escape = frames[-1].copy()
+    escape[:DYN_ESCAPEES, 0] = np.float32(1.1)
+    seq = frames + [escape, (escape + vel).astype(np.float32)]
+    params = core.SearchParams(radius=DYN_RADIUS, k=DYN_K, mode="range")
+    sess = {name: core.ShardedSession(frames[0], params, opts,
+                                      mesh=meshes[name][1])
+            for name in names}
+    for i, frame in enumerate(seq):
+        cur = torch.from_numpy(frame).cuda()
+        row, first = {"step": i}, None
+        for name in names:
+            s = sess[name]
+            r0 = s.stats()["reroutes"]
+            res, wall_ms, syncs, nb, nk = step_counted(s, upd, knn_mod, cur)
+            rerouted = s.stats()["reroutes"] - r0
+            check(rerouted == int(i == DYN_STEPS), f"sharded_ranks step {i} "
+                  f"{name}: {rerouted} re-routes")
+            check(len(syncs) == 1 + rerouted, f"sharded_ranks step {i} "
+                  f"{name}: {len(syncs)} blocking transfers: {syncs}")
+            check(nb == held[name][1] and nk == held[name][1],
+                  f"sharded_ranks step {i} {name}: launches bin_disp_tile="
+                  f"{nb} knn_tile_anchored={nk}, expected {held[name][1]} "
+                  "each (the slabs this process holds)")
+            if first is None:
+                first = res
+                if keep:
+                    digests[f"step/{i}"] = digest(res)
+            else:
+                check(same_bits(res, first) and s.last_flags
+                      == sess[names[0]].last_flags,
+                      f"sharded_ranks step {i}: {name} not bitwise equal "
+                      f"to {names[0]}")
+            if want:
+                check(digest(res) == want[f"step/{i}"],
+                      f"sharded_ranks step {i} {name}: result differs "
+                      "from the one-process path")
+            row[name] = dict(wall_ms=wall_ms, blocking_transfers=syncs,
+                             launches=[nb, nk], flags=s.last_flags)
+        rec["steps"].append(row)
+    stats = {name: {k: v for k, v in s.stats().items() if k != "t_step"}
+             for name, s in sess.items()}
+    for name in names[1:]:
+        check(stats[name] == stats[names[0]], f"sharded_ranks: {name}'s "
+              f"stats() differ from {names[0]}'s")
+    rec["stats"] = {k: v for k, v in stats[names[0]].items()
+                    if not k.startswith("level_occ_")}
+
+    # timed steps in turns: a point moved by a cell and back makes replan
+    # steps, the steps between them replays
+    a = cur
+    b = a.clone()
+    b[DYN_ESCAPEES, 0] += sess[names[0]].spec.cell_size
+    times = {name: {"fast": [], "replan": []} for name in names}
+    for j, target in enumerate([b, b, a, a] * ((N_TIMED_STEPS + 1) // 2)):
+        for name in (names if j % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess[name].step(target)
+            torch.cuda.synchronize()
+            times[name]["replan" if sess[name].last_flags & 1 else
+                        "fast"].append((time.perf_counter() - t0) * 1e3)
+    rec["step_ms"] = {name: {kind: (sorted(v)[len(v) // 2] if v else None)
+                             for kind, v in d.items()}
+                      for name, d in times.items()}
+    rec["steps_ms"] = times
+    lay = sess[names[0]].layout
+    rec["gather_bytes_per_step"] = (lay.n_slabs * lay.point_cap
+                                    * (2 * params.k + 2) * 4)
+    del sess, cur, a, b, first, res
+    torch.cuda.empty_cache()
+    return dict(record=rec, digests=digests)
+
+
+def sharded_ranks_worker(rank: int, world: int, store: str,
+                         out_dir: str) -> None:
+    """One of ``world`` NCCL ranks, one a card (phase ``sharded_ranks``):
+    :func:`ranked_paths` on the default rank layouts of the (4, 2) mesh
+    and of 4 slabs, every result held to the one-process path's digests
+    (``want.json``); writes ``rank<r>.json``. An error ends the rank, and
+    the phase with it."""
+    import os
+    os.environ["LOCAL_RANK"] = str(rank)
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    import repro_torch.api as api
+    import repro_torch.core as core
+    import repro_torch.data as data
+    from repro_torch.kernels import knn_tile as knn_mod
+    from repro_torch.kernels import update_tile as upd
+    from repro_torch.launch.mesh import make_mesh_compat, make_slab_mesh
+    want = json.loads(Path(out_dir, "want.json").read_text())
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            device_id=torch.device("cuda", rank),
+                            timeout=datetime.timedelta(
+                                seconds=RANKS_TIMEOUT_S // 3))
+    try:
+        meshes = {"ranks": (make_mesh_compat(SHARD_MESH, ("data", "model")),
+                            make_slab_mesh(SHARD_SLABS))}
+        emit("sharded_ranks_worker", rank=rank, world=world, stage="meshes")
+        out = ranked_paths(api, core, data, knn_mod, upd, meshes, want)
+        emit("sharded_ranks_worker", rank=rank, world=world, stage="done")
+        out["blocks"] = [[b.first, b.count, b.n_ranks] for b in (
+            mesh.block("data") for mesh in meshes["ranks"])]
+        out["device"] = str(meshes["ranks"][1].device)
+    finally:
+        dist.destroy_process_group()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def phase_sharded_ranks(api, core, data, knn_mod, upd) -> None:
+    """Phase ``sharded_ranks``: the sharded paths on rank layouts. Under a
+    one-rank NCCL group over a ``HashStore`` (no network), a ranked (4, 2)
+    mesh and a ranked 4-slab mesh, both on this card, against the
+    one-process path in turns (:func:`ranked_paths`); the group is
+    destroyed after. Where there are several cards, ``min(count, 4)``
+    NCCL ranks (2 or 4, to divide the slabs), one a card, run the same,
+    every result bitwise the one-process path's."""
+    import os
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.launch.mesh import make_mesh_compat, make_slab_mesh
+    t0 = time.perf_counter()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        alone = (make_mesh_compat(SHARD_MESH, ("data", "model")),
+                 make_slab_mesh(SHARD_SLABS))
+        check(alone[0].ranks is None and alone[1].ranks is None,
+              "sharded_ranks: a one-rank group gave a rank layout")
+        one_q = DeviceMesh("cuda", torch.arange(1).reshape(1, 1),
+                           mesh_dim_names=("data", "model"))
+        one_s = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("data",))
+        ranked = (make_mesh_compat(SHARD_MESH, ("data", "model"),
+                                   ranks=one_q),
+                  make_slab_mesh(SHARD_SLABS, ranks=one_s))
+        out = ranked_paths(api, core, data, knn_mod, upd,
+                           {"one_process": alone, "one_rank": ranked},
+                           keep=torch.cuda.device_count() >= 2)
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "sharded_ranks: a process group is "
+          "left behind")
+    cards = torch.cuda.device_count()
+    rank_runs = None
+    if cards >= 2:
+        world = 4 if cards >= 4 else 2
+        tmp = ROOT / "build" / "sharded_ranks"
+        tmp.mkdir(parents=True, exist_ok=True)
+        for old in tmp.glob("*"):
+            old.unlink()
+        (tmp / "want.json").write_text(json.dumps(out["digests"]))
+        ctx = mp.start_processes(sharded_ranks_worker,
+                                 args=(world, str(tmp / "store"), str(tmp)),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + RANKS_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=1):
+                check(time.monotonic() < deadline, f"sharded_ranks: {world} "
+                      f"NCCL ranks did not finish in {RANKS_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(5)
+        rank_runs = [json.loads((tmp / f"rank{r}.json").read_text())
+                     for r in range(world)]
+    emit("sharded_ranks", ranks=len(rank_runs) if rank_runs else 1,
+         cards=cards,
+         nccl_exchange=("exercised between ranks, one a card" if rank_runs
+                        else "not exercised: one card, so a one-rank group "
+                        "(its gathers and reductions run, no neighbour to "
+                        "send to)"),
+         one_card=out["record"],
+         rank_runs=[r["record"] | {"blocks": r["blocks"],
+                                   "device": r["device"]}
+                    for r in rank_runs or []],
+         seconds=time.perf_counter() - t0)
 
 
 
@@ -5601,6 +5892,7 @@ def main() -> int:
 
     sharded = phase_sharded(api, core, data, ref, knn_mod, upd)
     d["err"] = max(d["err"], sharded["bin_err"])
+    phase_sharded_ranks(api, core, data, knn_mod, upd)
 
     phase_sph(core, ref, knn_mod, upd)
 

@@ -2,10 +2,13 @@
 subsystem (``core/shards.py``), as in the reference's
 ``core/distributed.py``.
 
-The slabs of the mesh share its one device (``launch/mesh.py``); routing,
-the halo exchange and the inverse scatter run on that device with no host
-synchronisation, and the per-slab search is ``api.query`` over the slab's
-``NeighborIndex``.
+The mesh (``launch/mesh.py``) is passed through unchanged: without a rank
+layout its slabs share its one device; with one, each rank searches its
+block of (slab, query column) cells on its own device, halos go rank to
+rank and the results are gathered, so every rank returns the whole
+result. Routing, the halo exchange and the inverse scatter run on the
+device with no host synchronisation, and the per-slab search is
+``api.query`` over the slab's ``NeighborIndex``.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ def distributed_neighbor_search(mesh, points, queries,
                                 cell_size: float | None = None,
                                 opts: SearchOpts = SearchOpts()
                                 ) -> SearchResult:
-    """One-shot sharded search: plan, route, search, un-route.
+    """One-shot sharded search: plan, route, search, gather, un-route.
 
     Results come back in query order with global point indices. KNN keeps
     this surface's exactness contract: the heuristic window is upgraded to

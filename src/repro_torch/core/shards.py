@@ -8,17 +8,26 @@ with every other slab and differs only in its frame (``origin_of``: the
 spec origin shifted by ``slab * slab_width`` along x).
 
 Where the reference runs one device per slab under ``shard_map`` and
-exchanges rows with ``ppermute``, the port runs every slab in one process
-on one device, with the slab axis as the leading tensor dimension:
+exchanges rows with ``ppermute``, the port runs a contiguous block of
+slabs in each process (``launch/mesh.py``: all of them without a rank
+layout, ``S / R`` on each of ``R`` ranks with one), with the slab axis
+as the leading tensor dimension:
 
-* ``pts [S, P, 3]`` and ``ids [S, P]`` are the reference's global arrays;
+* ``pts [S_r, P, 3]`` and ``ids [S_r, P]`` are the rank's rows of the
+  reference's global arrays, slab ids global (``_slab_ids``);
 * a ``ppermute`` to the right or left neighbor is a shift along that axis
-  with a zero fill at the mesh edge, which is what ``ppermute`` gives a
-  device with no source (hence ``_pack``'s ids shifted by +1);
-* routing, halo exchange and migration are batched over the slab axis;
-  the per-slab search is a Python loop over the slabs that calls
+  inside the block; the slot at the block's edge comes from the
+  neighbouring rank's edge slab by ``batch_isend_irecv`` (payloads at the
+  static per-face caps, so no sizes travel), and is zeros at the mesh
+  edge, which is what ``ppermute`` gives a device with no source (hence
+  ``_pack``'s ids shifted by +1);
+* routing is of the whole input on every rank, each keeping its block;
+  halo exchange and migration are batched over the block; the per-slab
+  search is a Python loop over the rank's slabs that calls
   ``api.build_index`` / ``update_index`` / ``plan_query`` /
-  ``execute_plan`` with the slab's origin.
+  ``execute_plan`` with the slab's origin, and the per-slab results are
+  gathered over the ranks (one ``all_gather`` an axis) before the inverse
+  scatter, so every rank returns the whole result.
 
 Scatters that the reference drops out of range (``mode="drop"``) write to
 a dump row past the end that is sliced off: only the dump row ever takes
@@ -31,7 +40,9 @@ which would synchronise with the host.
 (two when the layout is exhausted and the scene is re-routed), as the
 port's ``SimulationSession`` does: the telemetry vector carries a per-slab
 stale tail, so the host makes the reference's per-slab ``lax.cond``
-(replan or replay) for each slab.
+(replan or replay) for each slab. Across ranks its header is reduced on
+the device before that fetch (flags and staleness by max, counters by
+sum), so every rank takes the same branch.
 """
 from __future__ import annotations
 
@@ -42,6 +53,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..obs.device import TELEM_DISP_BITS, TELEM_FLAGS
 from . import api
 from .dynamic import SessionOpts, _host_points, validate_session_opts
 from .types import (PARK_SENTINEL, GridSpec, SearchOpts, SearchParams,
@@ -369,27 +381,121 @@ def _unpack(buf: Tensor) -> tuple[Tensor, Tensor]:
     return p, i
 
 
-def _from_left(buf: Tensor) -> Tensor:
-    """Slab s receives slab s-1's buffer (the reference's ``ppermute`` to
-    the right neighbor); slab 0 receives zeros."""
-    return torch.cat([torch.zeros_like(buf[:1]), buf[:-1]])
+def _whole(n: int):
+    """The block of a mesh axis of ``n`` items held all in process."""
+    from ..launch.mesh import AxisBlock
+    return AxisBlock(size=n, first=0, count=n)
 
 
-def _from_right(buf: Tensor) -> Tensor:
-    """Slab s receives slab s+1's buffer; the last slab receives zeros."""
-    return torch.cat([buf[1:], torch.zeros_like(buf[:1])])
+def _own(x: Tensor, blk) -> Tensor:
+    """The rank's block of ``x``'s leading axis (all of it in process)."""
+    if blk.count == blk.size:
+        return x
+    return x[blk.first:blk.first + blk.count].clone()
 
 
-def _slab_ids(layout: SlabLayout, device) -> Tensor:
-    return torch.arange(layout.n_slabs, dtype=torch.int32, device=device)
+def _shift(blk, to_right: Tensor, to_left: Tensor
+           ) -> tuple[Tensor, Tensor]:
+    """The reference's two ``ppermute``s along the slab axis: slab s
+    receives ``to_right`` of slab s-1 and ``to_left`` of slab s+1 (leading
+    axis: the block's slabs). Inside the block a shift; at its edges the
+    neighbouring ranks' edge slabs, sent and received in one
+    ``batch_isend_irecv`` (every rank issues its ops in the same order:
+    left face, then right); zeros at the mesh edge."""
+    edge_l = torch.zeros_like(to_right[:1])
+    edge_r = torch.zeros_like(to_left[:1])
+    if blk.group is not None:
+        import torch.distributed as dist
+        ops = []
+        if blk.left is not None:
+            ops += [dist.P2POp(dist.isend, to_left[0].contiguous(),
+                               blk.left, blk.group),
+                    dist.P2POp(dist.irecv, edge_l[0], blk.left, blk.group)]
+        if blk.right is not None:
+            ops += [dist.P2POp(dist.isend, to_right[-1].contiguous(),
+                               blk.right, blk.group),
+                    dist.P2POp(dist.irecv, edge_r[0], blk.right, blk.group)]
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+    return (torch.cat([edge_l, to_right[:-1]]),
+            torch.cat([to_left[1:], edge_r]))
 
 
-def _with_halo(layout: SlabLayout, pts: Tensor, ids: Tensor
+def _gather(x: Tensor, blk, dim: int = 0) -> Tensor:
+    """``x``, whose axis ``dim`` holds the rank's ``blk.count`` items,
+    gathered over the axis's ranks into all ``blk.size`` items (ranks in
+    mesh order: ``launch/mesh.py`` checks it); ``x`` itself in process."""
+    if blk.group is None:
+        return x
+    import torch.distributed as dist
+    gather = (getattr(dist, "all_gather_single", None)
+              or dist.all_gather_into_tensor)
+    x = x.movedim(dim, 0).contiguous()
+    out = x.new_empty((blk.n_ranks * x.shape[0], *x.shape[1:]))
+    gather(out, x, group=blk.group)
+    return out.movedim(0, dim)
+
+
+def _sum_over(x: Tensor, blk) -> Tensor:
+    """The sum of ``x`` [n] over the axis's ranks, on the device."""
+    if blk.group is not None:
+        import torch.distributed as dist
+        x = x.clone()
+        dist.all_reduce(x, group=blk.group)
+    return x
+
+
+def _reduce_header(head: Tensor, blk) -> Tensor:
+    """A telemetry header reduced over the slab axis's ranks, on the
+    device: flags and the staleness statistic by max, the counters by
+    sum. The staleness is a non-negative float32 whose bit pattern, read
+    as int32, orders as the float does."""
+    if blk.group is None:
+        return head
+    heads = _gather(head[None], blk)
+    out = heads.sum(0, dtype=torch.int32)
+    for slot in (TELEM_FLAGS, TELEM_DISP_BITS):
+        out[slot] = heads[:, slot].max()
+    return out
+
+
+def _gather_results(parts: tuple, blocks: list) -> tuple:
+    """Per-row results of the rank's block (int32 or float32, each with a
+    trailing k like the first or without one) gathered over the ranks of
+    each ``(AxisBlock, dim)`` of ``blocks``: packed into int32 columns
+    (float32 by its bit pattern), so one gather an axis moves them all,
+    then unpacked. ``parts`` themselves in process."""
+    ranked = [(blk, dim) for blk, dim in blocks if blk.group is not None]
+    if not ranked:
+        return parts
+    lead = parts[0].dim()
+    cols = [(p if p.dtype == torch.int32 else p.view(torch.int32))
+            for p in parts]
+    cols = [c if c.dim() == lead else c[..., None] for c in cols]
+    packed = torch.cat(cols, dim=-1)
+    for blk, dim in ranked:
+        packed = _gather(packed, blk, dim)
+    pieces = torch.split(packed, [c.shape[-1] for c in cols], dim=-1)
+    return tuple((piece if p.dim() == lead else piece[..., 0]).view(p.dtype)
+                 for p, piece in zip(parts, pieces))
+
+
+def _slab_ids(layout: SlabLayout, device, blk=None) -> Tensor:
+    """Global ids of the block's slabs (all of them in process)."""
+    blk = blk or _whole(layout.n_slabs)
+    return torch.arange(blk.first, blk.first + blk.count,
+                        dtype=torch.int32, device=device)
+
+
+def _with_halo(layout: SlabLayout, pts: Tensor, ids: Tensor, blk=None
                ) -> tuple[Tensor, Tensor, Tensor]:
     """O(surface) halo exchange: each slab ships the rows within ``halo``
     of its two faces to the neighbors. Returns the halo-extended
-    ``(all_p [S, P + 2H, 3], all_i [S, P + 2H], overflow [S])``."""
-    sidx = _slab_ids(layout, pts.device)
+    ``(all_p [S, P + 2H, 3], all_i [S, P + 2H], overflow [S])`` of the
+    block ``blk`` (all slabs when None)."""
+    blk = blk or _whole(layout.n_slabs)
+    sidx = _slab_ids(layout, pts.device, blk)
     slab_lo, slab_hi = layout.slab_bounds(sidx)
     halo = _f32(layout.halo, pts.device)
     valid = ids >= 0
@@ -406,14 +512,16 @@ def _with_halo(layout: SlabLayout, pts: Tensor, ids: Tensor
                                            layout.halo_cap)
     ovf = ((n_l - layout.halo_cap).clamp_min(0)
            + (n_r - layout.halo_cap).clamp_min(0))
-    halo_l_p, halo_l_i = _unpack(_from_left(_pack(send_r_p, send_r_i)))
-    halo_r_p, halo_r_i = _unpack(_from_right(_pack(send_l_p, send_l_i)))
+    from_l, from_r = _shift(blk, _pack(send_r_p, send_r_i),
+                            _pack(send_l_p, send_l_i))
+    halo_l_p, halo_l_i = _unpack(from_l)
+    halo_r_p, halo_r_i = _unpack(from_r)
     all_p = torch.cat([pts, halo_l_p, halo_r_p], dim=1)
     all_i = torch.cat([ids, halo_l_i, halo_r_i], dim=1)
     return all_p, all_i, ovf
 
 
-def _migrate(layout: SlabLayout, pts: Tensor, ids: Tensor
+def _migrate(layout: SlabLayout, pts: Tensor, ids: Tensor, blk=None
              ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """Cross-boundary particle migration (static per-face caps).
 
@@ -421,10 +529,12 @@ def _migrate(layout: SlabLayout, pts: Tensor, ids: Tensor
     merge into free rows there. Returns ``(pts', ids', n_migrated [S],
     overflow [S])``: overflow is nonzero when a face cap overflowed, an
     arrival found no free row, or a row tried to hop more than one slab
-    in a single step; all three trigger the host re-route.
+    in a single step; all three trigger the host re-route. ``blk`` as in
+    :func:`_with_halo`.
     """
     m_cap = layout.migrate_cap
-    sidx = _slab_ids(layout, pts.device)
+    blk = blk or _whole(layout.n_slabs)
+    sidx = _slab_ids(layout, pts.device, blk)
     valid = ids >= 0
     tgt = layout.slab_of(pts[..., 0])
     delta = torch.where(valid, tgt - sidx[:, None], 0)
@@ -442,8 +552,10 @@ def _migrate(layout: SlabLayout, pts: Tensor, ids: Tensor
     pts1 = torch.where(gone[..., None], PARK_SENTINEL, pts)
     ids1 = torch.where(gone, -1, ids)
 
-    in_p_l, in_i_l = _unpack(_from_left(_pack(send_r_p, send_r_i)))
-    in_p_r, in_i_r = _unpack(_from_right(_pack(send_l_p, send_l_i)))
+    from_l, from_r = _shift(blk, _pack(send_r_p, send_r_i),
+                            _pack(send_l_p, send_l_i))
+    in_p_l, in_i_l = _unpack(from_l)
+    in_p_r, in_i_r = _unpack(from_r)
     in_p = torch.cat([in_p_l, in_p_r], dim=1)                # [S, 2M, 3]
     in_i = torch.cat([in_i_l, in_i_r], dim=1)
     arriving = in_i >= 0
@@ -465,8 +577,10 @@ def _migrate(layout: SlabLayout, pts: Tensor, ids: Tensor
     ovf = (ovf + arriving.sum(-1, dtype=torch.int32)
            - ok.sum(-1, dtype=torch.int32))
     # accepted arrivals target distinct free rows; the rest land in their
-    # slab's dump row (row n_rows), which is sliced off
-    flat = (dest + sidx[:, None] * (n_rows + 1)).reshape(-1).long()
+    # slab's dump row (row n_rows), which is sliced off; rows are counted
+    # by the slab's place in the block, not its global id
+    local = torch.arange(blk.count, device=pts.device)
+    flat = (dest + local[:, None] * (n_rows + 1)).reshape(-1).long()
     pts2 = torch.cat([pts1, pts1[:, :1]], dim=1).reshape(-1, 3)
     ids2 = torch.cat([ids1, ids1[:, :1]], dim=1).reshape(-1)
     pts2[flat] = in_p.reshape(-1, 3)
@@ -490,36 +604,44 @@ def _global_ids(res: SearchResult, all_i: Tensor):
 
 
 def _slab_indexes(layout: SlabLayout, params: SearchParams,
-                  opts: SearchOpts, all_p: Tensor) -> list:
+                  opts: SearchOpts, all_p: Tensor, blk=None) -> list:
     """Each slab's ``NeighborIndex`` over its halo-extended rows, on the
-    shared spec in the slab's own frame."""
-    origins = layout.origin_of(_slab_ids(layout, all_p.device))
+    shared spec in the slab's own frame (the slabs of ``blk``, all when
+    None)."""
+    origins = layout.origin_of(_slab_ids(layout, all_p.device, blk))
     return [api.build_index(all_p[s], params, opts, spec=layout.spec,
                             origin=origins[s], device=all_p.device)
-            for s in range(layout.n_slabs)]
+            for s in range(all_p.shape[0])]
 
 
 def make_sharded_query(layout: SlabLayout, params: SearchParams,
-                       opts: SearchOpts):
-    """The sharded query as a closure: ``(pts [S,P,3], ids [S,P],
-    queries [Nq,3]) -> (oi, od, oc, qovf)``: query routing, per slab the
-    halo exchange, ``build_index`` and one ``api.query`` per query column,
-    then the inverse scatter, with no host synchronisation. The reference
-    caches a compiled program per (mesh, layout, params, opts, axes); the
-    layout holds the slab and column counts, and there is nothing to
-    compile."""
+                       opts: SearchOpts, slabs=None, cols=None):
+    """The sharded query as a closure: ``(pts [S_r,P,3], ids [S_r,P],
+    queries [Nq,3]) -> (oi, od, oc, qovf)``: query routing, per slab of
+    the block ``slabs`` the halo exchange, ``build_index`` and one
+    ``api.query`` per query column of the block ``cols`` (``AxisBlock``s;
+    all slabs and columns when None), the results gathered over the
+    ranks, then the inverse scatter, with no host synchronisation. The
+    reference caches a compiled program per (mesh, layout, params, opts,
+    axes); the layout holds the slab and column counts, and there is
+    nothing to compile."""
     opts = dataclasses.replace(opts, mask_parked=True)
+    slabs = slabs or _whole(layout.n_slabs)
+    cols = cols or _whole(layout.n_qsplit)
 
     def run(pts, ids, queries):
         qs, qid, qovf = route_queries(layout, queries)
-        all_p, all_i, _ovf = _with_halo(layout, pts, ids)
+        all_p, all_i, _ovf = _with_halo(layout, pts, ids, slabs)
         outs = []
         for s, index in enumerate(_slab_indexes(layout, params, opts,
-                                                all_p)):
-            outs.append([_global_ids(api.query(index, qs[s, c]), all_i[s])
-                         for c in range(layout.n_qsplit)])
-        gidx, d2, cnt = (torch.stack([torch.stack([o[j] for o in row])
-                                      for row in outs]) for j in range(3))
+                                                all_p, slabs)):
+            outs.append([_global_ids(api.query(index, qs[slabs.first + s, c]),
+                                     all_i[s])
+                         for c in range(cols.first, cols.first + cols.count)])
+        gidx, d2, cnt = _gather_results(
+            tuple(torch.stack([torch.stack([o[j] for o in row])
+                               for row in outs]) for j in range(3)),
+            [(cols, 1), (slabs, 0)])
         oi, od, oc = unroute_results(qid, gidx, d2, cnt, queries.shape[0])
         return oi, od, oc, qovf
 
@@ -528,11 +650,14 @@ def make_sharded_query(layout: SlabLayout, params: SearchParams,
 
 @dataclasses.dataclass
 class ShardedIndex:
-    """A scene decomposed into slabs on ``mesh.device``.
+    """A scene decomposed into slabs on ``mesh.device``: this rank's block
+    of them under a rank layout (``pts`` / ``ids`` its rows), all of them
+    without one.
 
     Built by :func:`shard_scene`; ``query(queries)`` routes, searches each
-    (slab, query column) and un-routes, and returns results in query order
-    with GLOBAL point indices.
+    (slab, query column) of the rank's block, gathers the blocks' results
+    over the ranks and un-routes, and returns the whole result in query
+    order with GLOBAL point indices on every rank.
     """
 
     layout: SlabLayout
@@ -541,15 +666,18 @@ class ShardedIndex:
     mesh: object
     slab_axis: str
     query_axis: str | None
-    pts: Tensor             # [S, P, 3] owned rows (sentinel-parked pads)
-    ids: Tensor             # [S, P] global ids (-1 pads)
+    pts: Tensor             # [S_r, P, 3] owned rows (sentinel-parked pads)
+    ids: Tensor             # [S_r, P] global ids (-1 pads)
 
     def query(self, queries) -> SearchResult:
         """Search ``queries`` [Nq, 3]. Its one blocking transfer is the
         query-overflow count, fetched after every launch has been
         queued."""
         queries = api._as_points(queries, self.pts.device)
-        fn = make_sharded_query(self.layout, self.params, self.opts)
+        cols = (self.mesh.block(self.query_axis) if self.query_axis
+                else None)
+        fn = make_sharded_query(self.layout, self.params, self.opts,
+                                self.mesh.block(self.slab_axis), cols)
         oi, od, oc, qovf = fn(self.pts, self.ids, queries)
         n_over = int(qovf.cpu())
         if n_over:
@@ -578,10 +706,12 @@ def shard_scene(points, params: SearchParams, *,
     """Decompose a scene into slabs on ``mesh.device``.
 
     Host work is the layout planning only (:func:`plan_layout`); the
-    routing itself is the padded scatter on the device. ``queries``
-    optionally sizes the query routing caps; ``mesh`` defaults to
-    ``make_slab_mesh(n_slabs, device=device)``, which runs on the card
-    unless ``device="cpu"``.
+    routing itself is the padded scatter on the device, of the whole
+    scene on every rank of a rank layout, each keeping its block.
+    ``queries`` optionally sizes the query routing caps; ``mesh`` defaults
+    to ``make_slab_mesh(n_slabs, device=device)``, which runs on the card
+    unless ``device="cpu"`` (one slab per rank under a process group of
+    more than one rank).
     """
     mesh = _mesh_for(mesh, n_slabs, slab_axis, device)
     n_slabs = int(mesh.shape[slab_axis])
@@ -594,9 +724,10 @@ def shard_scene(points, params: SearchParams, *,
     _check_routable(layout, pts_np)
     pts, ids, _ovf = route_points(layout, api._as_points(pts_np,
                                                          mesh.device))
+    blk = mesh.block(slab_axis)
     return ShardedIndex(layout=layout, params=params, opts=opts, mesh=mesh,
                         slab_axis=slab_axis, query_axis=query_axis,
-                        pts=pts, ids=ids)
+                        pts=_own(pts, blk), ids=_own(ids, blk))
 
 
 # ---------------------------------------------------------------------------
@@ -628,6 +759,14 @@ class ShardedSession:
     points, for the re-route), after which every slab replays the plan
     captured on the fresh layout, as the reference's second pass does. The
     reference's ``compile`` span and jit cache have no counterpart.
+
+    Under a rank layout (``launch/mesh.py``) each rank steps its block of
+    slabs with the whole frame; halos and migrating rows go rank to rank,
+    the telemetry header is reduced over the ranks before the fetch (so
+    every rank takes the same branch), and results are gathered, so every
+    rank returns the whole result. ``stats()`` is then a collective: every
+    rank of the slab axis calls it, and each reports the whole session's
+    counters.
     """
 
     def __init__(self, points, params: SearchParams,
@@ -641,6 +780,7 @@ class ShardedSession:
         self._mesh = mesh
         self._dev = mesh.device
         self._n_slabs = int(mesh.shape[slab_axis])
+        self._blk = mesh.block(slab_axis)
         self.params = params
         self.opts = dataclasses.replace(opts, mask_parked=True)
         self.sopts = sopts
@@ -673,6 +813,7 @@ class ShardedSession:
         counters = dict(steps=0, fast_steps=0, replans=0, reroutes=0,
                         host_routings=0, host_syncs=0)
         counters.update(self._metrics.counters())
+        counters.update(self._occupancy_over_ranks(counters))
         return {
             **counters,
             "migrated": int(self._migrated),
@@ -680,6 +821,21 @@ class ShardedSession:
             "boost": float(self._boost),
             "t_step": float(self._t_last),   # wall time of the last step
         }
+
+    def _occupancy_over_ranks(self, counters: dict) -> dict:
+        """The ``level_occ_*`` counters summed over the slab axis's ranks
+        (each rank counts its own slabs' plans); nothing in process."""
+        if self._blk.group is None:
+            return {}
+        import torch.distributed as dist
+        n = torch.tensor([sum(k.startswith("level_occ_") for k in counters)],
+                         dtype=torch.int32, device=self._dev)
+        dist.all_reduce(n, op=dist.ReduceOp.MAX, group=self._blk.group)
+        keys = [f"level_occ_{lvl}" for lvl in range(int(n.item()))]
+        vals = _sum_over(torch.tensor([counters.get(key, 0) for key in keys],
+                                      dtype=torch.int64, device=self._dev),
+                         self._blk)
+        return dict(zip(keys, vals.tolist()))
 
     # -- telemetry ----------------------------------------------------------
 
@@ -734,7 +890,7 @@ class ShardedSession:
         and ``pts`` are the same positions on the host and the device.
         ``count`` stages the fresh plans' histograms and halo volume as
         this step's (the re-route's second pass replays those plans).
-        Returns the halo-extended rows and ids."""
+        Returns the halo-extended rows and ids of the rank's block."""
         self._metrics.count("host_routings")
         layout = plan_layout(pts_np, self.params, self._n_slabs,
                              shopts=self.shopts, boost=self._boost)
@@ -742,32 +898,36 @@ class ShardedSession:
         self._layout = layout
         self._thr2 = _f32((self.sopts.displacement_frac
                            * layout.spec.cell_size) ** 2, self._dev)
+        blk = self._blk
         p, ids, _ovf = route_points(layout, pts)
-        all_p, all_i, _hovf = _with_halo(layout, p, ids)
+        p, ids = _own(p, blk), _own(ids, blk)
+        all_p, all_i, _hovf = _with_halo(layout, p, ids, blk)
         self._pts, self._ids = p, ids
-        self._index = _slab_indexes(layout, self.params, self.opts, all_p)
+        self._index = _slab_indexes(layout, self.params, self.opts, all_p,
+                                    blk)
         margin = int(self.sopts.reuse_margin_cells)
         self._plan = [api.plan_query(self._index[s], p[s], margin=margin)
-                      for s in range(self._n_slabs)]
-        self._plan_occ = [None] * self._n_slabs
+                      for s in range(blk.count)]
+        self._plan_occ = [None] * blk.count
         self._migrated = 0
-        halo = (all_i[:, layout.point_cap:] >= 0).sum(dtype=torch.int32)
-        self._stage(list(range(self._n_slabs)), count,
-                    halo if count else None)
+        halo = _sum_over((all_i[:, layout.point_cap:] >= 0).sum(
+            dtype=torch.int32).reshape(1), blk)
+        self._stage(list(range(blk.count)), count, halo if count else None)
         return all_p, all_i
 
     def _update(self, pg: Tensor):
-        """Every slab advanced to the frame ``pg``: gather by resident id,
-        migrate, halo exchange, ``update_index``; and the packed telemetry
-        vector [header | stale flag per slab], all on the device."""
-        layout = self._layout
+        """Every slab of the block advanced to the frame ``pg``: gather by
+        resident id, migrate, halo exchange, ``update_index``; and the
+        packed telemetry vector [header reduced over the ranks | stale
+        flag per slab of the block], all on the device."""
+        layout, blk = self._layout, self._blk
         valid = self._ids >= 0
         new = torch.where(valid[..., None],
                           pg[self._ids.clamp_min(0).long()], PARK_SENTINEL)
-        pts2, ids2, n_mig, mig_ovf = _migrate(layout, new, self._ids)
-        all_p, all_i, halo_ovf = _with_halo(layout, pts2, ids2)
+        pts2, ids2, n_mig, mig_ovf = _migrate(layout, new, self._ids, blk)
+        all_p, all_i, halo_ovf = _with_halo(layout, pts2, ids2, blk)
         updated = [api.update_index(self._index[s], all_p[s])
-                   for s in range(self._n_slabs)]
+                   for s in range(blk.count)]
         overflow = torch.stack([st.overflow for _i, st in updated]).to(
             torch.int32)
         oob = torch.stack([st.oob for _i, st in updated]).to(torch.int32)
@@ -777,9 +937,10 @@ class ShardedSession:
         flags = (stale.to(torch.int32) * _FLAG_REPLANNED
                  + bad.to(torch.int32) * _FLAG_EXHAUSTED)
         halo_vol = (all_i[:, layout.point_cap:] >= 0).sum(dtype=torch.int32)
-        head = obs.pack_step_telemetry(
+        head = _reduce_header(obs.pack_step_telemetry(
             flags.max(), overflow=overflow.sum(), oob=oob.sum(),
-            max_disp2=disp2.max(), migrated=n_mig.sum(), halo=halo_vol)
+            max_disp2=disp2.max(), migrated=n_mig.sum(), halo=halo_vol),
+            blk)
         telem = torch.cat([head, stale.to(torch.int32)])
         return pts2, ids2, all_p, all_i, [i for i, _st in updated], telem
 
@@ -827,7 +988,7 @@ class ShardedSession:
                            migrated=0, halo=0)
                 fl = 0
                 res = self._search(self._pts, self._ids, self._index,
-                                   [False] * self._n_slabs, all_p, all_i,
+                                   [False] * self._blk.count, all_p, all_i,
                                    count=False)
             else:
                 res = self._search(pts2, ids2, index2, stale, all_p, all_i,
@@ -853,15 +1014,16 @@ class ShardedSession:
 
     def _search(self, pts, ids, index, stale, all_p, all_i,
                 count: bool) -> SearchResult:
-        """Each slab replans (``stale``) or replays its captured plan,
-        then ``execute_plan`` over its owned rows; results un-routed to
+        """Each slab of the block replans (``stale``) or replays its
+        captured plan, then ``execute_plan`` over its owned rows; results
+        (with the owned rows' ids) gathered over the ranks and un-routed to
         global order. ``count`` counts the replayed plans' histograms
         (False after a re-route, whose fresh plans are counted when their
         staged histograms land)."""
         with obs.span("launch", stage="search"):
             margin = int(self.sopts.reuse_margin_cells)
             replanned, outs = [], []
-            for s in range(self._n_slabs):
+            for s in range(self._blk.count):
                 if stale[s]:
                     self._plan[s] = api.plan_query(index[s], pts[s],
                                                    margin=margin)
@@ -875,9 +1037,10 @@ class ShardedSession:
             self._index = index
             if replanned:
                 self._stage(replanned, count=True)
-            gidx, d2, cnt = (torch.stack([o[j] for o in outs])
-                             for j in range(3))
-            oi, od, oc = unroute_results(ids, gidx, d2, cnt, self._n)
+            gidx, d2, cnt, rows = _gather_results(
+                tuple(torch.stack([o[j] for o in outs]) for j in range(3))
+                + (ids,), [(self._blk, 0)])
+            oi, od, oc = unroute_results(rows, gidx, d2, cnt, self._n)
         return SearchResult(indices=oi, distances2=od, counts=oc)
 
 

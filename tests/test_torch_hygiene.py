@@ -178,6 +178,33 @@ def test_sharded_entry_points_default_to_cuda():
     sess = ShardedSession(pts, params, n_slabs=2, device="cpu")
     assert sess.step(pts).counts.device.type == "cpu"
 
+    # a ranked mesh (a one-rank gloo group over an in-memory store): the
+    # same, and its slabs stay on the CPU only when asked
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    saved = os.environ.get("GLOO_SOCKET_IFNAME")
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        ranks = DeviceMesh("cpu", torch.arange(1), mesh_dim_names=("data",))
+        for call in (lambda: make_slab_mesh(2, ranks=ranks),
+                     lambda: make_mesh_compat((2, 1), ("data", "model"),
+                                              ranks=ranks)):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                call()
+        mesh = make_slab_mesh(2, ranks=ranks, device="cpu")
+        assert mesh.ranks is ranks and mesh.device.type == "cpu"
+        assert shard_scene(pts, params, mesh=mesh).pts.device.type == "cpu"
+        sess = ShardedSession(pts, params, mesh=mesh)
+        assert sess.step(pts).counts.device.type == "cpu"
+    finally:
+        dist.destroy_process_group()
+        if saved is None:
+            os.environ.pop("GLOO_SOCKET_IFNAME")
+        else:
+            os.environ["GLOO_SOCKET_IFNAME"] = saved
+
 
 def test_train_entry_points_default_to_cuda():
     """Without a CUDA device, ``make_batch``, ``synthetic_stream``,
