@@ -167,9 +167,18 @@ and checks each against the brute-force oracle or against itself:
   mesh of a one-rank NCCL group (the smoke ``grok-1-314b``, the
   reference's sharded case, and the full-width ``lm-100m``) against the
   same step on plain tensors (losses, the first step's gradients and
-  parameters), both timed, in a subprocess; and ``launch/dryrun.py
-  --arch lm-100m --shape train_4k --mesh pod`` in a subprocess, its
-  collectives counted. No hand-written kernel runs there;
+  parameters), both timed, in a subprocess; full-width ``rwkv6-7b``
+  served plain and then on DTensors of a (1, 1) CUDA mesh from the same
+  weights (a 4 x 2048 prefill and 8 decode tokens from the cache placed
+  by ``cache_pspecs``): logits and final states within 1e-5 of scale,
+  32 ``rwkv_scan`` launches a prefill and a token on each path, the
+  states on the card, both paths timed, in a subprocess, and with four
+  cards the same on a (1, 4) mesh, 16 heads a rank, one NCCL rank a card,
+  against the one-card plain logits; and ``launch/dryrun.py`` on three
+  cells at once in subprocesses (``lm-100m`` ``train_4k`` on the pod
+  mesh, ``rwkv6-7b`` ``decode_32k`` on it, ``lm-100m`` ``train_4k`` on
+  the two-pod mesh), each within 300 s, its collectives counted. Of the
+  hand-written kernels only ``rwkv_scan`` runs there;
 - the reference's three examples (phase ``sph``, after
   ``sharded_ranks``),
   imported from ``examples/`` and driven through their own functions:
@@ -640,12 +649,349 @@ def dtensor_steps_on_card() -> None:
         dist.destroy_process_group()
 
 
+def serve_on_mesh(cfg, model, tokens, cache, shard, scan) -> dict:
+    """The prefill of ``tokens`` and SERVE_DECODE_TOKENS greedy decode
+    tokens from ``cache`` (each the argmax of the last logits) on
+    ``model``, plain or placed as DTensors with ``shard``: the prefill's
+    logits and each token's, gathered to the whole on every rank, the
+    final state of every layer, the ``rwkv_scan`` launches of the prefill
+    and of each token, the prefill's time by CUDA events (median of
+    SERVE_TIMED after one untimed) and each token's."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.train.serve_step import (make_decode_step,
+                                              make_prefill_step)
+
+    def whole(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    prefill = make_prefill_step(cfg, shard=shard)
+    decode = make_decode_step(cfg, shard=shard)
+    scan.rwkv_scan.launches = 0
+    logits = whole(prefill(model, {"tokens": tokens}))
+    out = {"prefill_launches": scan.rwkv_scan.launches,
+           "prefill_logits": logits,
+           "prefill_ms": cuda_time_ms(lambda: prefill(
+               model, {"tokens": tokens}), SERVE_TIMED, warmup=0)}
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    token_logits, token_launches, token_ms = [], [], []
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for _ in range(SERVE_DECODE_TOKENS):
+        scan.rwkv_scan.launches = 0
+        start.record()
+        step_logits, cache = decode(model, cache, tok)
+        end.record()
+        token_launches.append(scan.rwkv_scan.launches)
+        step_logits = whole(step_logits)[:, -1]
+        torch.cuda.synchronize()
+        token_ms.append(start.elapsed_time(end))
+        token_logits.append(step_logits)
+        tok = torch.argmax(step_logits, -1)[:, None].to(torch.int32)
+    out.update(token_logits=torch.stack(token_logits),
+               token_launches=token_launches, token_ms=token_ms,
+               states=[c["tm"]["state"] for c in cache])
+    return out
+
+
+def _scaled_err(got, want) -> float:
+    return float((got - want).abs().max()) / max(1.0,
+                                                 float(want.abs().max()))
+
+
+def dtensor_serve_on_card() -> None:
+    """Phase ``lm_sharding``'s check (g), run in a subprocess: full-width
+    ``rwkv6-7b`` (float32, 30 GB) served plain, then the same weights
+    placed by ``param_pspecs`` as DTensors on a (1, 1) ``("data",
+    "model")`` CUDA mesh (a one-rank NCCL group over a ``HashStore``) and
+    served again (:func:`serve_on_mesh`, LM_PREFILL's prompt, the decode
+    cache that a plain cache-writing prefill of it left, placed by
+    ``cache_pspecs``). Logits and final states against the plain path's,
+    ``rwkv_scan`` launches, the states' devices and both paths' times.
+    Saves the prompt, the cache and the plain logits under
+    ``build/dtensor_serve/`` for the several-card branch. Prints one JSON
+    line."""
+    import os
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    from torch.distributed.tensor import DTensor
+    from repro_torch.kernels import rwkv_scan as scan
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.config import get_config
+    from repro_torch.sharding.rules import (cache_pspecs, make_shard_fn,
+                                            param_pspecs, place_parameters,
+                                            place_tree)
+
+    cfg = get_config(LM_ARCH)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_test_mesh((1, 1), ("data", "model"))
+        model = M.init_params(cfg, LM_SEED, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(LM_SEED)
+        b, s = LM_PREFILL
+        tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        with torch.no_grad():
+            _, cache = M.decode_step(model, M.init_decode_cache(
+                cfg, b, s + SERVE_DECODE_TOKENS, torch.float32,
+                device="cuda"), tokens, cfg)
+        torch.cuda.empty_cache()
+        plain = serve_on_mesh(cfg, model, tokens, cache, M.NO_SHARD, scan)
+        out_dir = ROOT / "build" / "dtensor_serve"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        torch.save({"tokens": tokens.cpu(), "cache": [
+            {k: {n: t.cpu() for n, t in v.items()} for k, v in c.items()}
+            for c in cache],
+            "prefill_logits": plain["prefill_logits"].cpu(),
+            "token_logits": plain["token_logits"].cpu()},
+            out_dir / "plain.pt")
+        place_parameters(model, mesh, param_pspecs(
+            dict(model.named_parameters()), mesh))
+        scache = place_tree(cache, mesh, cache_pspecs(cache, mesh, b))
+        torch.cuda.reset_peak_memory_stats()
+        dt = serve_on_mesh(cfg, model, tokens, scache, make_shard_fn(mesh),
+                           scan)
+        rec = {"mesh": [list(mesh.shape), list(mesh.mesh_dim_names)],
+               "prompt": [b, s], "decode_tokens": SERVE_DECODE_TOKENS,
+               "placed_as_dtensors": all(
+                   isinstance(p, DTensor) and p.to_local().is_cuda
+                   for p in model.parameters()),
+               "states_on_card": all(
+                   isinstance(t, DTensor) and t.to_local().is_cuda
+                   for t in dt["states"]),
+               "prefill_bitwise": torch.equal(dt["prefill_logits"],
+                                              plain["prefill_logits"]),
+               "tokens_bitwise": torch.equal(dt["token_logits"],
+                                             plain["token_logits"]),
+               "states_bitwise": all(torch.equal(a.full_tensor(), b_)
+                                     for a, b_ in zip(dt["states"],
+                                                      plain["states"])),
+               "prefill_rel_err": _scaled_err(dt["prefill_logits"],
+                                              plain["prefill_logits"]),
+               "tokens_rel_err": _scaled_err(dt["token_logits"],
+                                             plain["token_logits"]),
+               "state_rel_err": max(_scaled_err(a.full_tensor(), b_)
+                                    for a, b_ in zip(dt["states"],
+                                                     plain["states"])),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        for tag, r in (("plain", plain), ("dtensor", dt)):
+            rec[tag] = {"prefill_launches": r["prefill_launches"],
+                        "token_launches": r["token_launches"],
+                        "prefill_ms": r["prefill_ms"],
+                        "token_ms": r["token_ms"],
+                        "token_ms_median": sorted(r["token_ms"])[
+                            len(r["token_ms"]) // 2]}
+        print(json.dumps({"dtensor_serve": rec}), flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def dtensor_serve_rank(rank: int, world: int, store: str,
+                       out_dir: str) -> None:
+    """One of ``world`` NCCL ranks, one a card (check (g) on several
+    cards): full-width ``rwkv6-7b`` placed by ``param_pspecs`` on a
+    (1, ``world``) ``("data", "model")`` mesh, 64 / ``world`` heads a
+    rank, served from the prompt and cache that the one-card check saved
+    (:func:`serve_on_mesh`); its logits against the one-card plain
+    path's. Writes ``rank<r>.json``."""
+    import os
+    os.environ["LOCAL_RANK"] = str(rank)
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import rwkv_scan as scan
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.config import get_config
+    from repro_torch.sharding.rules import (cache_pspecs, make_shard_fn,
+                                            param_pspecs, place_parameters,
+                                            place_tree)
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            device_id=torch.device("cuda", rank),
+                            timeout=datetime.timedelta(
+                                seconds=SERVE_TIMEOUT_S // 2))
+    try:
+        cfg = get_config(LM_ARCH)
+        saved = torch.load(Path(out_dir, "plain.pt"))
+        dev = torch.device("cuda", rank)
+        mesh = make_test_mesh((1, world), ("data", "model"))
+        model = M.init_params(cfg, LM_SEED, device=dev)
+        place_parameters(model, mesh, param_pspecs(
+            dict(model.named_parameters()), mesh))
+        torch.cuda.empty_cache()
+        tokens = saved["tokens"].to(dev)
+        cache = [{k: {n: t.to(dev) for n, t in v.items()}
+                  for k, v in c.items()} for c in saved["cache"]]
+        cache = place_tree(cache, mesh, cache_pspecs(cache, mesh,
+                                                     tokens.shape[0]))
+        r = serve_on_mesh(cfg, model, tokens, cache, make_shard_fn(mesh),
+                          scan)
+        local = r["states"][0].to_local()
+        out = {"rank": rank, "world": world,
+               "prefill_rel_err": _scaled_err(
+                   r["prefill_logits"].cpu(), saved["prefill_logits"]),
+               "tokens_rel_err": _scaled_err(r["token_logits"].cpu(),
+                                             saved["token_logits"]),
+               "prefill_launches": r["prefill_launches"],
+               "token_launches": r["token_launches"],
+               "local_state": list(local.shape),
+               "state_device": str(local.device),
+               "prefill_ms": r["prefill_ms"],
+               "token_ms_median": sorted(r["token_ms"])[
+                   len(r["token_ms"]) // 2],
+               "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    finally:
+        dist.destroy_process_group()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def serve_on_ranks() -> dict | None:
+    """Check (g) on ``SERVE_RANKS`` cards, where there are as many:
+    :func:`dtensor_serve_rank` spawned one a card, each held within
+    DTENSOR_RTOL of scale of the one-card plain logits, 32 launches a
+    prefill and a token, 16 heads of state a rank on its card. None on
+    fewer cards."""
+    import torch
+    import torch.multiprocessing as mp
+    if torch.cuda.device_count() < SERVE_RANKS:
+        return None
+    out_dir = ROOT / "build" / "dtensor_serve"
+    for old in out_dir.glob("rank*.json"):
+        old.unlink()
+    (out_dir / "store").unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(dtensor_serve_rank, args=(
+        SERVE_RANKS, str(out_dir / "store"), str(out_dir)),
+        nprocs=SERVE_RANKS, join=False, start_method="spawn")
+    deadline = time.monotonic() + SERVE_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=1):
+            check(time.monotonic() < deadline, f"lm_sharding: {SERVE_RANKS}"
+                  f" serving ranks did not finish in {SERVE_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(5)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.models.config import get_config
+    runs = [json.loads((out_dir / f"rank{r}.json").read_text())
+            for r in range(SERVE_RANKS)]
+    cfg = get_config(LM_ARCH)
+    n_layers = cfg.n_layers
+    heads = cfg.d_model // cfg.rwkv_head_dim // SERVE_RANKS
+    for r in runs:
+        check(r["prefill_rel_err"] <= DTENSOR_RTOL
+              and r["tokens_rel_err"] <= DTENSOR_RTOL
+              and r["prefill_launches"] == n_layers
+              and all(n == n_layers for n in r["token_launches"])
+              and r["local_state"][1] == heads
+              and r["state_device"] == f"cuda:{r['rank']}",
+              f"lm_sharding: rank {r['rank']} of the (1, {SERVE_RANKS}) "
+              f"serving mesh: {r}")
+    return {"ranks": runs, "wall_s": time.perf_counter() - t0}
+
+
+def check_dtensor_serve(env: dict) -> dict:
+    """Phase ``lm_sharding``'s check (g): :func:`dtensor_serve_on_card` in
+    a subprocess, held within DTENSOR_RTOL of scale of the plain path with
+    32 ``rwkv_scan`` launches a prefill and a token on each path, then
+    :func:`serve_on_ranks`."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, {!r}); "
+         "import chip_smoke; chip_smoke.dtensor_serve_on_card()".format(
+             str(ROOT))],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=SERVE_TIMEOUT_S)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    check(proc.returncode == 0 and lines,
+          f"lm_sharding: DTensor serving on the card: {proc.returncode} "
+          f"{proc.stdout[-800:]} {proc.stderr[-3000:]}")
+    serve = json.loads(lines[-1])["dtensor_serve"]
+    serve["wall_s"] = time.perf_counter() - t0
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.models.config import get_config
+    n_layers = get_config(LM_ARCH).n_layers
+    check(serve["placed_as_dtensors"] and serve["states_on_card"]
+          and max(serve["prefill_rel_err"], serve["tokens_rel_err"],
+                  serve["state_rel_err"]) <= DTENSOR_RTOL,
+          f"lm_sharding: rwkv6-7b served on DTensors differs from the plain "
+          f"path: {serve}")
+    for tag in ("plain", "dtensor"):
+        check(serve[tag]["prefill_launches"] == n_layers
+              and serve[tag]["token_launches"]
+              == [n_layers] * SERVE_DECODE_TOKENS,
+              f"lm_sharding: {tag} serving launched rwkv_scan "
+              f"{serve[tag]['prefill_launches']} times a prefill and "
+              f"{serve[tag]['token_launches']} a token, not {n_layers}")
+    serve["ranks"] = serve_on_ranks()
+    return serve
+
+
+def check_dryrun_cells(env: dict) -> dict:
+    """Phase ``lm_sharding``'s checks (e) and (h): ``launch/dryrun.py`` on
+    each cell of DRYRUN_CELLS, all at once in subprocesses, each ``ok``
+    within DRYRUN_TIMEOUT_S with its collectives counted."""
+    out_dir = ROOT / "build" / "dryrun_chip"
+    t0 = time.perf_counter()
+    procs = {cell: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cell[0], "--shape", cell[1], "--mesh", cell[2], "--force",
+         "--out-dir", str(out_dir)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for cell in DRYRUN_CELLS}
+    dryrun = {}
+    for (arch, shape, mesh), p in procs.items():
+        try:
+            stdout, stderr = p.communicate(timeout=max(
+                1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+                q.communicate()
+            check(False, f"lm_sharding: dryrun {arch} {shape} {mesh} took "
+                  f"over {DRYRUN_TIMEOUT_S} s")
+        cell_path = out_dir / f"{mesh}__{arch}__{shape}.json"
+        check(p.returncode == 0 and cell_path.exists(),
+              f"lm_sharding: dryrun {arch} {shape} {mesh}: {p.returncode} "
+              f"{stdout[-800:]} {stderr[-2000:]}")
+        cell = json.loads(cell_path.read_text())
+        check(cell["status"] == "ok", f"lm_sharding: dry-run cell {cell}")
+        check(cell["collectives"] is not None
+              and cell["collectives"]["total_bytes"] > 0,
+              f"lm_sharding: the dry-run cell counted no collectives: "
+              f"{cell}")
+        dryrun[f"{mesh} {arch} {shape}"] = {
+            "wall_s": time.perf_counter() - t0, "status": cell["status"],
+            "chips": cell["chips"], "meta": cell["meta"],
+            "dominant": cell["roofline"]["dominant"],
+            "flops_per_device": cell["cost_per_device"]["flops"],
+            "collectives": cell["collectives"],
+            "build_s": cell["build_s"], "count_s": cell["count_s"],
+            "collectives_s": cell["collectives_s"]}
+    return dryrun
+
+
 def phase_lm_sharding() -> dict:
     """LM sharding and the dry run: the records (a) and (b) that the LM
     phases gathered (``sharding_static``, ``sharding_peak``) and (c)
-    (``kv_replicated_vs_grouped``), then (d) ``remesh_on_card`` and (e)
-    ``launch/dryrun.py --arch lm-100m --shape train_4k --mesh pod`` in
-    subprocesses, with their wall times. No hand-written kernel runs."""
+    (``kv_replicated_vs_grouped``), then in subprocesses (d)
+    ``remesh_on_card``, (f) ``dtensor_steps_on_card``, (g)
+    ``dtensor_serve_on_card`` (and :func:`serve_on_ranks` where there are
+    SERVE_RANKS cards), and ``launch/dryrun.py`` on the cells of
+    DRYRUN_CELLS, all at once: (e) ``lm-100m`` ``train_4k`` on the pod
+    mesh, (h) ``rwkv6-7b`` ``decode_32k`` on it and ``lm-100m``
+    ``train_4k`` on the two-pod mesh, each within DRYRUN_TIMEOUT_S with
+    its collectives counted; with their wall times. The only hand-written
+    kernel that runs is ``rwkv_scan``, in (g): 32 launches a prefill and
+    a token on each path."""
     import os
     from repro_torch.kernels import distance_tile as tdist
     from repro_torch.kernels import knn_tile as knn_mod
@@ -706,34 +1052,13 @@ def phase_lm_sharding() -> dict:
           f"lm_sharding: a hand-written kernel ran in the DTensor steps: "
           f"{dtensor['kernel_launches']}")
 
-    out_dir = ROOT / "build" / "dryrun_chip"
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         DENSE_ARCH, "--shape", "train_4k", "--mesh", "pod", "--force",
-         "--out-dir", str(out_dir)], cwd=ROOT, env=env, capture_output=True,
-        text=True, timeout=DRYRUN_TIMEOUT_S)
-    dry_s = time.perf_counter() - t0
-    cell_path = out_dir / f"pod__{DENSE_ARCH}__train_4k.json"
-    check(proc.returncode == 0 and cell_path.exists(),
-          f"lm_sharding: dryrun: {proc.returncode} {proc.stdout[-800:]} "
-          f"{proc.stderr[-2000:]}")
-    cell = json.loads(cell_path.read_text())
-    check(cell["status"] == "ok", f"lm_sharding: dry-run cell {cell}")
-    dryrun = {"wall_s": dry_s, "status": cell["status"],
-              "chips": cell["chips"], "meta": cell["meta"],
-              "dominant": cell["roofline"]["dominant"],
-              "flops_per_device": cell["cost_per_device"]["flops"],
-              "collectives": cell["collectives"],
-              "build_s": cell["build_s"], "count_s": cell["count_s"],
-              "collectives_s": cell["collectives_s"]}
-    check(cell["collectives"] is not None
-          and cell["collectives"]["total_bytes"] > 0,
-          f"lm_sharding: the dry-run cell counted no collectives: {cell}")
+    serve = check_dtensor_serve(env)
+    dryrun = check_dryrun_cells(env)
 
     launches = {fn.__name__: fn.launches for fn in counters}
     check(all(v == 0 for v in launches.values()),
-          f"lm_sharding: a hand-written kernel ran: {launches}")
+          f"lm_sharding: a hand-written kernel ran in this process: "
+          f"{launches}")
     row = {"static_bytes": [{k: r[k] for k in r if k in (
         "tag", "arch", "n_layers", "params_bytes", "opt_bytes",
         "cache_bytes", "quantized_opt")} for r in SHARDING["bytes"]],
@@ -744,7 +1069,7 @@ def phase_lm_sharding() -> dict:
             "analytic_peak_bytes", "peak_ratio", "transient_ratio")}
             for r in SHARDING["bytes"]],
         "kv_replicated": SHARDING["kv_replicated"], "remesh": remesh,
-        "dtensor_steps": dtensor,
+        "dtensor_steps": dtensor, "dtensor_serve": serve,
         "dryrun": dryrun, "kernel_launches": launches,
         "seconds": time.perf_counter() - t_phase}
     emit("lm_sharding", **row, nvidia_smi=smi_line())
@@ -846,6 +1171,15 @@ DTENSOR_LR = 1e-3             # OptConfig(lr=1e-3, warmup_steps=1), the
 WELL_CONDITIONED = 1e-3       # a gradient at least this share of its
 #                               parameter's largest
 DRYRUN_TIMEOUT_S = 300        # launch/dryrun.py, one cell, in a subprocess
+DRYRUN_CELLS = ((DENSE_ARCH, "train_4k", "pod"),    # (e), and (h): a
+                ("rwkv6-7b", "decode_32k", "pod"),  # cell rwkv_scan once
+                (DENSE_ARCH, "train_4k", "multipod"))  # kept off DTensors
+#                               and one with the batch on two mesh dims
+SERVE_DECODE_TOKENS = 8       # (g): decode tokens after the DTensor prefill
+SERVE_TIMED = 3               # (g): prefills timed by CUDA events, median
+SERVE_TIMEOUT_S = 420         # (g), in a subprocess: 30 GB of weights
+SERVE_RANKS = 4               # (g) on several cards: a (1, 4) mesh, 16
+#                               heads a rank
 SHARDING = {"bytes": [], "kv_replicated": None}
 
 # FP32 operations per (b, h, t) and state cell that rwkv_scan needs at

@@ -19,6 +19,11 @@ shapes (the dry run). The kernel has no backward (nor has the
 reference's, its inference and prefill fast path), so the wrapper refuses
 inputs that autograd would need a gradient of, on every device: training
 runs ``models.layers.rwkv_chunked_core``.
+
+On DTensors (serving on a mesh) every (batch, head) pair recurs alone,
+so each rank calls the same wrapper on its own shard
+(:func:`_rwkv_scan_dtensor`): the kernel on a card, the plain version on
+the CPU, shapes on the meta device; one launch a rank and a call.
 """
 from __future__ import annotations
 
@@ -93,13 +98,11 @@ def _check(r, k, v, w, u, state0) -> None:
 def rwkv_scan(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
               state0: Tensor) -> tuple[Tensor, Tensor]:
     """r/k/v/w [B, S, H, hd], u [H, hd], state0 [B, H, hd, hd] ->
-    (out [B, S, H, hd], state_T [B, H, hd, hd]), both float32. It takes
-    no DTensor (NotImplementedError): RWKV serving does not run on a
-    mesh."""
+    (out [B, S, H, hd], state_T [B, H, hd, hd]), both float32. Where any
+    input is a DTensor, both outputs are DTensors
+    (:func:`_rwkv_scan_dtensor`)."""
     from torch.distributed.tensor import DTensor
 
-    if any(isinstance(t, DTensor) for t in (r, k, v, w, u, state0)):
-        raise NotImplementedError("rwkv_scan has no DTensor path")
     _check(r, k, v, w, u, state0)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (r, k, v, w, u, state0)):
@@ -107,6 +110,8 @@ def rwkv_scan(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
             "rwkv_scan has no backward: an input requires a gradient (train "
             "through models.layers.rwkv_chunked_core, or call under "
             "torch.no_grad())")
+    if any(isinstance(t, DTensor) for t in (r, k, v, w, u, state0)):
+        return _rwkv_scan_dtensor(r, k, v, w, u, state0)
     if r.device.type == "cpu":
         return rwkv_scan_plain(r, k, v, w, u, state0)
     if r.device.type == "meta":
@@ -150,6 +155,63 @@ def rwkv_scan(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
 
 
 rwkv_scan.launches = 0
+
+
+def per_head_placements(placements) -> tuple[list, list, list]:
+    """The placements on which every (batch, head) pair recurs on one
+    rank, from ``r``'s (``[B, S, H, hd]``): r/k/v/w keep only their batch
+    (dim 0) and head (dim 2) shards, the rest replicated; ``u`` [H, hd]
+    takes the head shards, the state [B, H, hd, hd] the batch and head
+    shards (as ``sharding.rules.cache_pspecs`` places it)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = [p if type(p) is Shard and p.dim in (0, 2) else Replicate()
+          for p in placements]
+
+    def shard_of(dims):          # r's batch / head shards on other dims
+        return [Shard(dims[p.dim]) if isinstance(p, Shard) and p.dim in dims
+                else Replicate() for p in pl]
+
+    return pl, shard_of({2: 0}), shard_of({0: 0, 2: 1})
+
+
+def _rwkv_scan_dtensor(r, k, v, w, u, state0) -> tuple[Tensor, Tensor]:
+    """:func:`rwkv_scan` of DTensors (a plain input, such as a prefill's
+    zero state, is taken as replicated): r/k/v/w are redistributed so that
+    only their batch dim (0) and head dim (2) keep the shards that ``r``
+    has (the sequence and the head width made whole, a partial sum
+    reduced), ``u`` takes the head shards and ``state0`` the batch and head
+    shards (``sharding.rules.cache_pspecs`` places a decode cache's state
+    so), then each rank runs :func:`rwkv_scan` on its local shards. ``out``
+    comes back with r's kept placements, ``state_T`` with state0's. A mesh
+    dim that shards neither the batch nor the heads leaves every rank
+    along it the same whole result: replicated, not partial."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    like = next(t for t in (r, k, v, w, u, state0)
+                if isinstance(t, DTensor))
+    mesh = like.device_mesh
+
+    def placed(t, pl):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, pl)
+
+    pl, u_pl, s_pl = per_head_placements(
+        r.placements if isinstance(r, DTensor) else
+        [Replicate()] * mesh.ndim)
+    r, k, v, w = (placed(t, pl) for t in (r, k, v, w))
+    u, state0 = placed(u, u_pl), placed(state0, s_pl)
+    out, state = rwkv_scan(r.to_local(), k.to_local(), v.to_local(),
+                           w.to_local(), u.to_local(), state0.to_local())
+    b, s, h, hd = r.shape
+    return (DTensor.from_local(out, mesh, pl, run_check=False,
+                               shape=(b, s, h, hd),
+                               stride=(s * h * hd, h * hd, hd, 1)),
+            DTensor.from_local(state, mesh, s_pl, run_check=False,
+                               shape=(b, h, hd, hd),
+                               stride=(h * hd * hd, hd * hd, hd, 1)))
 
 
 def rwkv_scan_plain(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,

@@ -31,10 +31,10 @@ ranks, or 512 for two pods, in this one process), and records:
     :func:`collectives_by_periods` composes them from the model cut to one
     and two periods); the roofline's collective term is those bytes over
     the H100's NVLink rate (``hlo_analysis.LINK_BW``), and its dominant
-    term is taken over compute, memory and collectives. A serving step
-    that cannot run on DTensors (``rwkv_scan`` has no DTensor path)
-    records null with the operation that stopped it, and so does every
-    cell of the two-pod mesh (:data:`COLLECTIVES_3D`).
+    term is taken over compute, memory and collectives, on both meshes.
+    A serving step that cannot run on DTensors records null with the
+    first line of the error that stopped it; a train step's error fails
+    the cell.
 
 Nothing happens at import. ``main()`` starts the fake process group once,
 from ``torch.testing._internal.distributed.fake_pg`` (an internal module
@@ -75,12 +75,6 @@ from .mesh import make_production_mesh
 OUT_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
 PARAM_DTYPE = torch.bfloat16
 MESH_WORLD = {"pod": 256, "multipod": 512}
-# the three-axis mesh: a batch sharded over ("pod", "data") makes DTensor
-# plan its redistributions by graph search, which did not finish one
-# lm-100m step in 15 minutes on the CPU
-COLLECTIVES_3D = ("not counted on a three-axis mesh: DTensor's "
-                  "redistribute planner (graph search over a batch sharded "
-                  "on two mesh axes) does not finish")
 
 
 @functools.lru_cache(maxsize=None)
@@ -362,16 +356,12 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, *,
         t_count = time.perf_counter() - t0
         t0 = time.perf_counter()
         coll, coll_reason = None, None
-        if mesh.ndim > 2:
-            coll_reason = COLLECTIVES_3D
-        else:
-            try:
-                coll = collectives_by_periods(cfg, shape, mesh, meta)
-            except Exception as e:
-                if shape.kind == "train":
-                    raise
-                coll_reason = (f"{H.COLLECTIVES_NOT_COUNTED}: "
-                               f"{_first_line(e)}")
+        try:
+            coll = collectives_by_periods(cfg, shape, mesh, meta)
+        except Exception as e:
+            if shape.kind == "train":
+                raise
+            coll_reason = f"{H.COLLECTIVES_NOT_COUNTED}: {_first_line(e)}"
         t_coll = time.perf_counter() - t0
         n_params = _n_params(cfg)
         if shape.kind == "train":

@@ -46,13 +46,14 @@ redistribution of a DTensor); ``_sdpa`` repeats the kv heads to H where
 from __future__ import annotations
 
 import math
+import weakref
 from typing import Any, Mapping, NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.rwkv_scan import rwkv_scan
+from ..kernels.rwkv_scan import per_head_placements, rwkv_scan
 
 Tensor = torch.Tensor
 Cache = dict[str, Any]
@@ -136,6 +137,20 @@ def unshard_dim(x: Tensor, dim: int) -> Tensor:
     if want == list(x.placements):
         return x
     return x.redistribute(x.device_mesh, want)
+
+
+def pin(shard, x: Tensor, name: str) -> Tensor:
+    """``x`` pinned to the placements that ``shard(x, name)`` would give
+    it, in the backward its gradient too (``shard.pin``), at a point where
+    the reference has no constraint: XLA's partitioner propagates layouts
+    over the whole program, DTensor op by op, and a partial sum left to a
+    nonlinearity's own propagation can come back split on the sequence,
+    whose flattening for a weight's gradient then sends DTensor's
+    sharding propagation on a three-axis mesh into its graph-search
+    planner for minutes. Not a ``shard`` call: those stay the
+    reference's. ``x`` as it is where ``shard`` has no ``pin``."""
+    fn = getattr(shard, "pin", None)
+    return x if fn is None else fn(x, name)
 
 
 def NO_SHARD(x: Tensor, name: str) -> Tensor:
@@ -491,15 +506,126 @@ class _DTensorEinsum(torch.autograd.Function):
 def _einsum_dtensor(eq: str, a: Tensor, b: Tensor) -> Tensor:
     """``torch.einsum`` of DTensors; where DTensor cannot carry the
     placements through einsum's internal views, the operands are made
-    whole along every dim but the first and the einsum runs again."""
+    whole along every dim but the first and the einsum runs again. On a
+    mesh with "pod" and "data" axes it runs on :func:`_flat_batch_mesh`
+    wherever both operands are placed alike on those two."""
+    flat = _on_flat_batch(a, b)
+    if flat is not None:
+        lift, a, b = flat
+        return lift(_einsum_dtensor(eq, a, b))
     try:
         return torch.einsum(eq, a, b)
     except RuntimeError:
         return torch.einsum(eq, _whole_but_batch(a), _whole_but_batch(b))
 
 
-def mla_project(p: Mapping[str, Any], x: Tensor, cfg, pos: Tensor
-                ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+def take_rows(table: Tensor, ids: Tensor) -> Tensor:
+    """``table[ids]`` (an embedding lookup). On DTensors of a mesh with
+    "pod" and "data" it runs on :func:`_flat_batch_mesh`, the table first
+    made whole on whichever of the two shards it alone (an FSDP table),
+    where DTensor's sharding propagation of the index takes the two-axis
+    path: on the three-axis mesh PyTorch 2.11's refuses ids sharded on
+    two mesh dims."""
+    flat = _on_flat_batch(_alike_on_batch_axes(table, ids), ids)
+    if flat is not None:
+        lift, table, ids = flat
+        return lift(table[ids])
+    return table[ids]
+
+
+def _alike_on_batch_axes(x: Tensor, like: Tensor) -> Tensor:
+    """``x`` made whole on the one of "pod" and "data" that shards it
+    where the other leaves it replicated, when ``like`` is a DTensor of
+    the same mesh; else as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not (isinstance(x, DTensor) and isinstance(like, DTensor)
+            and x.device_mesh == like.device_mesh):
+        return x
+    names = list(x.device_mesh.mesh_dim_names or ())
+    if "pod" not in names or "data" not in names:
+        return x
+    i, j = names.index("pod"), names.index("data")
+    pl = list(x.placements)
+    if pl[i] != pl[j] and Replicate() in (pl[i], pl[j]):
+        pl[i] = pl[j] = Replicate()
+        return x.redistribute(x.device_mesh, pl)
+    return x
+
+
+_FLAT_MESHES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _flat_batch_mesh(mesh):
+    """``mesh`` with its adjacent "pod" and "data" dims merged into one,
+    "pod_data" (pod major, so rank (p, d) sits at p * |data| + d): the same
+    ranks, one process group over the batch axes. Made once a mesh (kept
+    while the mesh lives), on every rank alike: a new ``DeviceMesh``
+    makes its groups collectively.
+
+    DTensor's sharding propagation of an einsum on the three-axis mesh
+    prices every candidate placement across the three dims, and a batch
+    sharded on two of them sends those prices through its graph-search
+    redistribute planner, which does not finish for the attention einsums
+    at production shapes; on the merged mesh it is the two-axis case."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if mesh not in _FLAT_MESHES:
+        names = list(mesh.mesh_dim_names)
+        i = names.index("pod")
+        names[i:i + 2] = ["pod_data"]
+        _FLAT_MESHES[mesh] = DeviceMesh(
+            mesh.device_type, mesh.mesh.flatten(i, i + 1),
+            mesh_dim_names=tuple(names))
+    return _FLAT_MESHES[mesh]
+
+
+def _on_flat_batch(a: Tensor, b: Tensor):
+    """``(lift, a', b')``: ``a`` and ``b`` as DTensors of
+    :func:`_flat_batch_mesh` holding the same local tensors, and ``lift``,
+    which takes a DTensor of that mesh back to ``a``'s mesh. None unless
+    both are DTensors of one mesh with adjacent "pod" and "data" dims on
+    which each is placed alike (both replicated, both partial, or both
+    sharding one tensor dim that their product divides)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not (isinstance(a, DTensor) and isinstance(b, DTensor)):
+        return None
+    mesh = a.device_mesh
+    names = list(mesh.mesh_dim_names or ())
+    if (b.device_mesh != mesh or "pod" not in names or "data" not in names
+            or names.index("data") != names.index("pod") + 1):
+        return None
+    i = names.index("pod")
+    n = mesh.size(i) * mesh.size(i + 1)
+    for x in (a, b):
+        p, q = x.placements[i], x.placements[i + 1]
+        if p != q or type(p) not in (Shard, Replicate, Partial):
+            return None
+        if isinstance(p, Shard) and x.shape[p.dim] % n:
+            return None
+    flat = _flat_batch_mesh(mesh)
+
+    def move(x, to, pl):
+        return DTensor.from_local(x.to_local(), to, pl, run_check=False,
+                                  shape=x.shape, stride=x.stride())
+
+    def lift(y):
+        pl = list(y.placements)
+        if isinstance(pl[i], Shard) and y.shape[pl[i].dim] % n:
+            pl[i] = Replicate()         # two even splits only where n divides
+            y = y.redistribute(flat, pl)
+        return move(y, mesh, pl[:i + 1] + pl[i:])
+
+    def lower(x):
+        pl = list(x.placements)
+        return move(x, flat, pl[:i] + pl[i + 1:])
+
+    return lift, lower(a), lower(b)
+
+
+def mla_project(p: Mapping[str, Any], x: Tensor, cfg, pos: Tensor,
+                shard=NO_SHARD) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """The per-token part of MLA: the low-rank query (``q_a``, RMSNorm,
     ``q_b``) split into ``q_nope`` [B,S,H,d_nope] and the rotated
     ``q_rope`` [B,S,H,d_rope], and the compressed KV (``kv_a``) split into
@@ -508,12 +634,13 @@ def mla_project(p: Mapping[str, Any], x: Tensor, cfg, pos: Tensor
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
-    q = rmsnorm(x @ p["q_a"], p["q_norm"], cfg.norm_eps)
+    q = rmsnorm(pin(shard, x @ p["q_a"], "act_resid"), p["q_norm"],
+                cfg.norm_eps)
     q = reshape(q @ reshape(p["q_b"], m.q_rank, -1),
                 b, s, h, m.d_nope + m.d_rope)
     q_nope = q[..., : m.d_nope]
     q_rope = apply_rope(q[..., m.d_nope:], pos, cfg.rope_theta)
-    kv = x @ p["kv_a"]
+    kv = pin(shard, x @ p["kv_a"], "act_resid")
     latent = rmsnorm(kv[..., : m.kv_rank], p["kv_norm"], cfg.norm_eps)
     k_rope = apply_rope(kv[..., None, m.kv_rank:], pos, cfg.rope_theta)
     return q_nope, q_rope, latent, k_rope
@@ -582,7 +709,7 @@ def mla_fwd(p: Mapping[str, Any], x: Tensor, cfg, *, pos: Tensor,
     runs :func:`_mla_absorbed_decode`."""
     m = cfg.mla
     b, s, _ = x.shape
-    q_nope, q_rope, latent, k_rope = mla_project(p, x, cfg, pos)
+    q_nope, q_rope, latent, k_rope = mla_project(p, x, cfg, pos, shard)
     q = shard(torch.cat([q_nope, q_rope], -1), "act_heads")
     new_cache, q_offset = None, 0
     if cache is not None:
@@ -615,7 +742,9 @@ def init_swiglu(gen, d: int, ff: int, dtype, device=None) -> dict[str, Tensor]:
 
 def swiglu_fwd(p: Mapping[str, Tensor], x: Tensor, shard=NO_SHARD
                ) -> Tensor:
-    h = shard(F.silu(x @ p["w_gate"]) * (x @ p["w_up"]), "act_ffn")
+    g = pin(shard, x @ p["w_gate"], "act_ffn")
+    u = pin(shard, x @ p["w_up"], "act_ffn")
+    h = shard(F.silu(g) * u, "act_ffn")
     return shard(h @ p["w_down"], "act_resid")
 
 
@@ -632,7 +761,8 @@ def init_gelu_mlp(gen, d: int, ff: int, dtype, device=None
 def gelu_mlp_fwd(p: Mapping[str, Tensor], x: Tensor, shard=NO_SHARD
                  ) -> Tensor:
     """``jax.nn.gelu``'s default is the tanh approximation; so is this."""
-    h = shard(F.gelu(x @ p["w1"] + p["b1"], approximate="tanh"), "act_ffn")
+    a = pin(shard, x @ p["w1"], "act_ffn") + p["b1"]
+    h = shard(F.gelu(a, approximate="tanh"), "act_ffn")
     return shard(h @ p["w2"] + p["b2"], "act_resid")
 
 
@@ -970,17 +1100,10 @@ def _chunked_core_local(r, k, v, w, u, state0, chunk: int):
     head width made whole (DTensor's own einsums over the chunked layout
     mis-size their local views). Differentiable: ``to_local`` and
     ``from_local``."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor import DTensor, Partial, Shard
 
     mesh = r.device_mesh
-    pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
-          for p in r.placements]
-
-    def shard_of(dims):          # r's batch / head sharding on other dims
-        return [Shard(dims[p.dim]) if isinstance(p, Shard) and p.dim in dims
-                else Replicate() for p in pl]
-
-    u_pl, s_pl = shard_of({2: 0}), shard_of({0: 0, 2: 1})
+    pl, u_pl, s_pl = per_head_placements(r.placements)
     r, k, v, w = (replicated_as(x, r).redistribute(mesh, pl)
                   for x in (r, k, v, w))
     u = replicated_as(u, r).redistribute(mesh, u_pl)
@@ -1144,7 +1267,8 @@ def rwkv6_channelmix_fwd(p: Mapping[str, Any], x: Tensor, cfg, *,
     diff = _token_shift(x, cache)
     xk = x + diff * p["maa_k"].to(x.dtype)
     xr = x + diff * p["maa_r"].to(x.dtype)
-    h = shard(torch.square(F.relu(xk @ p["wk"])), "act_ffn")
+    h = shard(torch.square(F.relu(pin(shard, xk @ p["wk"], "act_ffn"))),
+              "act_ffn")
     kv = h @ p["wv"]
     rr = torch.sigmoid(xr @ p["wr"])
     new_cache = None if cache is None else {"x_prev": x[:, -1, :].clone()}

@@ -611,7 +611,8 @@ def _mtp_loss(params: LM, x: Tensor, batch: dict[str, Tensor],
     emb_next = torch.cat([F.embedding(tokens[:, 1:],
                                       L.unshard_dim(params.embed, 0)),
                           x.new_zeros((x.shape[0], 1, x.shape[2]))], dim=1)
-    h = torch.cat([x, emb_next.to(x.dtype)], dim=-1) @ params.mtp.proj
+    h = L.pin(shard, torch.cat([x, emb_next.to(x.dtype)], dim=-1)
+              @ params.mtp.proj, "act_resid")
     h, _ = apply_layer(params.mtp.block, h, cfg, "attn_dense", pos=pos,
                        shard=shard)
     h = L.rmsnorm(h, params.mtp.norm, cfg.norm_eps)
@@ -722,7 +723,7 @@ def decode_step(params: LM, cache: Cache, tokens: Tensor, cfg: ArchConfig,
                 "cache length, as the reference does")
         pos = positions(cfg, b, s, tokens.device,
                         offset=_cache_length(cache, cfg))
-    x = shard(params.embed[tokens], "act_resid")
+    x = shard(L.take_rows(params.embed, tokens), "act_resid")
     new_cache = []
     for blk, kind, c in zip(params.blocks, cfg.layer_kinds, cache):
         x, nc = apply_layer(blk, x, cfg, kind, pos=pos, cache=c, shard=shard)

@@ -319,11 +319,13 @@ def batch_pspec(mesh, batch_size: int, extra_dims: int = 1) -> P:
 def make_shard_fn(mesh):
     """The activation-constraint callable that the models take as
     ``shard``: ``shard(x, name)`` returns a plain tensor as it is, and
-    redistributes a DTensor to the placements of the spec that ``name``
+    redistributes a DTensor, and in the backward its gradient
+    (:class:`_Constrain`), to the placements of the spec that ``name``
     and ``x``'s shape select (``shard.spec(shape, name)``, None where no
-    rule applies, which leaves ``x`` as it is). ``shard.model_size`` is
-    the model axis' size, which lets attention pick the kv-replicated
-    branch."""
+    rule applies, which leaves ``x`` as it is). ``shard.pin`` does the same
+    where the models pin a layout the reference leaves to XLA
+    (``models.layers.pin``). ``shard.model_size`` is the model axis' size,
+    which lets attention pick the kv-replicated branch."""
     axes = mesh_shape(mesh)
     baxes = batch_axes(axes)
     n_b = math.prod(axes[a] for a in baxes)
@@ -365,11 +367,30 @@ def make_shard_fn(mesh):
         sp = spec(x.shape, name)
         if sp is None:
             return x
-        return x.redistribute(x.device_mesh, placements(sp, x.device_mesh))
+        return _Constrain.apply(x, placements(sp, x.device_mesh))
 
     shard.spec = spec
+    shard.pin = shard
     shard.model_size = n_m
     return shard
+
+
+class _Constrain(torch.autograd.Function):
+    """A DTensor redistributed to ``placements``, its gradient too, as
+    ``jax.lax.with_sharding_constraint`` constrains the cotangent: without
+    it the gradient keeps whatever placement DTensor's backward picks (on
+    a three-axis mesh a [B, S, ff] gradient came back with S on "model",
+    whose flattening for the weight's gradient took minutes of sharding
+    propagation)."""
+
+    @staticmethod
+    def forward(ctx, x, pl):
+        ctx.pl = pl
+        return x.redistribute(x.device_mesh, pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.pl), None
 
 
 def cache_pspecs(cache, mesh, batch: int) -> list:

@@ -7,6 +7,12 @@ no autograd graph is kept and the recurrence takes the ``rwkv_scan``
 kernel even for a model whose parameters require gradients (one being
 trained). Attention layers keep a KV cache whose length is a host int,
 so a decode step makes no blocking transfer.
+
+On a mesh: place the parameters (``sharding.rules.place_parameters`` with
+``param_pspecs``), the batch (``batch_pspec``) and the cache
+(``cache_pspecs``) as DTensors and pass ``shard=make_shard_fn(mesh)``;
+the steps then run on DTensors under ``train_step.replicating``, and
+RWKV's recurrence runs ``rwkv_scan`` on each rank's (batch, head) shard.
 """
 from __future__ import annotations
 
@@ -14,8 +20,10 @@ from typing import Callable
 
 import torch
 
+from ..models import layers as L
 from ..models import model as M
 from ..models.config import ArchConfig
+from .train_step import replicating
 
 Tensor = torch.Tensor
 
@@ -34,9 +42,13 @@ def make_prefill_step(cfg: ArchConfig, *, shard=M.NO_SHARD) -> Callable:
 
     @torch.no_grad()
     def prefill(params: M.LM, batch: dict[str, Tensor]) -> Tensor:
+        with replicating(params.parameters()):
+            return _prefill(params, batch)
+
+    def _prefill(params: M.LM, batch: dict[str, Tensor]) -> Tensor:
         tokens = batch["tokens"]
         b, s = tokens.shape
-        x = shard(params.embed[tokens], "act_resid")
+        x = shard(L.take_rows(params.embed, tokens), "act_resid")
         if cfg.pos == "mrope":
             pos = batch["pos3"]
         else:
@@ -60,8 +72,9 @@ def make_decode_step(cfg: ArchConfig, *, shard=M.NO_SHARD) -> Callable:
     @torch.no_grad()
     def decode(params: M.LM, cache: M.Cache, tokens: Tensor,
                pos: Tensor | None = None):
-        return M.decode_step(params, cache, tokens, cfg, pos=pos,
-                             shard=shard)
+        with replicating(params.parameters()):
+            return M.decode_step(params, cache, tokens, cfg, pos=pos,
+                                 shard=shard)
     return decode
 
 

@@ -388,3 +388,85 @@ def test_cli_one_arch_on_the_pod_mesh(tmp_path):
     assert cell["meta"] == want
     assert cell["param_count"] == TM.count_params(cfg)
     assert cells["pod__whisper-tiny__decode_32k.json"]["status"] == "skipped"
+
+
+@pytest.mark.parametrize("arch, shape, mesh", [
+    ("rwkv6-7b", "decode_32k", "pod"), ("lm-100m", "prefill_32k", "multipod")])
+def test_cli_counts_collectives_of_a_serving_cell(tmp_path, arch, shape,
+                                                   mesh):
+    """A serving cell that ``rwkv_scan`` once kept off DTensors, and one
+    on the two-pod mesh (its batch sharded over "pod" and "data"): both
+    counted."""
+    proc = _run(["-m", "repro_torch.launch.dryrun", "--arch", arch,
+                 "--shape", shape, "--mesh", mesh, "--out-dir",
+                 str(tmp_path)])
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "dry-run cells: 1 ok, 0 skipped (documented), 0 errors" in \
+        proc.stdout
+    cell = json.loads((tmp_path / f"{mesh}__{arch}__{shape}.json")
+                      .read_text())
+    assert cell["status"] == "ok"
+    assert cell["chips"] == TD.MESH_WORLD[mesh]
+    assert cell["collectives_reason"] is None
+    coll = cell["collectives"]
+    assert coll["counts"] and all(v > 0 for v in coll["counts"].values())
+    assert coll["comm_debug_total"] == sum(coll["counts"].values())
+    assert coll["total_bytes"] == sum(coll["per_kind_bytes"].values()) > 0
+    assert cell["roofline"]["collective_bytes_per_device"] == \
+        coll["total_bytes"]
+
+
+RWKV_SCAN_META = """
+import json
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.kernels import rwkv_scan as scan
+from repro_torch.launch.mesh import make_test_mesh
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+b, s, h, hd = 8, 5, 4, 16
+out = {}
+for shape, names, pl in (((4, 2), ("data", "model"), [Shard(0), Shard(2)]),
+                         ((2, 2, 2), ("pod", "data", "model"),
+                          [Shard(0), Shard(0), Shard(2)])):
+    mesh = make_test_mesh(shape, names)
+    seq = [distribute_tensor(torch.empty(b, s, h, hd, device="meta"), mesh, pl,
+                             src_data_rank=None) for _ in range(4)]
+    u = torch.zeros(h, hd, device="meta")
+    state0 = torch.zeros(b, h, hd, hd, device="meta")
+    scan.rwkv_scan.launches = 0
+    with torch.no_grad():
+        o, st = scan.rwkv_scan(*seq, u, state0)
+    out[str(shape)] = {
+        "types": [type(o).__name__, type(st).__name__],
+        "shapes": [list(o.shape), list(st.shape)],
+        "local": [list(o.to_local().shape), list(st.to_local().shape)],
+        "placements": [[repr(p) for p in o.placements],
+                       [repr(p) for p in st.placements]],
+        "meta": o.to_local().is_meta and st.to_local().is_meta,
+        "launches": scan.rwkv_scan.launches}
+print(json.dumps(out))
+"""
+
+
+def test_rwkv_scan_dtensor_path_on_meta():
+    """``rwkv_scan`` of DTensors under an 8-rank fake group on the meta
+    device: each rank's shard (batch and heads kept, a plain zero state
+    taken as replicated and cut to them), placements and shapes, and no
+    launch; on (4, 2) and on (2, 2, 2) with the batch on two mesh dims."""
+    proc = _run(["-c", RWKV_SCAN_META])
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    got = json.loads(proc.stdout.splitlines()[-1])
+    b, s, h, hd = 8, 5, 4, 16
+    for shape, rows in (("(4, 2)", 2), ("(2, 2, 2)", 2)):
+        r = got[shape]
+        assert r["types"] == ["DTensor", "DTensor"]
+        assert r["shapes"] == [[b, s, h, hd], [b, h, hd, hd]]
+        assert r["local"] == [[rows, s, h // 2, hd], [rows, h // 2, hd, hd]]
+        assert r["meta"] and r["launches"] == 0
+    assert got["(4, 2)"]["placements"] == [
+        ["Shard(dim=0)", "Shard(dim=2)"], ["Shard(dim=0)", "Shard(dim=1)"]]
+    assert got["(2, 2, 2)"]["placements"] == [
+        ["Shard(dim=0)", "Shard(dim=0)", "Shard(dim=2)"],
+        ["Shard(dim=0)", "Shard(dim=0)", "Shard(dim=1)"]]
