@@ -1,0 +1,8 @@
+"""``query_rate.planned`` (queries/s): in the host-planned cell, every
+query answered in the window over the whole window, which closes in a
+device synchronise."""
+
+
+def read(run):
+    window = run.t_end - run.t0
+    return sum(run.units) / window if window > 0 else None
