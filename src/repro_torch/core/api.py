@@ -25,8 +25,8 @@ import os
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from .. import obs
 from ..reliability.errors import QueryError
 from .grid import (build_cell_grid, choose_grid_spec, parked_mask,
                    update_cell_grid)
@@ -121,7 +121,7 @@ def build_index(points, params: SearchParams,
         host = (points.detach().cpu().numpy() if isinstance(
             points, torch.Tensor) else np.asarray(points, np.float32))
         spec = choose_grid_spec(host, params.radius)
-    with record_function("repro.build_index"):
+    with obs.span("build"):
         points = _as_points(points, dev)
         if origin is not None:
             origin = _as_points(origin, dev)
@@ -147,7 +147,7 @@ def update_index(index: NeighborIndex, new_points, *,
     grid into the old one's storage (``update_cell_grid``), so ``index``
     must not be searched afterwards; the points are never written.
     """
-    with record_function("repro.update_index"):
+    with obs.span("update"):
         pts = _as_points(new_points, index.device)
         grid, stats, _ccoord = update_cell_grid(
             index.grid, pts, index.anchor_points,
@@ -169,38 +169,38 @@ def plan_query(index: NeighborIndex, queries, *,
     full-radius window) and revokes the sphere-test skip for any window
     pushed past the inscribed ring.
     """
-    with record_function("repro.plan_query"):
+    with obs.span("plan"):
         queries = _as_points(queries, index.device)
         params, opts, statics = index.params, index.opts, index.statics
-        spec = index.spec
         nq = queries.shape[0]
         tile = opts.query_tile
         partitioned = opts.partition and statics.has_megacells
-        ladder = launch_signatures(statics, params, margin=margin,
-                                   enabled=partitioned,
-                                   w_ladder=opts.w_ladder)
-        ccoord = spec.cell_of(queries, index.origin)
-        if partitioned:
-            w_search, skip, _rho = compute_megacells(index.grid, queries,
-                                                     statics, params,
-                                                     index.origin)
-            if margin:
-                w_search = torch.clamp_max(w_search + margin,
-                                           statics.w_full)
-                skip = skip & (w_search <= statics.w_sph)
-            levels = signature_levels(w_search, skip, ladder)
-        else:
-            levels = torch.zeros((nq,), dtype=torch.int32,
-                                 device=index.device)
-        perm = schedule_by_level(ccoord, levels, morton=opts.schedule)
-        npad = (-nq) % tile
-        # edge-replicate padding: padded slots repeat the last scheduled
-        # query
-        take = torch.clamp_max(torch.arange(nq + npad, device=index.device),
-                               nq - 1)
-        perm_p = perm[take]
-        tile_levels = levels[perm_p.long()].reshape(-1, tile).max(
-            dim=1).values.to(torch.int32)
+        with obs.span("megacells"):
+            ladder = launch_signatures(statics, params, margin=margin,
+                                       enabled=partitioned,
+                                       w_ladder=opts.w_ladder)
+            if partitioned:
+                w_search, skip, _rho = compute_megacells(
+                    index.grid, queries, statics, params, index.origin)
+                if margin:
+                    w_search = torch.clamp_max(w_search + margin,
+                                               statics.w_full)
+                    skip = skip & (w_search <= statics.w_sph)
+                levels = signature_levels(w_search, skip, ladder)
+            else:
+                levels = torch.zeros((nq,), dtype=torch.int32,
+                                     device=index.device)
+        with obs.span("schedule"):
+            ccoord = index.spec.cell_of(queries, index.origin)
+            perm = schedule_by_level(ccoord, levels, morton=opts.schedule)
+            npad = (-nq) % tile
+            # edge-replicate padding: padded slots repeat the last
+            # scheduled query
+            take = torch.clamp_max(
+                torch.arange(nq + npad, device=index.device), nq - 1)
+            perm_p = perm[take]
+            tile_levels = levels[perm_p.long()].reshape(-1, tile).max(
+                dim=1).values.to(torch.int32)
         return QueryPlan(nq=nq, tile=tile, ladder=ladder, perm=perm_p,
                          tile_levels=tile_levels)
 
@@ -214,7 +214,7 @@ def execute_plan(index: NeighborIndex, queries,
     Plain path: each tile runs ``window_tile_search`` at its level's window;
     it reads the tile levels on the host once (one synchronisation).
     """
-    with record_function("repro.execute_plan"):
+    with obs.span("launch"):
         return _execute_plan_scoped(index, queries, plan)
 
 
@@ -296,10 +296,11 @@ def query(index: NeighborIndex, queries) -> SearchResult:
     query order and exact (knn distances and counts; range mode returns a
     bounded in-radius subset). With ``REPRO_VALIDATE=1`` host-side queries
     are validated first."""
-    if _validate_enabled():
-        queries = validate_queries(queries)
-    queries = _as_points(queries, index.device)
-    return execute_plan(index, queries, plan_query(index, queries))
+    with obs.span("query"):
+        if _validate_enabled():
+            queries = validate_queries(queries)
+        queries = _as_points(queries, index.device)
+        return execute_plan(index, queries, plan_query(index, queries))
 
 
 def query_concat(index: NeighborIndex, queries_list) -> list[SearchResult]:

@@ -339,29 +339,29 @@ class SimulationSession:
             pts = api._as_points(points, dev)
             q = pts if self_query else api._as_points(queries, dev)
 
-            with obs.span("plan"):
-                index = self._index
-                if pts.shape != index.points.shape:
-                    # particle count changed under the frozen spec: re-seat
-                    # the points; the displacement statistic restarts here
-                    index = dataclasses.replace(index, points=pts,
-                                                anchor_points=pts)
-                    self._plan = None
-                anchor_q = self._anchor_queries
-                # switching between self-query and external queries always
-                # replans: the captured plan is anchored at the other set's
-                # positions, which the displacement statistic does not track
-                force = (self._plan is None
-                         or self._plan.nq != q.shape[0]
-                         or self_query != (anchor_q is None))
-                if self_query:
-                    anchor_q = q
-                elif anchor_q is None or anchor_q.shape != q.shape:
-                    anchor_q = q
-                    force = True
+            index = self._index
+            if pts.shape != index.points.shape:
+                # particle count changed under the frozen spec: re-seat
+                # the points; the displacement statistic restarts here
+                index = dataclasses.replace(index, points=pts,
+                                            anchor_points=pts)
+                self._plan = None
+            anchor_q = self._anchor_queries
+            # switching between self-query and external queries always
+            # replans: the captured plan is anchored at the other set's
+            # positions, which the displacement statistic does not track
+            force = (self._plan is None
+                     or self._plan.nq != q.shape[0]
+                     or self_query != (anchor_q is None))
+            if self_query:
+                anchor_q = q
+            elif anchor_q is None or anchor_q.shape != q.shape:
+                anchor_q = q
+                force = True
 
             t0 = time.perf_counter()
-            with obs.span("launch", forced=bool(force)):
+            # api.update_index's own ``update`` span folds into this one
+            with obs.span("update", forced=bool(force)):
                 index2, stats = api.update_index(index, pts,
                                                  donate=self._donate)
                 telem = self._pack(index2, stats, q, anchor_q, force,
@@ -397,21 +397,22 @@ class SimulationSession:
                            max_disp2=0.0)
                 fl = _FLAG_REPLANNED
 
-            with obs.span("launch", stage="search"):
-                if fl & _FLAG_REPLANNED:
-                    t1 = time.perf_counter()
-                    plan = api.plan_query(
-                        index2, q, margin=int(self.sopts.reuse_margin_cells))
-                    rep.t_plan = time.perf_counter() - t1
-                    # the anchors are snapshots: a caller that moves its
-                    # own tensor in place must not move them as well
-                    index3 = index2.with_anchor(pts.clone())
-                    anchor_q2 = None if self_query else q.clone()
-                    self._stage_occupancy(plan)
-                else:
-                    plan, index3, anchor_q2 = self._plan, index2, anchor_q
-                    self._count_occupancy(self._plan_occ)
-                res = api.execute_plan(index3, q, plan)
+            # the replan and the search are api.plan_query's ``plan`` and
+            # api.execute_plan's ``launch`` spans
+            if fl & _FLAG_REPLANNED:
+                t1 = time.perf_counter()
+                plan = api.plan_query(
+                    index2, q, margin=int(self.sopts.reuse_margin_cells))
+                rep.t_plan = time.perf_counter() - t1
+                # the anchors are snapshots: a caller that moves its own
+                # tensor in place must not move them as well
+                index3 = index2.with_anchor(pts.clone())
+                anchor_q2 = None if self_query else q.clone()
+                self._stage_occupancy(plan)
+            else:
+                plan, index3, anchor_q2 = self._plan, index2, anchor_q
+                self._count_occupancy(self._plan_occ)
+            res = api.execute_plan(index3, q, plan)
 
             self._index = index3
             self._plan = plan

@@ -49,10 +49,11 @@ _LAUNCHER_CACHE_MAX = 32
 
 
 def _fingerprint(*arrays: np.ndarray) -> bytes:
-    h = hashlib.sha1()
-    for a in arrays:
-        h.update(np.ascontiguousarray(a).tobytes())
-    return h.digest()
+    with obs.span("fingerprint"):
+        h = hashlib.sha1()
+        for a in arrays:
+            h.update(np.ascontiguousarray(a).tobytes())
+        return h.digest()
 
 
 @functools.lru_cache(maxsize=None)
@@ -174,12 +175,13 @@ class QueryExecutor:
         query, stacked on the device as 32-bit words and copied to the host
         in ONE blocking transfer."""
         ns = self.ns
-        w, s, r = compute_megacells(ns.grid, queries_s, ns.statics,
-                                    ns.params)
-        packed = torch.stack([w.to(torch.int32).view(torch.float32),
-                              s.to(torch.int32).view(torch.float32),
-                              r.to(torch.float32)])
-        host = packed.cpu().numpy()
+        with obs.span("fetch"):
+            w, s, r = compute_megacells(ns.grid, queries_s, ns.statics,
+                                        ns.params)
+            packed = torch.stack([w.to(torch.int32).view(torch.float32),
+                                  s.to(torch.int32).view(torch.float32),
+                                  r.to(torch.float32)])
+            host = packed.cpu().numpy()
         return host[0].view(np.int32), host[1].view(np.int32) != 0, host[2]
 
     def _plan(self, queries_s: Tensor, margin: int = 0):
@@ -211,10 +213,12 @@ class QueryExecutor:
             self._last["plan_cache_hit"] = True
             return hit
 
-        plan = (plan_partitions(w_np, s_np, r_np, ns.statics.w_full)
-                if partitioned else trivial_plan(nq, ns.statics.w_full))
-        bundles = ns._bundle(plan)
-        groups = self._build_groups(plan, bundles)
+        with obs.span("partition"):
+            plan = (plan_partitions(w_np, s_np, r_np, ns.statics.w_full)
+                    if partitioned else trivial_plan(nq, ns.statics.w_full))
+        with obs.span("bundle"):
+            bundles = ns._bundle(plan)
+            groups = self._build_groups(plan, bundles)
         self._plan_cache[key] = (plan, bundles, groups)
         if len(self._plan_cache) > _PLAN_CACHE_MAX:
             self._plan_cache.popitem(last=False)
@@ -225,12 +229,13 @@ class QueryExecutor:
         uploaded from pinned memory without a host synchronisation."""
         dev = self.ns.device
         sels = []
-        for g in groups:
-            sel = torch.from_numpy(
-                np.pad(g.sel, (0, g.pad_n - g.sel.shape[0]), mode="edge"))
-            if dev.type == "cuda":
-                sel = sel.pin_memory()
-            sels.append(sel.to(dev, non_blocking=True))
+        with obs.span("stage"):
+            for g in groups:
+                sel = torch.from_numpy(np.pad(
+                    g.sel, (0, g.pad_n - g.sel.shape[0]), mode="edge"))
+                if dev.type == "cuda":
+                    sel = sel.pin_memory()
+                sels.append(sel.to(dev, non_blocking=True))
         return tuple(sels)
 
     def capture_plan(self, queries, *, qcells_dev: Tensor | None = None,
@@ -247,14 +252,15 @@ class QueryExecutor:
         queries = ns._queries(queries)
         nq = queries.shape[0]
         with obs.span("plan", capture=True, nq=nq, margin=margin) as sp:
-            if not ns.opts.schedule:
-                perm = torch.arange(nq, dtype=torch.int32,
-                                    device=queries.device)
-            elif qcells_dev is not None:
-                perm, _ = schedule_cells(qcells_dev)
-            else:
-                perm, _ = ns._schedule(queries)
-            queries_s = queries[perm.long()]
+            with obs.span("schedule"):
+                if not ns.opts.schedule:
+                    perm = torch.arange(nq, dtype=torch.int32,
+                                        device=queries.device)
+                elif qcells_dev is not None:
+                    perm, _ = schedule_cells(qcells_dev)
+                else:
+                    perm, _ = ns._schedule(queries)
+                queries_s = queries[perm.long()]
             plan, bundles, groups = self._plan(queries_s, margin=margin)
             sels_dev = self._prepare_launch(groups)
         self._metrics.count("plan_fetches", self._last["plan_fetches"])
@@ -395,8 +401,9 @@ class QueryExecutor:
                 sels_dev = reuse.sels_dev
                 last["plan_reused"] = True
             else:
-                perm, _inv = ns._schedule(queries)
-                queries_s = queries[perm.long()]
+                with obs.span("schedule"):
+                    perm, _inv = ns._schedule(queries)
+                    queries_s = queries[perm.long()]
                 plan, bundles, groups = self._plan(queries_s)
                 sels_dev = self._prepare_launch(groups)
         ns.report.t_opt = sp_plan.duration

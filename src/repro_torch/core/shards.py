@@ -951,13 +951,13 @@ class ShardedSession:
         m = self._metrics
         with obs.span("step", slabs=self._n_slabs) as sp_step:
             pg = api._as_points(points, self._dev)
-            with obs.span("plan"):
-                if pg.shape != (self._n, 3):
-                    # particle count changed: the layout's static caps are
-                    # stale
+            if pg.shape != (self._n, 3):
+                # particle count changed: the layout's static caps are stale
+                with obs.span("plan", reroute=True):
                     self._n = int(pg.shape[0])
                     self._reroute(pg.cpu().numpy(), pg, count=False)
-            with obs.span("launch"):
+            # each slab's api.update_index ``update`` span folds into this
+            with obs.span("update"):
                 pts2, ids2, all_p, all_i, index2, telem = self._update(pg)
             with obs.span("sync"):
                 vec = telem.cpu().numpy()
@@ -1019,21 +1019,24 @@ class ShardedSession:
         (with the owned rows' ids) gathered over the ranks and un-routed to
         global order. ``count`` counts the replayed plans' histograms
         (False after a re-route, whose fresh plans are counted when their
-        staged histograms land)."""
-        with obs.span("launch", stage="search"):
+        staged histograms land). The slabs' api spans fold into one ``plan``
+        (replanning slabs only) and one ``launch``."""
+        replanned = [s for s in range(self._blk.count) if stale[s]]
+        if replanned:
             margin = int(self.sopts.reuse_margin_cells)
-            replanned, outs = [], []
-            for s in range(self._blk.count):
-                if stale[s]:
+            with obs.span("plan"):
+                for s in replanned:
                     self._plan[s] = api.plan_query(index[s], pts[s],
                                                    margin=margin)
                     index[s] = index[s].with_anchor(all_p[s])
-                    replanned.append(s)
-                elif count:
+        if count:
+            for s in range(self._blk.count):
+                if not stale[s]:
                     self._count_occupancy(self._plan_occ[s])
-                outs.append(_global_ids(
-                    api.execute_plan(index[s], pts[s], self._plan[s]),
-                    all_i[s]))
+        with obs.span("launch"):
+            outs = [_global_ids(api.execute_plan(index[s], pts[s],
+                                                 self._plan[s]), all_i[s])
+                    for s in range(self._blk.count)]
             self._index = index
             if replanned:
                 self._stage(replanned, count=True)

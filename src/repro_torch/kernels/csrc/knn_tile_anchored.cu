@@ -52,6 +52,20 @@
 // issues this one kernel after a few small PyTorch operations that build
 // the item list and the occupancy and zero the locks.
 //
+// Walked-pair counter: each CTA counts, per run of a unit, the window cells
+// it looks up, the occupied ones among them, the valid candidate ids it
+// stages and the (query row, staged candidate) pairs it compares (the
+// unit's rows times the staged ids), sums them in shared memory by the
+// tile's table level (levels past kWalkLevels together), and at exit adds
+// each level's sums with one 64-bit atomicAdd a count into a process-wide
+// table of kWalkSlots rows keyed by the level's signature (wx, wy, wz,
+// skip): key, cells, occupied, staged, pairs (``walk``, which the wrapper
+// never fetches; obs reads it). Thread 0 counts, in shared memory, from
+// values the round reads anyway, so the compare loop holds no register
+// more; no call, search or atomic runs inside the loop over tiles.
+// Nothing else reads the counts, so results are unchanged. A tile of
+// several row blocks walks its window once a block, and is counted so.
+//
 // Exactness and ties: the arithmetic, the list, the compaction round, the
 // scan of the stage and the merge are those of knn_stream.cuh (sums x, y,
 // z through __fmul_rn/__fadd_rn), shared with knn_tile.cu, so the two
@@ -160,7 +174,18 @@ struct Args {
   int ld, col0;
   float* lo_d;
   int* lo_p;
+  unsigned long long* walk;            // [kWalkSlots, kWalkRow] counter
 };
+
+// The walk counter's table (see the top of the file): kWalkSlots rows of
+// kWalkRow words, the last row taking every signature that finds no free
+// row and the levels past kWalkLevels (key kWalkOverflow); a CTA sums
+// kWalkLevels levels apart and the rest in one more entry.
+constexpr int kWalkSlots = 256;
+constexpr int kWalkRow = 5;            // key, cells, occupied, staged, pairs
+constexpr int kWalkCounts = kWalkRow - 1;
+constexpr int kWalkLevels = 32;
+constexpr unsigned long long kWalkOverflow = ~0ull;
 
 // A CTA's static shared memory: the bookkeeping of a round, a merge and a
 // chunk, and the window of the tile being run. (The dynamic part: the
@@ -171,7 +196,68 @@ struct Stage {
   int merged;
   int chunk[3];               // tile index j (-1: no work left), items
   Window w;                   // the window of the tile being run
+  // thread 0's walk counts: the run's cells, occupied cells and staged
+  // ids; the CTA's sums by table level, the levels past kWalkLevels last
+  int run[3];
+  unsigned long long walk[kWalkLevels + 1][kWalkCounts];
 };
+
+// The counter table's row for a level's signature ``sig`` (wx, wy, wz,
+// skip; null for the levels past kWalkLevels): the row whose key it is,
+// else the first free row from its hash on (a 64-bit CAS claims it), else
+// the overflow row.
+__device__ unsigned long long* walk_row(unsigned long long* walk,
+                                        const int* sig) {
+  constexpr unsigned kMax = 1u << 21;  // 21 bits a window side
+  constexpr int kRows = kWalkSlots - 1;
+  if (sig != nullptr && (unsigned)sig[0] < kMax && (unsigned)sig[1] < kMax &&
+      (unsigned)sig[2] < kMax) {
+    const unsigned long long key =
+        ((unsigned long long)sig[0] << 43) |
+        ((unsigned long long)sig[1] << 22) |
+        ((unsigned long long)sig[2] << 1) | (sig[3] != 0);
+    int h = static_cast<int>(((key * 0x9E3779B97F4A7C15ull) >> 32) % kRows);
+    for (int i = 0; i < kRows; ++i, h = h + 1 == kRows ? 0 : h + 1) {
+      unsigned long long* row = walk + (size_t)h * kWalkRow;
+      const unsigned long long was = atomicCAS(row, 0ull, key);
+      if (was == 0ull || was == key) return row;
+    }
+  }
+  unsigned long long* row = walk + (size_t)kRows * kWalkRow;
+  atomicCAS(row, 0ull, kWalkOverflow);
+  return row;
+}
+
+// Thread 0 adds the run of ``unit`` (its counts in st.run) to its CTA's
+// sums for the tile's level.
+template <bool kMasked>
+__device__ __forceinline__ void count_walk(Stage& st, const Args& a,
+                                           int unit) {
+  int tile = unit, rows = blockDim.x;     // the unit's tile and query rows
+  if constexpr (kMasked) {
+    tile = unit / a.n_rb;
+    const int r0 = (unit - tile * a.n_rb) * a.rb_rows;
+    rows = max(0, min(a.rb_rows, a.tile_rows - r0));
+  }
+  unsigned long long* sums = st.walk[min(a.levels[tile], kWalkLevels)];
+  sums[0] += st.run[0];
+  sums[1] += st.run[1];
+  sums[2] += st.run[2];
+  sums[3] += (unsigned long long)st.run[2] * rows;
+}
+
+// At a CTA's exit: its sums of each level it ran (a run looks up at least
+// one cell) into the counter table, a level a thread.
+__device__ __forceinline__ void flush_walk(const Stage& st, const Args& a) {
+  for (int i = threadIdx.x; i <= kWalkLevels; i += blockDim.x) {
+    if (st.walk[i][0] == 0) continue;
+    unsigned long long* row =
+        walk_row(a.walk, i < kWalkLevels ? a.table + i * 4 : nullptr);
+#pragma unroll
+    for (int c = 0; c < kWalkCounts; ++c)
+      if (st.walk[i][c]) atomicAdd(row + 1 + c, st.walk[i][c]);
+  }
+}
 
 // One run of a tile's work items: items first_item .. first_item + covered
 // of its nseg, one stream over their window slots through a fresh best-K
@@ -246,6 +332,11 @@ __device__ __forceinline__ void run_tile(const Args& a, Stage& st,
       min((long long)(first_item + covered) * a.seg_cells,
           (long long)win_cells));
 
+  if (t == 0) {                           // the run's walk counts
+    st.run[0] = c_last - c_first;
+    st.run[1] = st.run[2] = 0;
+  }
+
   const float cap = skip ? kBig : nextafterf(a.r2, CUDART_INF_F);
   float lim = cap;
   const unsigned below = (1u << lane) - 1;
@@ -270,6 +361,7 @@ __device__ __forceinline__ void run_tile(const Args& a, Stage& st,
         s_cells[cnt[r * nw + warp] + __popc(mk[r] & below)] =
             static_cast<int>(cb + (long long)r * nthr + t);
     }
+    if (t == 0) st.run[1] += st.rk.total;
     const int n_slots = st.rk.total * w.cap;
     __syncthreads();                      // s_cells is complete
     for (int sb = 0; sb < n_slots; sb += kRounds * nthr) {
@@ -299,6 +391,7 @@ __device__ __forceinline__ void run_tile(const Args& a, Stage& st,
         }
       }
       fill += st.rk.total;
+      if (t == 0) st.run[2] += st.rk.total;
       if (fill > nthr) {                  // room for one more round only
         knn_stream::pad_stage(s_pt, fill);
         __syncthreads();
@@ -323,6 +416,8 @@ __device__ __forceinline__ void run_tile(const Args& a, Stage& st,
   knn_stream::finish_unit<KMAX, kPass>(
       a, best, unit, row, active, covered, nseg,
       [&w](int pos) { return w.id(pos); }, st.merged);
+
+  if (t == 0 && st.run[0] > 0) count_walk<kMasked>(st, a, unit);
 }
 
 // Persistent: each CTA takes chunks of consecutive work items (guided: a
@@ -339,6 +434,8 @@ __global__ void __launch_bounds__(1024) knn_tile_anchored_kernel(Args a) {
   int* s_pos = reinterpret_cast<int*>(s_pt + (kRounds + 1) * blockDim.x);
   int* s_cells = s_pos + (kRounds + 1) * blockDim.x;
   const int n_items = a.cum[a.n_tiles];
+  for (int i = threadIdx.x; i <= kWalkLevels; i += blockDim.x)
+    for (int c = 0; c < kWalkCounts; ++c) st.walk[i][c] = 0;
 
   for (;;) {
     if (warp == 0) {                      // take a chunk, find its first tile
@@ -386,6 +483,7 @@ __global__ void __launch_bounds__(1024) knn_tile_anchored_kernel(Args a) {
       ++j;
     }
   }
+  flush_walk(st, a);                      // st.walk is complete
 }
 
 template <int KMAX, bool kMasked, bool kPass>
@@ -426,7 +524,10 @@ int launch_k(const Args& a, int block, cudaStream_t s) {
 // tile`` and ``n_rb == 1`` is the unmasked kernel. ``k`` (at most 128) is
 // this launch's list length and ``ld`` the output row length; with
 // ``lo_d``/``lo_p`` non-null the launch is the pass that writes columns
-// [col0, col0 + k).
+// [col0, col0 + k). ``walk`` is the [kWalkSlots, kWalkRow] uint64 walk
+// counter table (zeroed once; the launch adds to it).
+extern "C" int knn_tile_anchored_walk_slots() { return kWalkSlots; }
+
 extern "C" int knn_tile_anchored_launch(
     const float* q, const float* points, const int* dense,
     const int* anchors, const int* levels, const int* table, int n_entries,
@@ -434,16 +535,17 @@ extern "C" int knn_tile_anchored_launch(
     int* sync, int n_units, int tile, int rb_rows, int n_rb, int block,
     int n_pts, int n_flat, int dy, int dz, int cap, int k, int ld, int col0,
     int seg_cells, float r2, float* lo_d, int* lo_p, float* out_d2,
-    int* out_idx, void* stream) {
+    int* out_idx, unsigned long long* walk, void* stream) {
   if (n_units <= 0) return 0;
-  if (k < 1 || k > 128 || block % 32 || block < rb_rows ||
+  if (k < 1 || k > 128 || block % 32 || block < rb_rows || walk == nullptr ||
       (lo_d == nullptr && (ld != k || col0 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{q, points, dense, anchors, levels, table, order, cum,
                occupied, sync, sync + n_units, sync + 2 * n_units, out_d2,
                out_idx, n_flat, n_entries, n_units, n_pts, dy, dz, cap, k,
-               seg_cells, r2, tile, rb_rows, n_rb, ld, col0, lo_d, lo_p};
+               seg_cells, r2, tile, rb_rows, n_rb, ld, col0, lo_d, lo_p,
+               walk};
   if (n_rb == 1 && block == tile) return launch_k<false>(a, block, s);
   return launch_k<true>(a, block, s);
 }

@@ -49,6 +49,7 @@ import functools
 import numpy as np
 import torch
 
+from ..obs.lifecycle import on_reset
 from .ref import dot3, topk_select
 
 Tensor = torch.Tensor
@@ -182,9 +183,75 @@ def _library():
     fn = lib.knn_tile_anchored_launch
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, p, p, p, p, p, i, p, p, p, p, i, i, i, i, i, i, i, i,
-                   i, i, i, i, i, i, ctypes.c_float, p, p, p, p, p]
+                   i, i, i, i, i, i, ctypes.c_float, p, p, p, p, p, p]
     fn.restype = ctypes.c_int
-    return fn
+    lib.knn_tile_anchored_walk_slots.restype = ctypes.c_int
+    return fn, lib.knn_tile_anchored_walk_slots()
+
+
+# The walk counter of knn_tile_anchored's kernel: per device, a table of
+# rows (signature key, window cells looked up, occupied cells, candidate
+# ids staged, candidate pairs compared) that every launch adds to on the
+# device and nothing fetches but walk_counts; the launches' query rows
+# are summed on the host (``knn_tile_anchored.rows``).
+_WALK: dict = {}
+_WALK_COUNTS = ("window_cells", "occupied_cells", "candidates",
+                "candidate_pairs")
+
+
+def _walk_table(device: torch.device, slots: int) -> Tensor:
+    """The device's walk counter table, zeros made at its first launch (no
+    host synchronisation)."""
+    table = _WALK.get(device)
+    if table is None:
+        table = _WALK[device] = torch.zeros(
+            (slots, 1 + len(_WALK_COUNTS)), dtype=torch.int64, device=device)
+    return table
+
+
+def walk_counts() -> dict | None:
+    """What ``knn_tile_anchored``'s launches have walked since the process
+    started (or the last ``reset_walk_counts``), None if none ran on a
+    card: ``query_rows`` (the launches' rows, padding included), the four
+    device counts summed, and ``by_signature``, the counts of each launch
+    signature (window extent in cells, sphere test); a launch's levels
+    past its 32nd, and a signature that found the table full, count in an
+    entry with ``window`` None. Copies
+    each device's table to the host once, which waits for its launches."""
+    if not _WALK:
+        return None
+    by_sig: dict = {}
+    for table in _WALK.values():
+        for key, *counts in table.cpu().tolist():
+            if key == 0:
+                continue
+            key &= (1 << 64) - 1
+            sig = (None if key == (1 << 64) - 1 else
+                   ((key >> 43, (key >> 22) & 0x1FFFFF, (key >> 1) & 0x1FFFFF),
+                    not key & 1))
+            tot = by_sig.setdefault(sig, [0] * len(_WALK_COUNTS))
+            for j, n in enumerate(counts):
+                tot[j] += n
+    out = {"query_rows": knn_tile_anchored.rows}
+    for j, name in enumerate(_WALK_COUNTS):
+        out[name] = sum(c[j] for c in by_sig.values())
+    out["by_signature"] = [
+        dict(window=None if sig is None else list(sig[0]),
+             sphere_test=None if sig is None else sig[1],
+             **dict(zip(_WALK_COUNTS, counts)))
+        for sig, counts in by_sig.items()]
+    return out
+
+
+def reset_walk_counts() -> None:
+    """Zero the walk counter (on the device, no synchronisation) and the
+    host's row count."""
+    for table in _WALK.values():
+        table.zero_()
+    knn_tile_anchored.rows = 0
+
+
+on_reset(reset_walk_counts)
 
 
 def knn_tile_anchored(
@@ -225,7 +292,8 @@ def knn_tile_anchored(
     out_idx = torch.empty((rows, k), dtype=torch.int32, device=q.device)
     if n_tiles == 0:
         return out_d2, out_idx
-    launch = _library()
+    launch, walk_slots = _library()
+    walk = _walk_table(q.device, walk_slots)
     seg = SEG
     n_rb, rb_rows, block = row_blocks(tile)
     order, cum, occupied, sync = launch_scratch(levels, table, dense_flat,
@@ -251,15 +319,18 @@ def knn_tile_anchored(
                 float(np.float32(r2)),
                 None if lo_d is None else lo_d.data_ptr(),
                 None if lo_p is None else lo_p.data_ptr(),
-                out_d2.data_ptr(), out_idx.data_ptr(), stream)
+                out_d2.data_ptr(), out_idx.data_ptr(), walk.data_ptr(),
+                stream)
             if err != 0:
                 raise RuntimeError(f"knn_tile_anchored: kernel launch "
                                    f"failed (cudaError {err})")
             knn_tile_anchored.launches += 1
+            knn_tile_anchored.rows += rows
     return out_d2, out_idx
 
 
 knn_tile_anchored.launches = 0
+knn_tile_anchored.rows = 0
 
 
 def _stream_plain(qt, points, chunks, *, k, r2, skip):

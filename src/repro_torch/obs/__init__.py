@@ -11,6 +11,7 @@ Quickstart::
     obs.configure()                    # pick up the knob (or pass mode=)
     ... run session steps / serve requests ...
     print(obs.summary())               # unified text table
+    print(obs.kernel_counters())       # the kernels' device counters
     obs.export_jsonl("telemetry.jsonl")  # spans + metrics, one JSON/line
     obs.export_perfetto("trace.json")  # open in ui.perfetto.dev
     print(obs.export_openmetrics())    # Prometheus-style scrape text
@@ -20,8 +21,9 @@ from .registry import (REGISTRY, Counter, Gauge, Histogram,  # noqa: F401
 from .tracing import (configure, current_trace, export_jsonl,  # noqa: F401
                       recent_spans, record_span, span, timeline,
                       trace_enabled, trace_mode, trace_path, trace_scope)
-from .device import (TELEM_HEADER, level_occupancy,  # noqa: F401
-                     pack_step_telemetry, unpack_step_telemetry)
+from .device import (TELEM_HEADER, kernel_counters,  # noqa: F401
+                     level_occupancy, pack_step_telemetry,
+                     unpack_step_telemetry)
 from .lifecycle import on_reset, run_reset_hooks  # noqa: F401
 from .perfetto import export_perfetto, to_trace_events  # noqa: F401
 from .openmetrics import export_openmetrics  # noqa: F401
@@ -34,8 +36,15 @@ def metric_set(component: str) -> MetricSet:
 
 
 def summary() -> str:
-    """Text table of every metric in the global registry."""
-    return REGISTRY.summary()
+    """Text table of every metric in the global registry, then the
+    kernels' device counters (``kernel_counters``) if any kernel ran on a
+    card."""
+    lines = [REGISTRY.summary()]
+    for kernel, counts in kernel_counters().items():
+        for name, v in counts.items():
+            if name != "by_signature":
+                lines.append(f"# {kernel:<18}{name:<34}{v:>14d}")
+    return "\n".join(lines)
 
 
 def metrics_dict() -> dict:

@@ -15,6 +15,9 @@ The port's sessions fetch the header before they plan, so they pack no
 occupancy tail (the sharded session packs its per-slab stale flags
 there); a plan's histogram reaches the host later without a sync of its
 own (``core/dynamic.py``, ``core/shards.py``).
+
+The kernels' own work counters live on the device too, and reach the
+host only when :func:`kernel_counters` is called.
 """
 from __future__ import annotations
 
@@ -87,3 +90,15 @@ def unpack_step_telemetry(vec) -> dict:
         "halo": int(v[TELEM_HALO]),
         "occupancy": [int(x) for x in v[TELEM_HEADER:]],
     }
+
+
+def kernel_counters() -> dict:
+    """``{kernel: counts}`` of the kernels that count their own work on
+    the device, each fetched once now (a copy that waits for the kernel's
+    launches); a kernel that has not run on a card is absent. Today:
+    ``knn_tile_anchored``'s walk (``kernels.knn_tile.walk_counts``): the
+    query rows, window cells looked up, occupied cells, candidate ids
+    staged and candidate pairs compared, in all and ``by_signature``."""
+    from ..kernels import knn_tile
+    walk = knn_tile.walk_counts()
+    return {} if walk is None else {"knn_tile_anchored": walk}

@@ -16,6 +16,10 @@ Mapping from the registry's metric kinds:
   p50/p95/p99 plus ``_sum`` and ``_count`` (the registry keeps a
   reservoir, not fixed buckets, so a summary is the honest rendering).
 
+The kernels' device counters (``kernel_counters``) render as ``counter``
+families ``repro_kernel_{kernel}_{count}``, one sample a launch signature
+(``window`` and ``sphere_test`` labels), and ``..._query_rows``.
+
 Metric names are ``repro_{component}_{name}`` with every
 non-``[a-zA-Z0-9_]`` character collapsed to ``_``. Per-tenant SLO
 families (``repro_slo_*``) carry a ``tenant`` label. Output ends with
@@ -56,6 +60,14 @@ def _emit_family(lines: list, fam: str, omtype: str,
     lines.append(f"# TYPE {fam} {omtype}")
     for sname, labels, value in samples:
         lines.append(f"{sname}{labels} {_fmt(value)}")
+
+
+def _signature_labels(sig: dict) -> str:
+    """A launch signature's labels: ``window="7x7x7"`` (``other`` for the
+    counter's overflow row) and ``sphere_test``."""
+    window = "x".join(map(str, sig["window"])) if sig["window"] else "other"
+    return ("{" + _label("window", window) + ","
+            + _label("sphere_test", str(sig["sphere_test"]).lower()) + "}")
 
 
 def export_openmetrics(registry=None, board=None) -> str:
@@ -135,6 +147,17 @@ def export_openmetrics(registry=None, board=None) -> str:
         if lat_samples:
             _emit_family(lines, "repro_slo_latency_seconds", "summary",
                          lat_samples)
+
+    from .device import kernel_counters
+    for kernel, counts in kernel_counters().items():
+        for name, total in counts.items():
+            if name == "by_signature":
+                continue
+            fam = _metric_name("kernel", f"{kernel}_{name}")
+            samples = ([(f"{fam}_total", "", total)] if name == "query_rows"
+                       else [(f"{fam}_total", _signature_labels(sig),
+                              sig[name]) for sig in counts["by_signature"]])
+            _emit_family(lines, fam, "counter", samples)
 
     lines.append("# EOF")
     return "\n".join(lines) + "\n"

@@ -3,29 +3,51 @@
 ``span(name, **attrs)`` is a nestable context manager that measures a
 host-side stage and, always, independent of any knob, enters a
 ``torch.profiler.record_function`` so the same stage shows up in a
-``torch.profiler`` trace beside the kernels it launched. Host-side
-*recording* is gated by the ``REPRO_TRACE`` env knob:
+``torch.profiler`` trace beside the kernels it launched. Every span lands
+in a bounded in-memory ring (``recent_spans()``, the last ``_RING_MAX``);
+how much it keeps is set by the ``REPRO_TRACE`` env knob:
 
-* unset / ``0`` / ``off``  — spans are timed-and-dropped (near-zero cost);
-* ``1`` / ``log``          — spans are kept in an in-memory ring buffer
-  (``recent_spans()``) and logged at DEBUG;
+* unset / ``0`` / ``off``  — a compact record: name, path, start
+  (``t0_s``), duration (``dur_s``) and thread (``tid``); no attributes,
+  no trace id, no log line;
+* ``1`` / ``log``          — the whole record (attributes, trace id,
+  sequence number), also logged at DEBUG;
 * ``2`` / ``jsonl`` / a path ending in ``.jsonl`` — spans additionally
   stream to a JSONL file (default ``repro_trace.jsonl``, overridable via
   ``REPRO_TRACE_PATH`` or by giving the path as the knob value itself).
 
-Span taxonomy (fixed, so dashboards and tests can rely on the names):
-top-level ``query`` and ``step`` (sessions); children ``plan``,
-``compile``, ``launch``, ``sync``. Nesting is tracked per-thread; a span
-record carries its slash-joined path (``step/launch``), its start time
-``t0_s`` (``time.perf_counter`` clock), and the recording thread's
-``tid``.
+So the flight recorder's post-mortem and a benchmark's per-call stage
+times have the spans whatever the mode.
+
+Span taxonomy (fixed, so dashboards, tests and the benchmark's metrics
+can rely on the names). Top level: ``query`` (``api.query``,
+``NeighborSearch.query``) and ``step`` (both sessions); ``build``
+(``api.build_index``) where it is called on its own. Their children:
+
+* ``api.query``: ``plan`` (``plan_query``: ``megacells``, then
+  ``schedule``), ``launch`` (``execute_plan``);
+* ``NeighborSearch.query``: ``plan`` (``schedule``, ``fetch`` — the
+  megacells and their one blocking copy —, ``fingerprint``,
+  ``partition``, ``bundle``, ``stage``), ``launch`` (``compile`` on a
+  kernel's first launch), ``sync``;
+* a session ``step``: ``update`` (re-bin and pack), ``sync``, ``plan``
+  (on replan steps only; the sharded session's re-routes too),
+  ``launch``.
+
+A span opened directly inside a span of its own name is folded into it:
+it is timed (``duration``) but neither nested nor recorded again, so a
+caller's ``update`` around ``api.update_index``'s own ``update`` reads
+once. Nesting is tracked per thread; a record carries its slash-joined
+path (``step/launch``), its start ``t0_s`` on ``time.perf_counter``'s
+clock, and the recording thread's ``tid``. Exports put starts on
+``torch.profiler``'s clock (:func:`profiler_clock_offset_ns`).
 
 **Trace context**: ``with trace_scope("req-000042"): ...`` pins a
 per-thread request id; every span recorded inside the scope (or given an
 explicit ``trace=...`` attribute) carries it as the top-level ``trace``
 field, and batch-granular spans carry the ``trace_ids`` list attribute
-instead. ``timeline(trace_id)`` filters the ring down to one request's
-spans in start-time order.
+instead (both with tracing on). ``timeline(trace_id)`` filters the ring
+down to one request's spans in start-time order.
 
 Nothing here changes what runs on the device: only host bookkeeping
 differs with tracing on or off.
@@ -49,6 +71,7 @@ _state_lock = threading.Lock()
 _mode = "off"                   # "off" | "log" | "jsonl"
 _path = "repro_trace.jsonl"
 _fh = None                      # lazily-opened JSONL handle
+_fh_offset_ns = 0               # its perf_counter -> profiler clock offset
 _ring: collections.deque = collections.deque(maxlen=_RING_MAX)
 _seq = 0
 
@@ -108,10 +131,43 @@ def reset() -> None:
         _seq = 0
 
 
+def _as_dict(rec) -> dict:
+    if isinstance(rec, dict):
+        return rec
+    name, path, t0_s, dur_s, tid = rec
+    return {"type": "span", "name": name, "path": path, "dur_s": dur_s,
+            "t0_s": t0_s, "tid": tid}
+
+
 def recent_spans() -> list:
-    """Recorded span dicts, oldest first (in-memory ring buffer)."""
+    """Recorded span dicts, oldest first (in-memory ring buffer). With
+    tracing off they are the compact records (no ``attrs``, ``trace`` or
+    ``seq``)."""
     with _state_lock:
-        return list(_ring)
+        recs = list(_ring)
+    return [_as_dict(r) for r in recs]
+
+
+def profiler_clock_offset_ns() -> int:
+    """Nanoseconds to add to a ``time.perf_counter`` stamp to place it on
+    the clock that ``torch.profiler`` stamps host and device events with
+    (the Unix epoch), sampled now: the read of ``time.time_ns`` most
+    tightly bracketed by two ``perf_counter_ns`` reads of a few."""
+    best = None
+    for _ in range(5):
+        a = time.perf_counter_ns()
+        wall = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, wall - (a + b) // 2)
+    return best[1]
+
+
+def _json_line(rec: dict, offset_ns: int) -> str:
+    """A span's JSONL line: the record and its start ``ts_ns`` on the
+    profiler's clock."""
+    out = dict(rec, ts_ns=round(rec["t0_s"] * 1e9) + offset_ns)
+    return json.dumps(out, sort_keys=True) + "\n"
 
 
 def _stack() -> list:
@@ -164,7 +220,7 @@ def _clean_attr(v):
 
 
 def _emit(rec: dict) -> None:
-    global _fh, _seq
+    global _fh, _fh_offset_ns, _seq
     with _state_lock:
         _seq += 1
         rec["seq"] = _seq
@@ -172,7 +228,8 @@ def _emit(rec: dict) -> None:
         if _mode == "jsonl":
             if _fh is None:
                 _fh = open(_path, "a", buffering=1)
-            _fh.write(json.dumps(rec, sort_keys=True) + "\n")
+                _fh_offset_ns = profiler_clock_offset_ns()
+            _fh.write(_json_line(rec, _fh_offset_ns))
     if logger.isEnabledFor(logging.DEBUG):
         logger.debug("span %s %.1fus", rec["path"], rec["dur_s"] * 1e6)
 
@@ -185,15 +242,14 @@ def record_span(name: str, dur_s: float, *, t0_s: float | None = None,
     start on the ``perf_counter`` clock (defaults to now-minus-duration);
     a ``trace=...`` attribute (or an enclosing ``trace_scope``) is hoisted
     to the record's top-level ``trace``."""
+    path = "/".join(_stack() + [name])
+    t0 = time.perf_counter() - dur_s if t0_s is None else float(t0_s)
     if _mode == "off":
+        _ring.append((name, path, t0, dur_s, threading.get_ident()))
         return
-    st = _stack()
-    path = "/".join(st + [name])
     trace = attrs.pop("trace", None) or current_trace()
     rec = {"type": "span", "name": name, "path": path, "dur_s": dur_s,
-           "t0_s": (time.perf_counter() - dur_s if t0_s is None
-                    else float(t0_s)),
-           "tid": threading.get_ident()}
+           "t0_s": t0, "tid": threading.get_ident()}
     if trace is not None:
         rec["trace"] = trace
     if attrs:
@@ -204,7 +260,9 @@ def record_span(name: str, dur_s: float, *, t0_s: float | None = None,
 class span:
     """``with span("plan", nq=1024) as sp: ...`` — times the block, tags
     it in the profiler trace, records it per REPRO_TRACE. ``sp.duration`` is
-    available after exit; ``sp.set(**attrs)`` adds attributes mid-flight."""
+    available after exit; ``sp.set(**attrs)`` adds attributes mid-flight.
+    Opened directly inside a span of the same name, it only times itself
+    (the outer one stands for both)."""
 
     __slots__ = ("name", "attrs", "duration", "_t0", "_ann", "_path")
 
@@ -221,6 +279,10 @@ class span:
 
     def __enter__(self):
         st = _stack()
+        if st and st[-1] == self.name:      # folded into its parent
+            self._path = None
+            self._t0 = time.perf_counter()
+            return self
         self._path = "/".join(st + [self.name])
         st.append(self.name)
         # always annotate: profiler visibility must not depend on the
@@ -233,11 +295,16 @@ class span:
 
     def __exit__(self, *exc):
         self.duration = time.perf_counter() - self._t0
+        if self._path is None:
+            return False
         self._ann.__exit__(*exc)
         st = _stack()
         if st and st[-1] == self.name:
             st.pop()
-        if _mode != "off":
+        if _mode == "off":
+            _ring.append((self.name, self._path, self._t0, self.duration,
+                          threading.get_ident()))
+        else:
             trace = self.attrs.pop("trace", None) or current_trace()
             rec = {"type": "span", "name": self.name, "path": self._path,
                    "dur_s": self.duration, "t0_s": self._t0,
@@ -274,15 +341,16 @@ def timeline(trace_id: str, spans: list | None = None) -> list:
 def export_jsonl(path: str | None = None, registry=None) -> str:
     """Dump buffered spans plus the aggregated metric registry as JSONL.
 
-    One ``{"type": "span", ...}`` line per buffered span and one
-    ``{"type": "metric", ...}`` line per aggregated metric. Returns the
-    path written."""
+    One ``{"type": "span", ...}`` line per buffered span, its start also
+    as ``ts_ns`` on the profiler's clock, and one ``{"type": "metric",
+    ...}`` line per aggregated metric. Returns the path written."""
     from .registry import REGISTRY
     reg = registry if registry is not None else REGISTRY
     out = path or _path
+    offset = profiler_clock_offset_ns()
     with open(out, "a", buffering=1) as fh:
         for rec in recent_spans():
-            fh.write(json.dumps(rec, sort_keys=True) + "\n")
+            fh.write(_json_line(rec, offset))
         reg.export_metrics_jsonl(fh)
     return out
 

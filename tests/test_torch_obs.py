@@ -111,11 +111,19 @@ def test_spans_nest_like_reference():
 
 
 def test_spans_dropped_when_off():
+    """With tracing off a span's attributes, trace id and log line are
+    dropped; the ring keeps its compact record (name, path, start,
+    duration, thread)."""
     obs.configure(mode="off")
-    with obs.span("query") as sp:
-        pass
+    with obs.trace_scope("req-1"), obs.span("query", nq=4) as sp:
+        obs.record_span("compile", 0.5, groups=2)
     assert sp.duration >= 0.0
-    assert obs.recent_spans() == []
+    compile_rec, query_rec = obs.recent_spans()
+    assert query_rec == {"type": "span", "name": "query", "path": "query",
+                         "dur_s": sp.duration, "t0_s": query_rec["t0_s"],
+                         "tid": query_rec["tid"]}
+    assert compile_rec["path"] == "query/compile"
+    assert compile_rec["dur_s"] == 0.5 and "attrs" not in compile_rec
 
 
 def test_jsonl_streaming_and_export(tmp_path):
@@ -204,7 +212,8 @@ def test_session_step_emits_jsonl_telemetry(rng, tmp_path):
     obs.export_jsonl(out)
     recs = _read_jsonl(out)
     paths = {r["path"] for r in recs if r["type"] == "span"}
-    assert {"step", "step/plan", "step/launch", "step/sync"} <= paths
+    assert {"step", "step/update", "step/plan", "step/launch",
+            "step/sync"} <= paths
     rows = {(r["component"], r["name"]): r for r in recs
             if r["type"] == "metric"}
     hist = rows[("session", "step_s")]
@@ -262,8 +271,12 @@ def test_sharded_session_step_emits_jsonl_telemetry(rng, tmp_path,
     obs.export_jsonl(out)
     recs = _read_jsonl(out)
     paths = {r["path"] for r in recs if r["type"] == "span"}
-    assert {"step", "step/plan", "step/launch", "step/sync"} <= paths
+    assert {"step", "step/update", "step/plan", "step/launch",
+            "step/sync"} <= paths
     assert not any(p.endswith("compile") for p in paths)
+    # the slabs' api spans fold into the step's own
+    assert not paths & {"step/update/update", "step/launch/launch",
+                        "step/plan/plan"}
     rows = {(r["component"], r["name"]): r for r in recs
             if r["type"] == "metric"}
     hist = rows[("sharded_session", "step_s")]
@@ -339,3 +352,141 @@ def test_sharded_session_identical_on_off(rng, monkeypatch, pallas,
     assert calls_off == calls_on and calls_off
     assert {c[0] for c in calls_on} == {"update_cell_grid", (
         "window_search_segmented" if pallas else "window_tile_search")}
+
+
+# ---------------------------------------------------------------------------
+# the port's span trees, kept with tracing off
+# ---------------------------------------------------------------------------
+
+def _paths():
+    return [r["path"] for r in obs.recent_spans()]
+
+
+def test_same_name_span_folds_into_its_parent():
+    obs.configure(mode="log")
+    with obs.span("update", n=1):
+        with obs.span("update", n=2) as inner:
+            with obs.span("pack"):
+                pass
+    assert _paths() == ["update/pack", "update"]
+    assert obs.recent_spans()[-1]["attrs"] == {"n": 1}
+    assert inner.duration > 0.0
+
+
+def test_api_query_span_tree(rng):
+    """``api.query``: ``query`` over ``plan`` (``megacells``, then
+    ``schedule``) and ``launch``; ``build_index`` is ``build``."""
+    from repro_torch import api
+    obs.configure(mode="off")
+    pts = rng.random((600, 3)).astype(np.float32)
+    index = api.build_index(pts, PARAMS, device="cpu")
+    assert _paths() == ["build"]
+    obs.reset()
+    api.query(index, pts[:100])
+    assert _paths() == ["query/plan/megacells", "query/plan/schedule",
+                        "query/plan", "query/launch", "query"]
+
+
+def test_neighbor_search_plan_stages(rng):
+    """``NeighborSearch.query``'s ``plan`` holds its six stages in order,
+    and ``report.t_opt`` is that span's duration."""
+    obs.configure(mode="off")
+    pts = rng.random((2000, 3)).astype(np.float32)
+    ns = tc.NeighborSearch(pts, tc.SearchParams(radius=0.09, k=8),
+                           tc.SearchOpts(), device="cpu")
+    obs.reset()
+    ns.query(rng.random((400, 3)).astype(np.float32))
+    recs = {r["path"]: r for r in obs.recent_spans()}
+    stages = [p for p in recs if p.startswith("query/plan/")]
+    assert stages == [f"query/plan/{s}" for s in (
+        "schedule", "fetch", "fingerprint", "partition", "bundle", "stage")]
+    assert {"query", "query/plan", "query/launch", "query/sync"} <= set(recs)
+    plan = recs["query/plan"]
+    assert plan["dur_s"] == ns.report.t_opt
+    assert sum(recs[p]["dur_s"] for p in stages) <= plan["dur_s"]
+    for p in stages:
+        assert recs[p]["t0_s"] >= plan["t0_s"]
+
+
+def test_session_replan_and_replay_span_trees(rng):
+    """A replan step runs ``api.plan_query``'s ``plan`` under ``step``; a
+    replay step has no ``plan``. Re-bin and pack are ``update``, the
+    search ``launch``."""
+    obs.configure(mode="off")
+    pts = rng.random((500, 3)).astype(np.float32)
+    sess = tc.SimulationSession(pts, PARAMS, device="cpu")
+    obs.reset()
+    sess.step(pts)
+    assert sess.report.replanned
+    assert _paths() == ["step/update", "step/sync", "step/plan/megacells",
+                        "step/plan/schedule", "step/plan", "step/launch",
+                        "step"]
+    plan = obs.recent_spans()[4]
+    assert plan["dur_s"] <= sess.report.t_plan
+    obs.reset()
+    sess.step(_jitter(rng, pts, 1e-4))
+    assert not sess.report.replanned
+    assert _paths() == ["step/update", "step/sync", "step/launch", "step"]
+
+
+def test_exported_span_starts_on_the_profilers_clock(tmp_path):
+    """A span exported to Perfetto (and JSONL) starts within 100 us of its
+    ``record_function``'s start in a ``torch.profiler`` trace, both in
+    one document."""
+    from torch.profiler import ProfilerActivity, profile
+    obs.configure(mode="off")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(5):
+            with obs.span("aligned"):
+                torch.ones(8).sum()
+    doc = obs.to_trace_events(profile=prof)
+
+    def starts(cat):
+        return sorted(e["ts"] for e in doc["traceEvents"]
+                      if e["name"] == "aligned" and e.get("cat") == cat)
+
+    ours, kineto = starts("repro"), starts("user_annotation")
+    assert len(ours) == len(kineto) == 5
+    assert max(abs(a - b) for a, b in zip(ours, kineto)) < 100.0
+    assert any(e.get("cat") == "cpu_op" for e in doc["traceEvents"])
+    out = str(tmp_path / "spans.jsonl")
+    obs.export_jsonl(out)
+    ts_ns = sorted(r["ts_ns"] for r in _read_jsonl(out)
+                   if r["type"] == "span")
+    assert max(abs(a / 1e3 - b) for a, b in zip(ts_ns, kineto)) < 100.0
+
+
+def test_kernel_counters_decode_and_export(monkeypatch):
+    """``kernel_counters`` decodes the walk counter's table (here a host
+    stand-in for the device's): totals, the split by signature and the
+    overflow row; ``summary`` and OpenMetrics carry them; ``reset`` zeros
+    them. Without a launch on a card there are none."""
+    from repro_torch.kernels import knn_tile
+    assert obs.kernel_counters() == {}
+
+    def key(w, skip):
+        return (w[0] << 43) | (w[1] << 22) | (w[2] << 1) | int(skip)
+
+    table = torch.zeros((4, 5), dtype=torch.int64)
+    table[0] = torch.tensor([key((7, 7, 7), False), 343, 100, 800, 51200])
+    table[2] = torch.tensor([key((3, 3, 5), True), 45, 20, 90, 5760])
+    table[3] = torch.tensor([-1, 10, 1, 2, 128])      # the overflow row
+    monkeypatch.setitem(knn_tile._WALK, torch.device("cpu"), table)
+    monkeypatch.setattr(knn_tile.knn_tile_anchored, "rows", 192)
+    walk = obs.kernel_counters()["knn_tile_anchored"]
+    assert {k: v for k, v in walk.items() if k != "by_signature"} == {
+        "query_rows": 192, "window_cells": 398, "occupied_cells": 121,
+        "candidates": 892, "candidate_pairs": 57088}
+    sigs = {(None if s["window"] is None else tuple(s["window"]),
+             s["sphere_test"]): s for s in walk["by_signature"]}
+    assert sigs[((7, 7, 7), True)]["candidates"] == 800
+    assert sigs[((3, 3, 5), False)]["window_cells"] == 45
+    assert sigs[(None, None)]["candidate_pairs"] == 128
+    assert "candidate_pairs" in obs.summary()
+    text = obs.export_openmetrics()
+    assert ('repro_kernel_knn_tile_anchored_candidate_pairs_total'
+            '{window="7x7x7",sphere_test="true"} 51200') in text
+    assert "repro_kernel_knn_tile_anchored_query_rows_total 192" in text
+    obs.reset()
+    assert int(table.abs().sum()) == 0
+    assert knn_tile.knn_tile_anchored.rows == 0
