@@ -1307,6 +1307,21 @@ def kernel_inputs(index, plan, queries):
     return args, kw, ops.segment_levels(plan.ladder, tuple(index.spec.dims))
 
 
+def ladder_inputs(index, plan, args) -> list:
+    """The launch ``args`` with every tile on its ladder cube (the anchors
+    of ``assign_tile_levels`` and its entries' extents), where the main
+    path gives a full-radius tile the exact box of its members' windows."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.knn_tile import table_extents
+    dims = tuple(index.spec.dims)
+    qc = index.spec.cell_of(args[0], index.origin).reshape(-1, plan.tile, 3)
+    plevel, anchors = ops.assign_tile_levels(
+        qc, plan.tile_levels, plan.ladder,
+        ops.segment_levels(plan.ladder, dims), dims)
+    return args[:3] + [anchors, plevel, args[5],
+                       table_extents(plevel, args[5])]
+
+
 def compare_kernel(args, kw, tag: str) -> float:
     """Kernel vs plain version on the same inputs; must agree bitwise.
     Returns the max |d2| difference over finite entries (0 when equal)."""
@@ -1353,7 +1368,8 @@ def phase_kernel_vs_plain(api, data) -> float:
                 table = args[5].clone()
                 table[:, 3] = skip
                 worst = max(worst, compare_kernel(
-                    args[:5] + [table], kw, f"{name} k={k} skip={skip}"))
+                    args[:5] + [table] + args[6:], kw,
+                    f"{name} k={k} skip={skip}"))
             emit("kernel_vs_plain", scene=name, k=k, n_tiles=int(
                 args[3].shape[0]), bitwise=True)
     return worst
@@ -1366,7 +1382,7 @@ def tile_subset(args, tiles, tile: int) -> list:
             ).flatten()
     return [args[0][rows].contiguous(), args[1], args[2],
             args[3][tiles].contiguous(), args[4][tiles].contiguous(),
-            args[5]]
+            args[5], args[6][tiles].contiguous()]
 
 
 def compare_tiles(args, kw, tiles, tag: str) -> float:
@@ -1403,7 +1419,7 @@ def knn_work(index, args, entries):
     import torch
     from repro_torch.core.grid import box_count
     spec, plevel, tile = index.spec, args[4], index.opts.query_tile
-    ws = args[5][plevel.long(), :3]
+    ws = args[6]
     hi = torch.minimum(args[3] + ws - 1,
                        torch.tensor([d - 1 for d in spec.dims],
                                     device=ws.device, dtype=torch.int32))
@@ -1431,10 +1447,10 @@ def split_work(index, args, kw):
     from repro_torch.core.grid import _summed_area_table, box_count
     from repro_torch.kernels.knn_tile import launch_scratch
     spec, plevel, cap = index.spec, args[4], kw["cap"]
-    scratch = launch_scratch(plevel, args[5], args[2], cap)
+    scratch = launch_scratch(plevel, args[5], args[6], args[2], cap)
     order, cum, occupied, sync = scratch
     per_tile = cum[1:] - cum[:-1]
-    ws = args[5][plevel.long(), :3]
+    ws = args[6]
     hi = torch.minimum(args[3] + ws - 1,
                        torch.tensor([d - 1 for d in spec.dims],
                                     device=ws.device, dtype=torch.int32))
@@ -1477,7 +1493,8 @@ def phase_whole_grid(knn_mod, args, kw, entries, dims) -> dict:
         kk = dict(kw, k=k)
         t0 = time.perf_counter()
         err = compare_kernel(sub, kk, f"whole-grid tiles, k={k}")
-        scratch = launch_scratch(sub[4], sub[5], sub[2], kw["cap"])
+        scratch = launch_scratch(sub[4], sub[5], sub[6], sub[2],
+                                 kw["cap"])
         cum = scratch[1]
         kernel_ms = cuda_time_ms(lambda: knn_mod.knn_tile_anchored(*sub, **kk),
                                  3)
@@ -1663,6 +1680,7 @@ def phase_main(api, ref, knn_mod, index, queries, mode: str):
     cargs, _, _ = kernel_inputs(cindex, cplan, q_cpu)
     check(torch.equal(args[4].cpu(), cargs[4]), f"{mode}: plevel differs")
     check(torch.equal(args[3].cpu(), cargs[3]), f"{mode}: anchors differ")
+    check(torch.equal(args[6].cpu(), cargs[6]), f"{mode}: extents differ")
 
     # sampled exactness against brute force on the card
     rng = np.random.default_rng(7)
@@ -1678,7 +1696,8 @@ def phase_main(api, ref, knn_mod, index, queries, mode: str):
 
     pairs, slot_pairs, nbytes, ops_ms, bytes_ms, level_tiles = knn_work(
         index, args, entries)
-    whole = (phase_whole_grid(knn_mod, args, kw, entries, tuple(spec.dims))
+    whole = (phase_whole_grid(knn_mod, ladder_inputs(index, plan, args), kw,
+                              entries, tuple(spec.dims))
              if mode == "knn" else None)
     emit("main_path", mode=mode, n_points=int(index.points.shape[0]),
          n_queries=int(queries.shape[0]), dims=list(spec.dims),
@@ -2028,6 +2047,7 @@ def phase_kernel_layer(api, ops, tknn, trange, tdist, ref, index, queries,
     import torch
     plan = api.plan_query(index, queries)
     args, kw, entries = kernel_inputs(index, plan, queries)
+    args = ladder_inputs(index, plan, args)
     spec, params, tile = index.spec, index.params, kw["tile"]
     dims = tuple(spec.dims)
     lt = layer_tiles(plan, args, kw, entries, index, N_KERNEL_TILES)
@@ -2058,7 +2078,8 @@ def phase_kernel_layer(api, ops, tknn, trange, tdist, ref, index, queries,
         check(n >= 1, f"kernel_layer: {name} was not launched")
 
     # knn_tile: = knn_tile_anchored on the same tiles, = its plain version
-    sub = [q, args[1], args[2], anchors, args[4][ids].contiguous(), args[5]]
+    sub = [q, args[1], args[2], anchors, args[4][ids].contiguous(), args[5],
+           args[6][ids].contiguous()]
     d2_a, idx_a = ops.knn_tile_anchored(*sub, **kw)
     check(torch.equal(d2_a, d2_s) and torch.equal(idx_a, idx_s),
           "kernel_layer: knn_tile differs from knn_tile_anchored")
@@ -2143,7 +2164,8 @@ def phase_kernel_layer(api, ops, tknn, trange, tdist, ref, index, queries,
     n_many = 4 * torch.cuda.get_device_properties(0).multi_processor_count
     mt = layer_tiles(plan, args, kw, entries, index, n_many)
     sub_m = [mt["q"], args[1], args[2], mt["anchors"],
-             args[4][mt["ids"]].contiguous(), args[5]]
+             args[4][mt["ids"]].contiguous(), args[5],
+             args[6][mt["ids"]].contiguous()]
     d2_m, idx_m = ops.knn_tile(mt["q"], index.points, mt["wnd"], k=params.k,
                                r2=r2, tile=tile)
     d2_ma, idx_ma = ops.knn_tile_anchored(*sub_m, **kw)

@@ -58,6 +58,8 @@ def worker(tree: str) -> int:
     queries = index.points.clone()
     plan = api.plan_query(index, queries)
     args, kw, entries = cs.kernel_inputs(index, plan, queries)
+    if len(args) > 6:   # the tree's launch takes extents: the ladder's
+        args = cs.ladder_inputs(index, plan, args)
     tile = kw["tile"]
     r2 = float(np.float32(cs.RADIUS) * np.float32(cs.RADIUS))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -75,7 +77,8 @@ def worker(tree: str) -> int:
                                    tile=tile)
 
         sub = [lt["q"], args[1], args[2], lt["anchors"],
-               args[4][lt["ids"]].contiguous(), args[5]]
+               args[4][lt["ids"]].contiguous(), args[5]] + [
+                   e[lt["ids"]].contiguous() for e in args[6:]]
 
         def anchored():
             return ops.knn_tile_anchored(*sub, **kw)

@@ -4,11 +4,13 @@
 // Replaces: src/repro/kernels/knn_tile.py:293, knn_tile_anchored (Pallas
 // body _knn_anchored_kernel with _stream_candidates, _merge_topk,
 // _emit_best). It computes what that kernel computes, for every level in
-// ONE launch: each query tile reads its level, looks up its window size
-// and sphere-test flag in a small table, derives candidate ids from its
-// anchor by index arithmetic on the flattened dense grid, and keeps, per
-// query, the k smallest valid candidates by (d2, window position): what a
-// stream in window order with the strictly-less insertion rule keeps.
+// ONE launch: each query tile reads its level, looks up its sphere-test
+// flag in a small table, reads its window extent (the level's ladder cube,
+// or the exact box of a full-radius tile's members' windows), derives
+// candidate ids from its anchor by index arithmetic on the flattened dense
+// grid, and keeps, per query, the k smallest valid candidates by (d2,
+// window position): what a stream in window order with the strictly-less
+// insertion rule keeps.
 //
 // What bounds it on this card: the distance work over the valid candidates
 // (tile x valid slots, about ten FP32 operations a pair) outweighs the
@@ -55,14 +57,17 @@
 // Walked-pair counter: each CTA counts, per run of a unit, the window cells
 // it looks up, the occupied ones among them, the valid candidate ids it
 // stages and the (query row, staged candidate) pairs it compares (the
-// unit's rows times the staged ids), sums them in shared memory by the
-// tile's table level (levels past kWalkLevels together), and at exit adds
-// each level's sums with one 64-bit atomicAdd a count into a process-wide
+// unit's rows times the staged ids), and once per unit (the run of its
+// first item) the unit's query rows. It sums them in shared memory by the
+// tile's table level (levels past kWalkLevels together) and whether the
+// tile's extent differs from that level's entry (a boxed tile), and at
+// exit adds each sum with one 64-bit atomicAdd a count into a process-wide
 // table of kWalkSlots rows keyed by the level's signature (wx, wy, wz,
-// skip): key, cells, occupied, staged, pairs (``walk``, which the wrapper
-// never fetches; obs reads it). Thread 0 counts, in shared memory, from
-// values the round reads anyway, so the compare loop holds no register
-// more; no call, search or atomic runs inside the loop over tiles.
+// skip) and the boxed flag: key, cells, occupied, staged, pairs, rows
+// (``walk``, which the wrapper never fetches; obs reads it). So boxes of
+// any extent count in two rows a level at most. Thread 0 counts, in shared
+// memory, from values the round reads anyway, so the compare loop holds no
+// register more; no call, search or atomic runs inside the loop over tiles.
 // Nothing else reads the counts, so results are unchanged. A tile of
 // several row blocks walks its window once a block, and is counted so.
 //
@@ -77,11 +82,11 @@
 // pass p - 1, carried per query in scratch, and writes output columns
 // [128p, 128p + 128)). A tile that is not a whole number of warps, or has
 // more than 1024 rows, runs masked: the wrapper cuts it into row blocks of
-// at most 1024 that share its anchor and level, and the work items are per
-// (tile, row block). Threads past a block's rows stage candidates with the
-// others but keep no list and write nothing. A query's result depends only
-// on its row and its tile's window, so neither changes a result; the
-// unmasked k <= 128 kernels are the code above, unchanged.
+// at most 1024 that share its anchor, extent and level, and the work items
+// are per (tile, row block). Threads past a block's rows stage candidates
+// with the others but keep no list and write nothing. A query's result
+// depends only on its row and its tile's window, so neither changes a
+// result; the unmasked k <= 128 kernels are the code above, unchanged.
 #include "knn_stream.cuh"
 
 namespace {
@@ -152,6 +157,7 @@ struct Args {
   const int* __restrict__ anchors;     // [n_tiles, 3]
   const int* __restrict__ levels;      // [n_tiles]
   const int* __restrict__ table;       // [n_entries, 4] (wx, wy, wz, skip)
+  const int* __restrict__ extents;     // [n_tiles, 3] (wx, wy, wz) per tile
   const int* __restrict__ order;       // [n_tiles] units, largest first
   const int* __restrict__ cum;         // [n_tiles + 1] first item of each
   const unsigned char* __restrict__ occupied;  // [n_flat / cap] cell holds
@@ -178,14 +184,15 @@ struct Args {
 };
 
 // The walk counter's table (see the top of the file): kWalkSlots rows of
-// kWalkRow words, the last row taking every signature that finds no free
-// row and the levels past kWalkLevels (key kWalkOverflow); a CTA sums
-// kWalkLevels levels apart and the rest in one more entry.
+// kWalkRow words, the last two taking every signature that finds no free
+// row and the levels past kWalkLevels (key kWalkOverflow, and its boxed
+// bit); a CTA sums kWalkLevels levels apart and the rest in one more
+// entry, each with and without boxes.
 constexpr int kWalkSlots = 256;
-constexpr int kWalkRow = 5;            // key, cells, occupied, staged, pairs
+constexpr int kWalkRow = 6;   // key, cells, occupied, staged, pairs, rows
 constexpr int kWalkCounts = kWalkRow - 1;
 constexpr int kWalkLevels = 32;
-constexpr unsigned long long kWalkOverflow = ~0ull;
+constexpr unsigned long long kWalkOverflow = 1ull << 63;
 
 // A CTA's static shared memory: the bookkeeping of a round, a merge and a
 // chunk, and the window of the tile being run. (The dynamic part: the
@@ -197,25 +204,27 @@ struct Stage {
   int chunk[3];               // tile index j (-1: no work left), items
   Window w;                   // the window of the tile being run
   // thread 0's walk counts: the run's cells, occupied cells and staged
-  // ids; the CTA's sums by table level, the levels past kWalkLevels last
+  // ids; the CTA's sums by table level (the levels past kWalkLevels last)
+  // and boxed flag
   int run[3];
-  unsigned long long walk[kWalkLevels + 1][kWalkCounts];
+  unsigned long long walk[kWalkLevels + 1][2][kWalkCounts];
 };
 
 // The counter table's row for a level's signature ``sig`` (wx, wy, wz,
-// skip; null for the levels past kWalkLevels): the row whose key it is,
-// else the first free row from its hash on (a 64-bit CAS claims it), else
-// the overflow row.
+// skip; null for the levels past kWalkLevels) and boxed flag: the row
+// whose key it is, else the first free row from its hash on (a 64-bit CAS
+// claims it), else an overflow row.
 __device__ unsigned long long* walk_row(unsigned long long* walk,
-                                        const int* sig) {
-  constexpr unsigned kMax = 1u << 21;  // 21 bits a window side
-  constexpr int kRows = kWalkSlots - 1;
+                                        const int* sig, int boxed) {
+  constexpr unsigned kMax = 1u << 20;  // 20 bits a window side
+  constexpr int kRows = kWalkSlots - 2;
   if (sig != nullptr && (unsigned)sig[0] < kMax && (unsigned)sig[1] < kMax &&
       (unsigned)sig[2] < kMax) {
     const unsigned long long key =
-        ((unsigned long long)sig[0] << 43) |
+        ((unsigned long long)sig[0] << 42) |
         ((unsigned long long)sig[1] << 22) |
-        ((unsigned long long)sig[2] << 1) | (sig[3] != 0);
+        ((unsigned long long)sig[2] << 2) | ((unsigned long long)boxed << 1) |
+        (sig[3] != 0);
     int h = static_cast<int>(((key * 0x9E3779B97F4A7C15ull) >> 32) % kRows);
     for (int i = 0; i < kRows; ++i, h = h + 1 == kRows ? 0 : h + 1) {
       unsigned long long* row = walk + (size_t)h * kWalkRow;
@@ -223,39 +232,47 @@ __device__ unsigned long long* walk_row(unsigned long long* walk,
       if (was == 0ull || was == key) return row;
     }
   }
-  unsigned long long* row = walk + (size_t)kRows * kWalkRow;
-  atomicCAS(row, 0ull, kWalkOverflow);
+  unsigned long long* row = walk + (size_t)(kRows + boxed) * kWalkRow;
+  atomicCAS(row, 0ull, kWalkOverflow | ((unsigned long long)boxed << 1));
   return row;
 }
 
-// Thread 0 adds the run of ``unit`` (its counts in st.run) to its CTA's
-// sums for the tile's level.
+// Thread 0 adds the run of ``unit`` (its counts in st.run) that starts at
+// its item ``first_item`` to its CTA's sums for the tile's level and boxed
+// flag (a run looks up at least one cell, so the level is on the table).
 template <bool kMasked>
 __device__ __forceinline__ void count_walk(Stage& st, const Args& a,
-                                           int unit) {
+                                           int unit, int first_item) {
   int tile = unit, rows = blockDim.x;     // the unit's tile and query rows
   if constexpr (kMasked) {
     tile = unit / a.n_rb;
     const int r0 = (unit - tile * a.n_rb) * a.rb_rows;
     rows = max(0, min(a.rb_rows, a.tile_rows - r0));
   }
-  unsigned long long* sums = st.walk[min(a.levels[tile], kWalkLevels)];
+  const int lvl = a.levels[tile];
+  const int* ext = a.extents + tile * 3;
+  const int* sig = a.table + lvl * 4;
+  const int boxed = ext[0] != sig[0] || ext[1] != sig[1] || ext[2] != sig[2];
+  unsigned long long* sums = st.walk[min(lvl, kWalkLevels)][boxed];
   sums[0] += st.run[0];
   sums[1] += st.run[1];
   sums[2] += st.run[2];
   sums[3] += (unsigned long long)st.run[2] * rows;
+  if (first_item == 0) sums[4] += rows;
 }
 
-// At a CTA's exit: its sums of each level it ran (a run looks up at least
-// one cell) into the counter table, a level a thread.
+// At a CTA's exit: its sums of each (level, boxed) it ran into the counter
+// table, one a thread.
 __device__ __forceinline__ void flush_walk(const Stage& st, const Args& a) {
-  for (int i = threadIdx.x; i <= kWalkLevels; i += blockDim.x) {
-    if (st.walk[i][0] == 0) continue;
-    unsigned long long* row =
-        walk_row(a.walk, i < kWalkLevels ? a.table + i * 4 : nullptr);
+  for (int i = threadIdx.x; i < 2 * (kWalkLevels + 1); i += blockDim.x) {
+    const int lvl = i >> 1, boxed = i & 1;
+    const unsigned long long* sums = st.walk[lvl][boxed];
+    if (sums[0] == 0) continue;
+    unsigned long long* row = walk_row(
+        a.walk, lvl < kWalkLevels ? a.table + lvl * 4 : nullptr, boxed);
 #pragma unroll
     for (int c = 0; c < kWalkCounts; ++c)
-      if (st.walk[i][c]) atomicAdd(row + 1 + c, st.walk[i][c]);
+      if (sums[c]) atomicAdd(row + 1 + c, sums[c]);
   }
 }
 
@@ -300,8 +317,8 @@ __device__ __forceinline__ void run_tile(const Args& a, Stage& st,
   bool skip = false;
   const int lvl = a.levels[tile];
   if (lvl >= 0 && lvl < a.n_entries) {    // uniform across the CTA
-    const int wx = a.table[lvl * 4 + 0], wy = a.table[lvl * 4 + 1],
-              wz = a.table[lvl * 4 + 2];
+    const int wx = a.extents[tile * 3 + 0], wy = a.extents[tile * 3 + 1],
+              wz = a.extents[tile * 3 + 2];
     skip = a.table[lvl * 4 + 3] != 0;
     win_cells = wx * wy * wz;  // inside the grid: * cap <= n_flat < 2^31
     if (t == 0) {
@@ -417,7 +434,7 @@ __device__ __forceinline__ void run_tile(const Args& a, Stage& st,
       a, best, unit, row, active, covered, nseg,
       [&w](int pos) { return w.id(pos); }, st.merged);
 
-  if (t == 0 && st.run[0] > 0) count_walk<kMasked>(st, a, unit);
+  if (t == 0 && st.run[0] > 0) count_walk<kMasked>(st, a, unit, first_item);
 }
 
 // Persistent: each CTA takes chunks of consecutive work items (guided: a
@@ -434,8 +451,8 @@ __global__ void __launch_bounds__(1024) knn_tile_anchored_kernel(Args a) {
   int* s_pos = reinterpret_cast<int*>(s_pt + (kRounds + 1) * blockDim.x);
   int* s_cells = s_pos + (kRounds + 1) * blockDim.x;
   const int n_items = a.cum[a.n_tiles];
-  for (int i = threadIdx.x; i <= kWalkLevels; i += blockDim.x)
-    for (int c = 0; c < kWalkCounts; ++c) st.walk[i][c] = 0;
+  for (int i = threadIdx.x; i < 2 * (kWalkLevels + 1); i += blockDim.x)
+    for (int c = 0; c < kWalkCounts; ++c) st.walk[i >> 1][i & 1][c] = 0;
 
   for (;;) {
     if (warp == 0) {                      // take a chunk, find its first tile
@@ -516,7 +533,9 @@ int launch_k(const Args& a, int block, cudaStream_t s) {
 
 // Plain C entry point (bound with ctypes). Launches on ``stream`` and
 // returns the first CUDA error of the set-up or the launch: 0 on success.
-// ``occupied`` is [n_flat / cap] bytes, whether each cell holds an id;
+// ``extents`` is [n_tiles, 3] int32, each tile's window extent in cells
+// (inside the grid from its anchor); ``occupied`` is [n_flat / cap] bytes,
+// whether each cell holds an id;
 // ``sync`` is [2 * n_units + 1] int32 zeros: the locks, the merge counts
 // and the item counter; ``order`` and ``cum`` are per unit. A unit is a
 // row block of ``rb_rows`` rows of a tile of ``tile`` rows (``n_rb`` a
@@ -530,7 +549,8 @@ extern "C" int knn_tile_anchored_walk_slots() { return kWalkSlots; }
 
 extern "C" int knn_tile_anchored_launch(
     const float* q, const float* points, const int* dense,
-    const int* anchors, const int* levels, const int* table, int n_entries,
+    const int* anchors, const int* levels, const int* table,
+    const int* extents, int n_entries,
     const int* order, const int* cum, const unsigned char* occupied,
     int* sync, int n_units, int tile, int rb_rows, int n_rb, int block,
     int n_pts, int n_flat, int dy, int dz, int cap, int k, int ld, int col0,
@@ -541,7 +561,7 @@ extern "C" int knn_tile_anchored_launch(
       (lo_d == nullptr && (ld != k || col0 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Args a{q, points, dense, anchors, levels, table, order, cum,
+  const Args a{q, points, dense, anchors, levels, table, extents, order, cum,
                occupied, sync, sync + n_units, sync + 2 * n_units, out_d2,
                out_idx, n_flat, n_entries, n_units, n_pts, dy, dz, cap, k,
                seg_cells, r2, tile, rb_rows, n_rb, ld, col0, lo_d, lo_p,

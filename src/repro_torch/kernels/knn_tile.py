@@ -36,8 +36,11 @@ the block's rows.
 
 Unlike the reference, which launches once per ladder level with the other
 levels' tiles masked off (a TPU construct), ONE launch of
-``knn_tile_anchored`` covers every tile: each tile reads its
-``(wx, wy, wz, skip)`` from ``table[levels[tile]]``. A tile whose level lies
+``knn_tile_anchored`` covers every tile: each tile reads its sphere-test
+flag from ``table[levels[tile]]`` and its window extent ``(wx, wy, wz)``
+from ``extents[tile]``, which is the level's ladder cube
+(:func:`table_extents`) or, for a full-radius tile, the exact box of its
+members' windows (``kernels/ops.launch_inputs``). A tile whose level lies
 outside the table emits neutral rows (inf, -1), like an off-level tile of
 the reference.
 """
@@ -107,8 +110,8 @@ def _passes(k: int) -> list[tuple[int, int]]:
     return [(c, min(MAX_K, k - c)) for c in range(0, k, MAX_K)]
 
 
-def _check(q, points, dense_flat, anchors, levels, table, dims, cap, k,
-           tile):
+def _check(q, points, dense_flat, anchors, levels, table, extents, dims,
+           cap, k, tile):
     n_tiles = anchors.shape[0]
     _check_args("knn_tile_anchored", q, (
         (q, torch.float32, (n_tiles * tile, 3)),
@@ -117,6 +120,7 @@ def _check(q, points, dense_flat, anchors, levels, table, dims, cap, k,
         (anchors, torch.int32, (n_tiles, 3)),
         (levels, torch.int32, (n_tiles,)),
         (table, torch.int32, (table.shape[0], 4)),
+        (extents, torch.int32, (n_tiles, 3)),
     ))
     if points.shape[0] < 1:
         raise ValueError("knn_tile_anchored: empty points table")
@@ -124,29 +128,38 @@ def _check(q, points, dense_flat, anchors, levels, table, dims, cap, k,
         raise ValueError(f"knn_tile_anchored: k={k} must be >= 1")
 
 
-def work_items(levels: Tensor, table: Tensor, cap: int,
+def table_extents(levels: Tensor, table: Tensor) -> Tensor:
+    """Each tile's window extent ``(wx, wy, wz)`` as its level's ``table``
+    entry gives it, ``[n_tiles, 3]`` int32 (zeros for a level off the
+    table): the ``extents`` of a launch whose every window is its level's
+    ladder cube."""
+    n_entries = table.shape[0]
+    if not n_entries:
+        return torch.zeros((levels.shape[0], 3), dtype=torch.int32,
+                           device=levels.device)
+    lvl = levels.long()
+    on = ((lvl >= 0) & (lvl < n_entries))[:, None]
+    return torch.where(on, table[lvl.clamp(0, n_entries - 1), :3], 0)
+
+
+def work_items(levels: Tensor, table: Tensor, extents: Tensor, cap: int,
                seg: int = SEG) -> tuple[Tensor, Tensor]:
     """The work items of one ``knn_tile_anchored`` launch, built on the
     device with no host synchronisation.
 
     A tile whose level indexes ``table`` has a window of ``wx*wy*wz``
-    cells, cut into items of ``seg_cells = max(1, seg // cap)`` whole
-    cells (at most ``seg`` slots); a tile off the table has no cells and
-    one empty item, which writes its neutral rows. Returns ``(order
-    [n_tiles] i32, cum [n_tiles + 1] i32)``: the tiles by descending window
-    size (stable), and ``cum[j]``, the first item of tile ``order[j]``,
-    whose item ``cum[j] + s`` covers window cells ``[s*seg_cells,
-    min((s+1)*seg_cells, cells))``. ``cum[-1]`` is the item count, which
-    the kernel reads from device memory.
+    cells (its ``extents`` row), cut into items of ``seg_cells = max(1,
+    seg // cap)`` whole cells (at most ``seg`` slots); a tile off the
+    table has no cells and one empty item, which writes its neutral rows.
+    Returns ``(order [n_tiles] i32, cum [n_tiles + 1] i32)``: the tiles by
+    descending window size (stable), and ``cum[j]``, the first item of
+    tile ``order[j]``, whose item ``cum[j] + s`` covers window cells
+    ``[s*seg_cells, min((s+1)*seg_cells, cells))``. ``cum[-1]`` is the
+    item count, which the kernel reads from device memory.
     """
-    n_entries = table.shape[0]
     lvl = levels.long()
-    if n_entries:
-        ws = table[lvl.clamp(0, n_entries - 1), :3].long()
-        on = (lvl >= 0) & (lvl < n_entries)
-        cells = torch.where(on, ws.prod(dim=1), 0)
-    else:
-        cells = torch.zeros_like(lvl)
+    on = (lvl >= 0) & (lvl < table.shape[0])
+    cells = torch.where(on, extents.long().prod(dim=1), 0)
     seg_cells = max(1, seg // cap)
     nseg = torch.clamp_min((cells + seg_cells - 1) // seg_cells, 1)
     order = torch.argsort(cells, descending=True, stable=True)
@@ -156,8 +169,8 @@ def work_items(levels: Tensor, table: Tensor, cap: int,
     return order.to(torch.int32), cum
 
 
-def launch_scratch(levels: Tensor, table: Tensor, dense_flat: Tensor,
-                   cap: int, seg: int = SEG,
+def launch_scratch(levels: Tensor, table: Tensor, extents: Tensor,
+                   dense_flat: Tensor, cap: int, seg: int = SEG,
                    n_rb: int = 1) -> tuple[Tensor, ...]:
     """Everything one kernel launch gets besides its inputs and outputs,
     for tiles of ``n_rb`` row blocks each (:func:`row_blocks`), a unit of
@@ -169,7 +182,8 @@ def launch_scratch(levels: Tensor, table: Tensor, dense_flat: Tensor,
     plus one byte a grid cell, whatever k and the window sizes."""
     if n_rb > 1:
         levels = levels.repeat_interleave(n_rb)
-    order, cum = work_items(levels, table, cap, seg)
+        extents = extents.repeat_interleave(n_rb, dim=0)
+    order, cum = work_items(levels, table, extents, cap, seg)
     occupied = (dense_flat.view(-1, cap) >= 0).any(dim=1)
     sync = torch.zeros(2 * levels.shape[0] + 1, dtype=torch.int32,
                        device=levels.device)
@@ -182,8 +196,8 @@ def _library():
     lib = load("knn_tile_anchored")
     fn = lib.knn_tile_anchored_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, i, p, p, p, p, i, i, i, i, i, i, i, i,
-                   i, i, i, i, i, i, ctypes.c_float, p, p, p, p, p, p]
+    fn.argtypes = [p, p, p, p, p, p, p, i, p, p, p, p, i, i, i, i, i, i, i,
+                   i, i, i, i, i, i, i, ctypes.c_float, p, p, p, p, p, p]
     fn.restype = ctypes.c_int
     lib.knn_tile_anchored_walk_slots.restype = ctypes.c_int
     return fn, lib.knn_tile_anchored_walk_slots()
@@ -191,12 +205,12 @@ def _library():
 
 # The walk counter of knn_tile_anchored's kernel: per device, a table of
 # rows (signature key, window cells looked up, occupied cells, candidate
-# ids staged, candidate pairs compared) that every launch adds to on the
-# device and nothing fetches but walk_counts; the launches' query rows
-# are summed on the host (``knn_tile_anchored.rows``).
+# ids staged, candidate pairs compared, query rows) that every launch adds
+# to on the device and nothing fetches but walk_counts; the launches' query
+# rows are also summed on the host (``knn_tile_anchored.rows``).
 _WALK: dict = {}
 _WALK_COUNTS = ("window_cells", "occupied_cells", "candidates",
-                "candidate_pairs")
+                "candidate_pairs", "query_rows")
 
 
 def _walk_table(device: torch.device, slots: int) -> Tensor:
@@ -209,15 +223,34 @@ def _walk_table(device: torch.device, slots: int) -> Tensor:
     return table
 
 
+def _walk_signature(key: int) -> tuple:
+    """A counter row's key as (window, sphere test, boxed): the window's
+    sides in bits 42-61, 22-41 and 2-21, bit 1 boxed, bit 0 the skip flag;
+    bit 63 marks an overflow row, whose window and sphere test are
+    None."""
+    key &= (1 << 64) - 1
+    boxed = bool(key & 2)
+    if key >> 63:
+        return None, None, boxed
+    mask = (1 << 20) - 1
+    return ((key >> 42, (key >> 22) & mask, (key >> 2) & mask),
+            not key & 1, boxed)
+
+
 def walk_counts() -> dict | None:
     """What ``knn_tile_anchored``'s launches have walked since the process
     started (or the last ``reset_walk_counts``), None if none ran on a
-    card: ``query_rows`` (the launches' rows, padding included), the four
-    device counts summed, and ``by_signature``, the counts of each launch
-    signature (window extent in cells, sphere test); a launch's levels
-    past its 32nd, and a signature that found the table full, count in an
-    entry with ``window`` None. Copies
-    each device's table to the host once, which waits for its launches."""
+    card: ``query_rows`` (the launches' rows, padding included, summed on
+    the host), ``boxed_rows`` (the rows of tiles whose window was not
+    their level's ladder cube but the exact box of a full-radius tile),
+    the four walk counts summed, and ``by_signature``, the counts of each
+    launch signature: the level's ladder window (extent in cells), its
+    sphere test, and whether its tiles walked boxes (``boxed``; their
+    ``window`` is then the ladder cube that the boxes replaced), with the
+    query rows of its tiles. A launch's levels past its 32nd, and a
+    signature that found the table full, count in an entry with
+    ``window`` None. Copies each device's table to the host once, which
+    waits for its launches."""
     if not _WALK:
         return None
     by_sig: dict = {}
@@ -225,19 +258,19 @@ def walk_counts() -> dict | None:
         for key, *counts in table.cpu().tolist():
             if key == 0:
                 continue
-            key &= (1 << 64) - 1
-            sig = (None if key == (1 << 64) - 1 else
-                   ((key >> 43, (key >> 22) & 0x1FFFFF, (key >> 1) & 0x1FFFFF),
-                    not key & 1))
-            tot = by_sig.setdefault(sig, [0] * len(_WALK_COUNTS))
+            tot = by_sig.setdefault(_walk_signature(key),
+                                    [0] * len(_WALK_COUNTS))
             for j, n in enumerate(counts):
                 tot[j] += n
-    out = {"query_rows": knn_tile_anchored.rows}
-    for j, name in enumerate(_WALK_COUNTS):
+    rows = _WALK_COUNTS.index("query_rows")
+    out = {"query_rows": knn_tile_anchored.rows,
+           "boxed_rows": sum(c[rows] for sig, c in by_sig.items()
+                             if sig[2])}
+    for j, name in enumerate(_WALK_COUNTS[:rows]):
         out[name] = sum(c[j] for c in by_sig.values())
     out["by_signature"] = [
-        dict(window=None if sig is None else list(sig[0]),
-             sphere_test=None if sig is None else sig[1],
+        dict(window=None if sig[0] is None else list(sig[0]),
+             sphere_test=sig[1], boxed=sig[2],
              **dict(zip(_WALK_COUNTS, counts)))
         for sig, counts in by_sig.items()]
     return out
@@ -261,6 +294,7 @@ def knn_tile_anchored(
     anchors: Tensor,      # [n_tiles, 3] i32 window anchors (pre-clipped)
     levels: Tensor,       # [n_tiles] i32 row of ``table`` per tile
     table: Tensor,        # [n_entries, 4] i32 (wx, wy, wz, skip) per level
+    extents: Tensor,      # [n_tiles, 3] i32 window extent (cells) per tile
     *,
     dims: tuple,
     cap: int,
@@ -269,21 +303,23 @@ def knn_tile_anchored(
     tile: int,
 ) -> tuple[Tensor, Tensor]:
     """Streaming top-K of every query against its tile's anchored window of
-    ``wx*wy*wz*cap`` candidate slots, in window order.
+    ``wx*wy*wz*cap`` candidate slots (``extents[tile]``), in window order.
 
     Returns (d2 [Nq, k] f32 ascending, inf-padded; idx [Nq, k] i32,
     -1-padded). Candidates beyond ``r2`` are dropped unless the level's
     skip flag is set; ties keep the earlier window position.
     """
-    _check(q, points, dense_flat, anchors, levels, table, dims, cap, k, tile)
+    _check(q, points, dense_flat, anchors, levels, table, extents, dims,
+           cap, k, tile)
     if q.device.type == "cpu":
         return knn_tile_anchored_plain(q, points, dense_flat, anchors,
-                                       levels, table, dims=dims, cap=cap,
-                                       k=k, r2=r2, tile=tile)
+                                       levels, table, extents, dims=dims,
+                                       cap=cap, k=k, r2=r2, tile=tile)
     if q.device.type != "cuda":
         raise ValueError(f"knn_tile_anchored: no kernel for {q.device}")
     _check_launch("knn_tile_anchored",
-                  (q, points, dense_flat, anchors, levels, table), tile)
+                  (q, points, dense_flat, anchors, levels, table, extents),
+                  tile)
     if dense_flat.numel() >= 2 ** 31 or points.shape[0] >= 2 ** 31:
         raise ValueError("knn_tile_anchored: grid or points exceed int32")
     n_tiles = anchors.shape[0]
@@ -296,8 +332,8 @@ def knn_tile_anchored(
     walk = _walk_table(q.device, walk_slots)
     seg = SEG
     n_rb, rb_rows, block = row_blocks(tile)
-    order, cum, occupied, sync = launch_scratch(levels, table, dense_flat,
-                                                cap, seg, n_rb)
+    order, cum, occupied, sync = launch_scratch(levels, table, extents,
+                                                dense_flat, cap, seg, n_rb)
     passes = _passes(k)
     lo_d = lo_p = None
     if len(passes) > 1:   # each query's last key of the pass before
@@ -312,11 +348,11 @@ def knn_tile_anchored(
             err = launch(
                 q.data_ptr(), points.data_ptr(), dense_flat.data_ptr(),
                 anchors.data_ptr(), levels.data_ptr(), table.data_ptr(),
-                table.shape[0], order.data_ptr(), cum.data_ptr(),
-                occupied.data_ptr(), sync.data_ptr(), n_tiles * n_rb, tile,
-                rb_rows, n_rb, block, points.shape[0], dense_flat.numel(),
-                dims[1], dims[2], cap, kk, k, col0, max(1, seg // cap),
-                float(np.float32(r2)),
+                extents.data_ptr(), table.shape[0], order.data_ptr(),
+                cum.data_ptr(), occupied.data_ptr(), sync.data_ptr(),
+                n_tiles * n_rb, tile, rb_rows, n_rb, block, points.shape[0],
+                dense_flat.numel(), dims[1], dims[2], cap, kk, k, col0,
+                max(1, seg // cap), float(np.float32(r2)),
                 None if lo_d is None else lo_d.data_ptr(),
                 None if lo_p is None else lo_p.data_ptr(),
                 out_d2.data_ptr(), out_idx.data_ptr(), walk.data_ptr(),
@@ -364,13 +400,13 @@ def _stream_plain(qt, points, chunks, *, k, r2, skip):
 
 
 def knn_tile_anchored_plain(q, points, dense_flat, anchors, levels, table,
-                            *, dims, cap, k, r2, tile):
+                            extents, *, dims, cap, k, r2, tile):
     """Plain PyTorch version of :func:`knn_tile_anchored`: the same
     elementwise arithmetic, selected by a stable sort.
 
     Loops over tiles, and over each window in chunks of ``_PLAIN_CHUNK``
     slots, of which only the occupied ones are merged. It reads the levels,
-    anchors and table on the host, so it synchronises on CUDA.
+    anchors, table and extents on the host, so it synchronises on CUDA.
     """
     dev = q.device
     n_tiles = anchors.shape[0]
@@ -380,13 +416,14 @@ def knn_tile_anchored_plain(q, points, dense_flat, anchors, levels, table,
                         dtype=torch.float32, device=dev)
     out_idx = torch.full((n_tiles * tile, k), -1, dtype=torch.int32,
                          device=dev)
-    table_h, levels_h, anchors_h = (table.tolist(), levels.tolist(),
-                                    anchors.tolist())
+    table_h, levels_h, anchors_h, extents_h = (
+        table.tolist(), levels.tolist(), anchors.tolist(), extents.tolist())
     for i in range(n_tiles):
         lvl = levels_h[i]
         if not 0 <= lvl < len(table_h):
             continue
-        wx, wy, wz, skip = table_h[lvl]
+        skip = table_h[lvl][3]
+        wx, wy, wz = extents_h[i]
         ax, ay, az = anchors_h[i]
         m = wx * wy * wz * cap
 

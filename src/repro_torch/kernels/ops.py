@@ -11,10 +11,20 @@ union of its members' windows. Window sizes come from a host-static ladder
 geometric escalations capped at the grid dims, so assignment is total.
 Each tile is assigned on the device the smallest entry that covers its
 members' union window, and ONE launch of
-:func:`~.knn_tile.knn_tile_anchored` runs every tile, reading its window
-size from a small device table by its level. (The reference makes one
-masked launch per level, which is a TPU construct; on the card a launch
-per level would cost a host sync each to skip the empty ones.)
+:func:`~.knn_tile.knn_tile_anchored` runs every tile, reading its sphere
+test from a small device table by its level and its window extent from a
+per-tile array. (The reference makes one masked launch per level, which is
+a TPU construct; on the card a launch per level would cost a host sync
+each to skip the empty ones.)
+
+A full-radius tile (its signature's window at least ``w_full`` cells, the
+sphere test on) walks the exact box of its members' windows instead of its
+ladder cube (:func:`launch_inputs`): every member's r-ball lies inside the
+box, and the kernel orders candidates by (d2, grid cell, slot) whatever the
+window's anchor and extent, so its rows are bitwise those of the cube,
+which always holds the box. Below full radius a window decides what is
+returned (a ``skip`` level's bounded subset, a knn megacell window), so
+those tiles keep the reference's ladder entry.
 """
 from __future__ import annotations
 
@@ -22,6 +32,7 @@ from functools import lru_cache
 
 import torch
 
+from ..core.partition import full_window_radius
 from ..core.types import device_table
 from .distance_tile import distance_tile
 from .knn_tile import knn_tile, knn_tile_anchored
@@ -138,24 +149,50 @@ def window_search_segmented(
     return d2, idx, cnt
 
 
+@lru_cache(maxsize=512)
+def _full_radius_levels(ladder: tuple, w_full: int,
+                        device: torch.device) -> tuple[bool, Tensor]:
+    """Whether any signature of ``ladder`` is at full radius (a window of
+    at least ``w_full`` cells, the sphere test on), and which, as a device
+    table."""
+    full = [int(w) >= w_full and not sk for w, sk in ladder]
+    return any(full), device_table(full, torch.bool, device)
+
+
 def launch_inputs(grid, points, queries, spec, ladder, tile_levels, radius,
                   k, tile, origin=None):
     """The positional and keyword arguments of the one
     :func:`~.knn_tile.knn_tile_anchored` launch over ``queries``:
-    ``[queries, points, dense_flat, anchors, plevel, table]`` and
-    ``dims``/``cap``/``k``/``r2``/``tile``."""
+    ``[queries, points, dense_flat, anchors, plevel, table, extents]`` and
+    ``dims``/``cap``/``k``/``r2``/``tile``.
+
+    Every tile takes :func:`assign_tile_levels`' entry (``plevel``). A tile
+    whose signature is at full radius walks the box ``[lo - w_full, hi +
+    w_full]`` of its members' cells, clipped to the grid (its anchor and
+    extent); every other tile walks its entry's cube from that function's
+    anchor. Computed on the device, with no host synchronisation."""
     nq = queries.shape[0]
     n_tiles = nq // tile
     if n_tiles * tile != nq:
         raise ValueError(f"{nq} queries are not a multiple of tile {tile}")
-    dims = tuple(spec.dims)
-    entries = segment_levels(tuple(ladder), dims)
+    ladder, dims = tuple(ladder), tuple(spec.dims)
+    entries = segment_levels(ladder, dims)
     qc = spec.cell_of(queries, origin).reshape(n_tiles, tile, 3)
-    plevel, anchors = assign_tile_levels(qc, tile_levels, tuple(ladder),
-                                         entries, dims)
-    table = _ladder_tables(tuple(ladder), entries, dims, queries.device)[4]
+    plevel, anchors = assign_tile_levels(qc, tile_levels, ladder, entries,
+                                         dims)
+    _, _, ws_table, _, table, dims_a = _ladder_tables(ladder, entries, dims,
+                                                      queries.device)
+    extents = ws_table[plevel.long()]
+    w_full = full_window_radius(spec.cell_size, radius)
+    any_full, full = _full_radius_levels(ladder, w_full, queries.device)
+    if any_full:
+        boxed = full[tile_levels.clamp(0, len(ladder) - 1).long()][:, None]
+        lo = (qc.min(dim=1).values - w_full).clamp_min(0)
+        hi = torch.minimum(qc.max(dim=1).values + w_full, dims_a - 1)
+        anchors = torch.where(boxed, lo, anchors)
+        extents = torch.where(boxed, hi - lo + 1, extents)
     args = [queries.contiguous(), points, grid.dense.reshape(-1), anchors,
-            plevel, table]
+            plevel, table, extents]
     kw = dict(dims=dims, cap=spec.capacity, k=k, r2=float(radius) ** 2,
               tile=tile)
     return args, kw

@@ -97,8 +97,9 @@ def kernel_counters() -> dict:
     the device, each fetched once now (a copy that waits for the kernel's
     launches); a kernel that has not run on a card is absent. Today:
     ``knn_tile_anchored``'s walk (``kernels.knn_tile.walk_counts``): the
-    query rows, window cells looked up, occupied cells, candidate ids
-    staged and candidate pairs compared, in all and ``by_signature``."""
+    query rows and the boxed ones among them, window cells looked up,
+    occupied cells, candidate ids staged and candidate pairs compared, in
+    all and ``by_signature``."""
     from ..kernels import knn_tile
     walk = knn_tile.walk_counts()
     return {} if walk is None else {"knn_tile_anchored": walk}

@@ -18,7 +18,8 @@ Mapping from the registry's metric kinds:
 
 The kernels' device counters (``kernel_counters``) render as ``counter``
 families ``repro_kernel_{kernel}_{count}``, one sample a launch signature
-(``window`` and ``sphere_test`` labels), and ``..._query_rows``.
+(``window``, ``sphere_test`` and ``boxed`` labels), and ``..._query_rows``
+and ``..._boxed_rows``.
 
 Metric names are ``repro_{component}_{name}`` with every
 non-``[a-zA-Z0-9_]`` character collapsed to ``_``. Per-tenant SLO
@@ -64,10 +65,11 @@ def _emit_family(lines: list, fam: str, omtype: str,
 
 def _signature_labels(sig: dict) -> str:
     """A launch signature's labels: ``window="7x7x7"`` (``other`` for the
-    counter's overflow row) and ``sphere_test``."""
+    counter's overflow rows), ``sphere_test`` and ``boxed``."""
     window = "x".join(map(str, sig["window"])) if sig["window"] else "other"
     return ("{" + _label("window", window) + ","
-            + _label("sphere_test", str(sig["sphere_test"]).lower()) + "}")
+            + _label("sphere_test", str(sig["sphere_test"]).lower()) + ","
+            + _label("boxed", str(sig["boxed"]).lower()) + "}")
 
 
 def export_openmetrics(registry=None, board=None) -> str:
@@ -154,9 +156,10 @@ def export_openmetrics(registry=None, board=None) -> str:
             if name == "by_signature":
                 continue
             fam = _metric_name("kernel", f"{kernel}_{name}")
-            samples = ([(f"{fam}_total", "", total)] if name == "query_rows"
-                       else [(f"{fam}_total", _signature_labels(sig),
-                              sig[name]) for sig in counts["by_signature"]])
+            samples = ([(f"{fam}_total", "", total)]
+                       if name in ("query_rows", "boxed_rows") else
+                       [(f"{fam}_total", _signature_labels(sig), sig[name])
+                        for sig in counts["by_signature"]])
             _emit_family(lines, fam, "counter", samples)
 
     lines.append("# EOF")

@@ -204,8 +204,8 @@ def test_anchored_matches_id_stream_on_whole_grid(rng, k):
     table = np.asarray([(*spec.dims, 0)], np.int32)
     d2a, idxa = tknn.knn_tile_anchored(
         t(qs), t(pts), t(dense), torch.zeros((1, 3), dtype=torch.int32),
-        torch.zeros((1,), dtype=torch.int32), t(table), dims=spec.dims,
-        cap=spec.capacity, k=k, r2=0.15 ** 2, tile=64)
+        torch.zeros((1,), dtype=torch.int32), t(table), t(table[:, :3]),
+        dims=spec.dims, cap=spec.capacity, k=k, r2=0.15 ** 2, tile=64)
     d2b, idxb = ops.knn_tile(t(qs), t(pts), t(dense)[None], k=k,
                              r2=0.15 ** 2, tile=64)
     assert torch.equal(d2a, d2b) and torch.equal(idxa, idxb)
@@ -224,7 +224,8 @@ def test_anchored_matches_id_stream_on_sub_windows(rng):
         table = np.asarray([(*ws, skip)], np.int32)
         d2a, idxa = tknn.knn_tile_anchored(
             t(qs), t(pts), t(dense), t(anchors),
-            torch.zeros((2,), dtype=torch.int32), t(table), dims=spec.dims,
+            torch.zeros((2,), dtype=torch.int32), t(table),
+            t(np.repeat(table[:, :3], 2, axis=0)), dims=spec.dims,
             cap=spec.capacity, k=6, r2=0.2 ** 2, tile=32)
         d2b, idxb = ops.knn_tile(t(qs), t(pts), t(wnd), k=6, r2=0.2 ** 2,
                                  skip_test=bool(skip), tile=32)
@@ -362,7 +363,8 @@ def test_anchored_and_id_stream_kernels_agree_on_card(rng):
     c = [t(a).cuda() for a in (qs, pts, dense, anchors, table, wnd)]
     levels = torch.zeros((3,), dtype=torch.int32, device="cuda")
     d2a, idxa = tknn.knn_tile_anchored(
-        c[0], c[1], c[2], c[3], levels, c[4], dims=spec.dims,
+        c[0], c[1], c[2], c[3], levels, c[4],
+        tknn.table_extents(levels, c[4]), dims=spec.dims,
         cap=spec.capacity, k=8, r2=0.15 ** 2, tile=64)
     d2b, idxb = ops.knn_tile(c[0], c[1], c[5], k=8, r2=0.15 ** 2, tile=64)
     torch.cuda.synchronize()

@@ -49,6 +49,20 @@ def _table(skip):
                         dtype=torch.int32)
 
 
+def _extents(rng, spec, anchors, levels, table, boxed):
+    """Each tile's window extent: its level's table entry, or with
+    ``boxed`` a box of its own, 1 to 8 cells a side from its anchor and
+    inside the grid (as a full-radius tile's exact box is)."""
+    ext = tknn.table_extents(torch.as_tensor(levels),
+                             torch.as_tensor(table))
+    if boxed:
+        room = np.asarray(spec.dims) - np.asarray(anchors)
+        box = np.minimum(rng.integers(1, 9, (len(levels), 3)), room)
+        ext = torch.where(ext > 0, torch.from_numpy(box.astype(np.int32)),
+                          ext)
+    return ext
+
+
 def _decode(order, cum, cells, cap, seg):
     """Item i -> (tile, first slot, last slot), as the kernel decodes it:
     j is the largest index with cum[j] <= i, the tile is order[j], and the
@@ -63,17 +77,14 @@ def _decode(order, cum, cells, cap, seg):
     return torch.stack([tile, first * cap, last * cap], 1)
 
 
-def _window_cells(levels, table):
+def _window_cells(levels, table, extents):
     out = []
-    for lvl in levels.tolist():
-        if 0 <= lvl < table.shape[0]:
-            wx, wy, wz, _ = table[lvl].tolist()
-            out.append(wx * wy * wz)
-        else:
-            out.append(0)
+    for lvl, (wx, wy, wz) in zip(levels.tolist(), extents.tolist()):
+        out.append(wx * wy * wz if 0 <= lvl < table.shape[0] else 0)
     return torch.tensor(out, dtype=torch.int64)
 
 
+@pytest.mark.parametrize("boxed", [False, True])
 @pytest.mark.parametrize("seg", [1, 50, 700, tknn.SEG])
 @pytest.mark.parametrize("levels", [
     [0, 1, 2, -1, 1, 3, 2, 0],
@@ -81,21 +92,26 @@ def _window_cells(levels, table):
     [-1, -1],
     [1],
 ])
-def test_work_items_cover_every_window_largest_first(levels, seg):
-    """Every slot of every on-level window lies in exactly one item, in
-    window order, each item whole cells and at most ``seg`` slots (or one
-    cell where a cell holds more); an off-level tile has one empty item;
-    items come by descending window size; the count stays within the
-    host-static bound ``n_tiles * max(1, ceil(max window cells /
-    seg_cells))``."""
+def test_work_items_cover_every_window_largest_first(rng, levels, seg,
+                                                      boxed):
+    """Every slot of every on-level window (its tile's extent: the level's
+    table entry, or a box of its own) lies in exactly one item, in window
+    order, each item whole cells and at most ``seg`` slots (or one cell
+    where a cell holds more); an off-level tile has one empty item; items
+    come by descending window size; the count stays within the host-static
+    bound ``n_tiles * max(1, ceil(max window cells / seg_cells))``."""
     cap = 4
     table = torch.tensor([(3, 2, 1, 0), (4, 4, 4, 1), (1, 5, 3, 0)],
                          dtype=torch.int32)
     lv = torch.tensor(levels, dtype=torch.int32)
-    order, cum = tknn.work_items(lv, table, cap, seg)
+    ext = tknn.table_extents(lv, table)
+    if boxed:
+        box = torch.from_numpy(rng.integers(1, 9, (len(levels), 3)))
+        ext = torch.where(ext > 0, box.to(torch.int32), ext)
+    order, cum = tknn.work_items(lv, table, ext, cap, seg)
     assert order.dtype == torch.int32 and cum.dtype == torch.int32
     assert cum.shape == (len(levels) + 1,) and int(cum[0]) == 0
-    cells = _window_cells(lv, table)
+    cells = _window_cells(lv, table, ext)
     seg_cells = max(1, seg // cap)
     n_items = int(cum[-1])
     bound = len(levels) * max(1, -(-int(cells.max()) // seg_cells))
@@ -120,7 +136,8 @@ def test_work_items_cover_every_window_largest_first(levels, seg):
 
 def test_work_items_empty_table():
     lv = torch.tensor([0, -1, 3], dtype=torch.int32)
-    order, cum = tknn.work_items(lv, torch.zeros((0, 4), dtype=torch.int32),
+    table = torch.zeros((0, 4), dtype=torch.int32)
+    order, cum = tknn.work_items(lv, table, tknn.table_extents(lv, table),
                                  cap=8)
     assert cum.tolist() == [0, 1, 2, 3] and order.tolist() == [0, 1, 2]
 
@@ -138,7 +155,9 @@ def test_launch_scratch_size(rng, n_tiles):
     lv = torch.zeros((n_tiles,), dtype=torch.int32)
     for ws in ((1, 1, 1), (3, 4, 5)):
         table = torch.tensor([(*ws, 0)], dtype=torch.int32)
-        scratch = tknn.launch_scratch(lv, table, dense, cap)
+        scratch = tknn.launch_scratch(lv, table,
+                                      tknn.table_extents(lv, table), dense,
+                                      cap)
         assert sum(t.numel() * t.element_size() for t in scratch) == \
             16 * n_tiles + 8 + n_cells
         occupied, sync = scratch[2], scratch[3]
@@ -147,20 +166,21 @@ def test_launch_scratch_size(rng, n_tiles):
         assert not sync.any()
 
 
-def _split_merge_model(q, points, dense, anchors, levels, table, *, dims,
-                       cap, k, r2, tile, seg, rng):
+def _split_merge_model(q, points, dense, anchors, levels, table, extents,
+                       *, dims, cap, k, r2, tile, seg, rng):
     """Partial top-Ks over each tile's items, each entry keyed by (d2,
     window position), merged in a shuffled order, then the positions turned
     back into ids."""
     n_tiles = anchors.shape[0]
     n_flat = dense.shape[0]
     _, dy, dz = dims
-    order, cum = tknn.work_items(levels, table, cap, seg)
-    items = _decode(order, cum, _window_cells(levels, table), cap, seg)
+    order, cum = tknn.work_items(levels, table, extents, cap, seg)
+    items = _decode(order, cum, _window_cells(levels, table, extents), cap,
+                    seg)
     items = items[torch.from_numpy(rng.permutation(len(items)))]
 
     def ids_at(t, pos):
-        wx, wy, wz, _ = table[int(levels[t])].tolist()
+        wx, wy, wz = extents[t].tolist()
         ax, ay, az = anchors[t].tolist()
         slot, cell = pos % cap, pos // cap
         iz, iy, ix = cell % wz, (cell // wz) % wy, cell // (wz * wy)
@@ -205,15 +225,17 @@ def _split_merge_model(q, points, dense, anchors, levels, table, *, dims,
     return out_d2, out_idx
 
 
+@pytest.mark.parametrize("boxed", [False, True])
 @pytest.mark.parametrize("dup", [False, True])
 @pytest.mark.parametrize("skip", [False, True])
 @pytest.mark.parametrize("k", [1, 8, 32, 100])
-def test_split_merge_model_equals_one_stream(rng, k, skip, dup):
-    """Windows of 27, 120 and 343 cells cut into items of 37 slots (a few
-    whole cells each), merged in a shuffled order:
-    bitwise the one-stream plain version, ties from duplicated points and
-    queries on them included. k = 100 exceeds the valid candidates of the
-    smallest window; two tiles are off the table (-1 and one past it)."""
+def test_split_merge_model_equals_one_stream(rng, k, skip, dup, boxed):
+    """Windows of 27, 120 and 343 cells (or, ``boxed``, a box of up to 512
+    cells a tile) cut into items of 37 slots (a few whole cells each),
+    merged in a shuffled order: bitwise the one-stream plain version, ties
+    from duplicated points and queries on them included. k = 100 exceeds
+    the valid candidates of the smallest window; two tiles are off the
+    table (-1 and one past it)."""
     tile, r = 16, 0.15
     pts, spec, dense = _scene(rng, dup=dup)
     levels = [0, 1, 2, -1, 2, 3, 0]
@@ -221,14 +243,15 @@ def test_split_merge_model_equals_one_stream(rng, k, skip, dup):
                                  dup_queries=pts if dup else None)
     t = torch.from_numpy
     table = _table(skip)
-    args = (t(qs), t(pts), t(dense), t(anchors), t(levels), table)
+    args = (t(qs), t(pts), t(dense), t(anchors), t(levels), table,
+            _extents(rng, spec, anchors, levels, table, boxed))
     kw = dict(dims=spec.dims, cap=spec.capacity, k=k, r2=r * r, tile=tile)
     want_d2, want_idx = tknn.knn_tile_anchored_plain(*args, **kw)
     got_d2, got_idx = _split_merge_model(*args, **kw, seg=37, rng=rng)
     assert torch.equal(got_d2, want_d2) and torch.equal(got_idx, want_idx)
-    if k == 100:   # some row holds fewer than k: +inf / -1 padding
+    if k == 100 and not boxed:   # some row holds fewer than k: padding
         assert torch.isinf(want_d2[:tile]).any()
-    if dup and k > 1:   # a row holds a tie on d2, ordered by position
+    if dup and k > 1 and not boxed:   # a row holds a tie on d2
         tie = want_d2[:, 1:] == want_d2[:, :-1]
         assert (tie & torch.isfinite(want_d2[:, 1:])).any()
 
@@ -249,6 +272,7 @@ def test_kernel_split_matches_plain_on_card(rng, monkeypatch, k, tile):
     for skip in (False, True):
         args = [torch.from_numpy(a).cuda() for a in
                 (qs, pts, dense, anchors, levels)] + [_table(skip).cuda()]
+        args.append(tknn.table_extents(args[4], args[5]))
         kw = dict(dims=spec.dims, cap=spec.capacity, k=k, r2=0.1 ** 2,
                   tile=tile)
         want = tknn.knn_tile_anchored_plain(*args, **kw)
@@ -281,6 +305,7 @@ def test_kernel_any_k_and_tile_matches_plain_on_card(rng, monkeypatch, k,
     for skip in (False, True):
         args = [torch.from_numpy(a).cuda() for a in
                 (qs, pts, dense, anchors, levels)] + [_table(skip).cuda()]
+        args.append(tknn.table_extents(args[4], args[5]))
         kw = dict(dims=spec.dims, cap=spec.capacity, k=k, r2=0.1 ** 2,
                   tile=tile)
         want = tknn.knn_tile_anchored_plain(*args, **kw)

@@ -14,10 +14,22 @@ import torch
 from repro.core.grid import build_cell_grid, choose_grid_spec
 from repro.kernels import ops as jops
 from repro.kernels.knn_tile import knn_tile_anchored as j_knn
+from repro_torch import api as tapi
 from repro_torch.kernels import knn_tile as tknn
 from repro_torch.kernels import ops as tops
 
 D2_ATOL = 1e-6
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this module runs: its many small tensor
+    operations stall on thread barriers when the test workers share the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _grid_fixture(rng, n=500, r=0.15):
@@ -56,8 +68,9 @@ def _tile_inputs(rng, spec, n_tiles, tile, levels):
 def _port_call(qs, pts, dense, anchors, levels, spec, k, r2, tile, skip):
     table = np.asarray([(*ws, int(skip)) for ws, _ in ENTRIES], np.int32)
     t = torch.from_numpy
+    extents = tknn.table_extents(t(levels), t(table))
     d2, idx = tknn.knn_tile_anchored(
-        t(qs), t(pts), t(dense), t(anchors), t(levels), t(table),
+        t(qs), t(pts), t(dense), t(anchors), t(levels), t(table), extents,
         dims=spec.dims, cap=spec.capacity, k=k, r2=r2, tile=tile)
     return d2.numpy(), idx.numpy()
 
@@ -137,6 +150,78 @@ def test_assign_tile_levels(rng, ladder):
     np.testing.assert_array_equal(np.asarray(ja), ta.numpy())
 
 
+def _clusters_in_sparse_cloud(rng):
+    """Five dense clusters in a sparse uniform cloud: queries in the
+    clusters find megacells below full radius, those in the sparse parts
+    do not and stay at full radius."""
+    sparse = rng.random((1000, 3))
+    centers = rng.random((5, 3))
+    dense = (centers[rng.integers(0, 5, 2000)]
+             + rng.normal(0.0, 0.02, (2000, 3)))
+    return np.clip(np.concatenate([sparse, dense]), 0, 1).astype(np.float32)
+
+
+@pytest.mark.parametrize("mode", ["range", "knn"])
+def test_launch_inputs_box_full_radius_tiles(rng, mode):
+    """``launch_inputs`` gives each full-radius tile (its signature's
+    window ``w_full``, the sphere test on) the exact box of its members'
+    windows: it covers each member's ``[c - w_full, c + w_full]`` clipped
+    to the grid, lies inside the grid and inside the ladder's cube, and is
+    no larger than the members' windows need. Every tile below full
+    radius keeps ``assign_tile_levels``' entry, anchor and extent, and the
+    plain version's rows on the boxed inputs are bitwise those on the
+    ladder's."""
+    pts = _clusters_in_sparse_cloud(rng)
+    params = (tapi.SearchParams(radius=0.1, k=8, mode="range")
+              if mode == "range" else
+              tapi.SearchParams(radius=0.1, k=8, knn_window="exact"))
+    tile = 16
+    index = tapi.build_index(
+        pts, params, tapi.SearchOpts(use_pallas=True, query_tile=tile),
+        device="cpu")
+    queries = index.points[torch.from_numpy(rng.choice(len(pts), 320,
+                                                       replace=False))]
+    plan = tapi.plan_query(index, queries)
+    qs = queries[plan.perm.long()]
+    spec, dims = index.spec, tuple(index.spec.dims)
+    args, kw = tops.launch_inputs(index.grid, index.points, qs, spec,
+                                  plan.ladder, plan.tile_levels,
+                                  params.radius, params.k, tile,
+                                  index.origin)
+    n_tiles = qs.shape[0] // tile
+    qc = spec.cell_of(qs, index.origin).reshape(n_tiles, tile, 3)
+    entries = tops.segment_levels(plan.ladder, dims)
+    plevel, anchors = tops.assign_tile_levels(qc, plan.tile_levels,
+                                              plan.ladder, entries, dims)
+    extents = tknn.table_extents(plevel, args[5])
+    assert torch.equal(args[4], plevel)
+
+    w_full = index.statics.w_full
+    full = torch.tensor([w == w_full and not sk for w, sk in plan.ladder])[
+        plan.tile_levels.long()]
+    assert full.any() and (~full).any()
+    below = ~full
+    assert torch.equal(args[3][below], anchors[below])
+    assert torch.equal(args[6][below], extents[below])
+
+    top = torch.tensor([d - 1 for d in dims], dtype=torch.int32)
+    lo_m = (qc[full] - w_full).clamp_min(0)           # members' windows
+    hi_m = torch.minimum(qc[full] + w_full, top)
+    lo, hi = args[3][full], args[3][full] + args[6][full] - 1
+    assert torch.equal(lo, lo_m.min(dim=1).values)
+    assert torch.equal(hi, hi_m.max(dim=1).values)
+    assert (lo >= 0).all() and (hi <= top).all()
+    assert (lo >= anchors[full]).all()
+    assert (hi <= anchors[full] + extents[full] - 1).all()
+    assert (args[6][full].prod(1) < extents[full].prod(1)).any()
+
+    d2_b, idx_b = tknn.knn_tile_anchored_plain(*args, **kw)
+    d2_l, idx_l = tknn.knn_tile_anchored_plain(
+        *args[:3], anchors, plevel, args[5], extents, **kw)
+    assert torch.equal(d2_b, d2_l) and torch.equal(idx_b, idx_l)
+    assert (idx_b >= 0).any()
+
+
 def test_wrapper_rejects_bad_arguments(rng):
     pts, spec, dense = _grid_fixture(rng)
     qs, anchors, levels = _tile_inputs(rng, spec, 2, 8, [0, 1])
@@ -161,6 +246,7 @@ def test_kernel_matches_plain_on_card(rng, k):
                         enumerate(ENTRIES)], np.int32)
     args = [torch.from_numpy(a).cuda() for a in
             (qs, pts, dense, anchors, levels, table)]
+    args.append(tknn.table_extents(args[4], args[5]))
     kw = dict(dims=spec.dims, cap=spec.capacity, k=k, r2=0.15 ** 2,
               tile=tile)
     d2_k, idx_k = tknn.knn_tile_anchored(*args, **kw)

@@ -458,35 +458,48 @@ def test_exported_span_starts_on_the_profilers_clock(tmp_path):
 
 def test_kernel_counters_decode_and_export(monkeypatch):
     """``kernel_counters`` decodes the walk counter's table (here a host
-    stand-in for the device's): totals, the split by signature and the
-    overflow row; ``summary`` and OpenMetrics carry them; ``reset`` zeros
-    them. Without a launch on a card there are none."""
+    stand-in for the device's): totals, the boxed rows, the split by
+    signature (a boxed row apart from its level's cube) and the overflow
+    row; ``summary`` and OpenMetrics carry them; ``reset`` zeros them.
+    Without a launch on a card there are none."""
     from repro_torch.kernels import knn_tile
     assert obs.kernel_counters() == {}
 
-    def key(w, skip):
-        return (w[0] << 43) | (w[1] << 22) | (w[2] << 1) | int(skip)
+    def key(w, skip, boxed=False):
+        return ((w[0] << 42) | (w[1] << 22) | (w[2] << 2) | (int(boxed) << 1)
+                | int(skip))
 
-    table = torch.zeros((4, 5), dtype=torch.int64)
-    table[0] = torch.tensor([key((7, 7, 7), False), 343, 100, 800, 51200])
-    table[2] = torch.tensor([key((3, 3, 5), True), 45, 20, 90, 5760])
-    table[3] = torch.tensor([-1, 10, 1, 2, 128])      # the overflow row
+    table = torch.zeros((5, 6), dtype=torch.int64)
+    table[0] = torch.tensor([key((7, 7, 7), False), 343, 100, 800, 51200,
+                             64])
+    table[1] = torch.tensor([key((7, 7, 7), False, True), 120, 60, 300,
+                             19200, 64])
+    table[2] = torch.tensor([key((3, 3, 5), True), 45, 20, 90, 5760, 64])
+    table[4] = torch.tensor([-(1 << 63), 10, 1, 2, 128, 0])   # overflow
     monkeypatch.setitem(knn_tile._WALK, torch.device("cpu"), table)
     monkeypatch.setattr(knn_tile.knn_tile_anchored, "rows", 192)
     walk = obs.kernel_counters()["knn_tile_anchored"]
     assert {k: v for k, v in walk.items() if k != "by_signature"} == {
-        "query_rows": 192, "window_cells": 398, "occupied_cells": 121,
-        "candidates": 892, "candidate_pairs": 57088}
+        "query_rows": 192, "boxed_rows": 64, "window_cells": 518,
+        "occupied_cells": 181, "candidates": 1192,
+        "candidate_pairs": 76288}
     sigs = {(None if s["window"] is None else tuple(s["window"]),
-             s["sphere_test"]): s for s in walk["by_signature"]}
-    assert sigs[((7, 7, 7), True)]["candidates"] == 800
-    assert sigs[((3, 3, 5), False)]["window_cells"] == 45
-    assert sigs[(None, None)]["candidate_pairs"] == 128
+             s["sphere_test"], s["boxed"]): s for s in walk["by_signature"]}
+    assert sigs[((7, 7, 7), True, False)]["candidates"] == 800
+    assert sigs[((7, 7, 7), True, True)]["window_cells"] == 120
+    assert sigs[((7, 7, 7), True, True)]["query_rows"] == 64
+    assert sigs[((3, 3, 5), False, False)]["window_cells"] == 45
+    assert sigs[(None, None, False)]["candidate_pairs"] == 128
     assert "candidate_pairs" in obs.summary()
+    assert "boxed_rows" in obs.summary()
     text = obs.export_openmetrics()
     assert ('repro_kernel_knn_tile_anchored_candidate_pairs_total'
-            '{window="7x7x7",sphere_test="true"} 51200') in text
+            '{window="7x7x7",sphere_test="true",boxed="false"} 51200') \
+        in text
+    assert ('repro_kernel_knn_tile_anchored_candidate_pairs_total'
+            '{window="7x7x7",sphere_test="true",boxed="true"} 19200') in text
     assert "repro_kernel_knn_tile_anchored_query_rows_total 192" in text
+    assert "repro_kernel_knn_tile_anchored_boxed_rows_total 64" in text
     obs.reset()
     assert int(table.abs().sum()) == 0
     assert knn_tile.knn_tile_anchored.rows == 0
